@@ -26,6 +26,11 @@ def pytest_configure(config):
         "(scripts/ci.sh, 8 forced host devices) runs them; skip "
         "locally with -m 'not slow' or scripts/ci.sh --fast",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written "
+        "kernels); skips on a host without one",
+    )
 
 
 def pytest_terminal_summary(terminalreporter, exitstatus, config):

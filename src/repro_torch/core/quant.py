@@ -72,7 +72,9 @@ def quantize(
     """Quantize to signed integers; returns (q int8, scale float32).
 
     1-bit is binary-connect style: sign(w) in {-1, +1} with scale mean|w|.
-    Fully-zero channels are guarded by float32's smallest normal.
+    Fully-zero channels are guarded by float32's smallest normal; where
+    that guard divided by qmax is subnormal (4 and 8 bits), the stored
+    scale is flushed to 0, as XLA flushes it in the reference.
     """
     w = w.to(torch.float32)
     if cfg.bits == 1:
@@ -81,7 +83,9 @@ def quantize(
         return q, scale
     amax = _channel_reduce(w.abs(), torch.amax, cfg).clamp_min(_TINY)
     scale = amax / cfg.qmax
+    # codes first: 0 / subnormal is code 0, the reference's code
     q = torch.clamp(torch.round(w / scale), cfg.qmin, cfg.qmax)
+    scale = torch.where(scale < _TINY, 0.0, scale)
     return q.to(torch.int8), scale
 
 

@@ -1,5 +1,6 @@
-"""Shape plumbing shared by the kernel wrappers, and the plain form of the
-in-kernel weight decompression (port of `repro.kernels._common`).
+"""Shape plumbing shared by the kernel wrappers, and the plain forms of the
+in-kernel weight unpacking and decompression (port of
+`repro.kernels._common`).
 
 The reference's `pad_to` has no counterpart: the CUDA kernels mask their
 ragged edges themselves instead of taking tile-padded operands.
@@ -16,6 +17,27 @@ def flatten_batch(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
     """(..., K) -> ((M, K), leading_shape) for 2-D kernel entry."""
     lead = tuple(x.shape[:-1])
     return x.reshape(math.prod(lead), x.shape[-1]), lead
+
+
+def unpack_tile(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 (Kp, N) packed words -> signed int32 (Kp*vpb, N).
+
+    Each byte holds vpb = 8/bits two's-complement fields, least
+    significant first along K (`core.quant.pack_planes`); 1-bit fields
+    decode {0,1} -> {-1,+1}. No slicing to a K: every field is returned.
+    """
+    vpb = 8 // bits
+    mask = (1 << bits) - 1
+    kp, n = packed.shape
+    shifts = (
+        torch.arange(vpb, dtype=torch.int32, device=packed.device) * bits
+    ).reshape(1, vpb, 1)
+    u = (packed.to(torch.int32)[:, None, :] >> shifts) & mask
+    u = u.reshape(kp * vpb, n)
+    if bits == 1:
+        return torch.where(u > 0, 1, -1).to(torch.int32)
+    sign_bit = 1 << (bits - 1)
+    return torch.where(u >= sign_bit, u - (1 << bits), u)
 
 
 def decompress_tile(

@@ -1,12 +1,12 @@
-"""PyTorch port's `nm_spmm` vs the JAX package's, and the CUDA kernel vs
-its plain version.
+"""PyTorch port's kernel wrappers (`nm_spmm`, `quant_matmul`,
+`sparse_conv1d`) and oracles vs the JAX package's, the ported kernel
+benchmark, and the wrappers' boundaries.
 
-On this CPU host the port's `ops.nm_spmm` dispatches to the plain
-version (decompress + one float32 matmul) and the JAX one runs its Pallas
-kernel in interpret mode, as the JAX suite does. Both are held to
-1e-4 — the float32 tolerance of tests/test_kernels.py: the two sum in
-different orders. The CUDA kernel itself runs only on a card
-(tests/test_torch_cuda.py).
+On a CPU host the port's `ops.*` dispatch to the plain versions and the
+JAX ones run their Pallas kernels in interpret mode, as the JAX suite
+does. Both are held to 1e-4 — the float32 tolerance of
+tests/test_kernels.py: the two sum in different orders. The CUDA kernels
+themselves run only on a card (tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
@@ -130,3 +130,164 @@ def test_cuda_wrapper_checks_before_launching():
                         group_size=G, keep=KEEP)
     assert tk.launches == before
 
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul and sparse_conv1d (the kernel benchmark's other two kernels)
+# ---------------------------------------------------------------------------
+
+
+def _packed(k: int, nn: int, bits: int, seed: int):
+    """uint8 packed planes and (1, N) f32 scale — numpy, via the JAX
+    quantizer (the port's is bit-identical, tests/test_torch_core.py)."""
+    w = np.random.default_rng(seed).standard_normal((k, nn)).astype(np.float32)
+    q, scale = JQ.quantize(jnp.asarray(w), JQ.QuantConfig(bits=bits))
+    return n(JQ.pack_planes(q, bits)), n(scale).reshape(1, -1)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+@pytest.mark.parametrize("m,k,nn", [(8, 64, 16), (33, 128, 40)])
+def test_quant_matmul_matches_jax(bits, m, k, nn):
+    packed, sc = _packed(k, nn, bits, bits)
+    x = _x((m, k), 9)
+    xj, pj, sj = jnp.asarray(x), jnp.asarray(packed), jnp.asarray(sc)
+    want = {
+        "ops": jops.quant_matmul(xj, pj, sj, bits=bits),
+        "quant_matmul_ref": jref.quant_matmul_ref(xj, pj, sj, bits=bits, k=k),
+        "bitserial_matmul_ref": jref.bitserial_matmul_ref(xj, pj, sj,
+                                                          bits=bits, k=k),
+    }
+    y = tops.quant_matmul(t(x), t(packed), t(sc), bits=bits)
+    y_ref = tref.quant_matmul_ref(t(x), t(packed), t(sc), bits=bits, k=k)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (m, nn)
+    for got in (y, y_ref):
+        for name, y_jax in want.items():
+            np.testing.assert_allclose(n(got), n(y_jax), rtol=TOL, atol=TOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("ks,stride,c,nn,tt", [
+    (7, 2, 4, 16, 512),   # VA layer 0
+    (5, 2, 24, 32, 256),  # VA layer 1-ish
+    (3, 1, 32, 48, 128),
+    (1, 1, 96, 2, 16),    # 1x1 head
+])
+def test_sparse_conv1d_matches_jax(ks, stride, c, nn, tt):
+    k_dense = -(-(ks * c) // G) * G
+    q, sel, sc = _compressed(k_dense, nn, ks)
+    x = _x((2, tt, c), 3)
+    args_j = (jnp.asarray(x), jnp.asarray(q), jnp.asarray(sel), jnp.asarray(sc))
+    kw = dict(ksize=ks, stride=stride, group_size=G, keep=KEEP)
+    y_jax = jops.sparse_conv1d(*args_j, **kw)
+    y_jref = jref.sparse_conv1d_ref(*args_j, **kw)
+    y = tops.sparse_conv1d(t(x), t(q), t(sel), t(sc), **kw)
+    y_ref = tref.sparse_conv1d_ref(t(x), t(q), t(sel), t(sc), **kw)
+    assert tuple(y.shape) == (2, (tt - 1) // stride + 1, nn)
+    assert y.dtype == torch.float32
+    for got in (y, y_ref):
+        np.testing.assert_allclose(n(got), n(y_jax), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(n(got), n(y_jref), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_unpack_tile_identical(bits):
+    packed = np.random.default_rng(bits).integers(0, 256, (12, 7), np.uint8)
+    uj = jcommon.unpack_tile(jnp.asarray(packed), bits)
+    ut = tcommon.unpack_tile(t(packed), bits)
+    assert ut.dtype == torch.int32 and n(uj).dtype == np.int32
+    np.testing.assert_array_equal(n(ut), n(uj))
+
+
+def test_sparse_conv1d_equals_im2col_then_nm_spmm():
+    """The fused layer is `execute`'s im2col -> pad -> nm_spmm, before
+    bias, on a narrow VA layer compiled by the port."""
+    from _torch_bridge import CPU, configs, np_params
+    from repro_torch import convert
+    from repro_torch.core import compiler as tc
+
+    _, cfg = configs(False)
+    params = convert.params_from_numpy(np_params(cfg.layers, 5), device=CPU)
+    layer = tc.compile_model(params, cfg).layers["conv1"]
+    ks, stride = 5, 2  # conv1 of the narrow stack: 16 -> 24 channels
+    x = t(_x((2, 256, 16), 4))
+    kw = dict(group_size=G, keep=KEEP)
+    flat = tspe.im2col(x, ks, stride)
+    flat = torch.nn.functional.pad(flat, (0, layer.k_dense - flat.shape[-1]))
+    want = tops.nm_spmm(flat, layer.values_q, layer.select, layer.scale, **kw)
+    got = tops.sparse_conv1d(x, layer.values_q, layer.select, layer.scale,
+                             ksize=ks, stride=stride, **kw)
+    assert tuple(got.shape) == (2, 128, 24)
+    np.testing.assert_allclose(n(got), n(want), rtol=TOL, atol=TOL)
+
+
+def test_kernel_benchmark_rows_on_cpu():
+    """The ported benchmark runs the reference's rows, in its order, with
+    its derived columns (its own asserts hold every output to the oracle)."""
+    from repro_torch.benchmarks import kernels as bench
+
+    rows = bench.run(device="cpu")
+    assert [r[0] for r in rows] == [
+        "kernels.nm_spmm", "kernels.quant_matmul_8b", "kernels.quant_matmul_4b",
+        "kernels.quant_matmul_2b", "kernels.quant_matmul_1b",
+        "kernels.sparse_conv1d",
+    ]
+    assert all(us > 0 for _, us, _ in rows)
+    assert rows[0][2] == "hbm_bytes=99328 vs_dense_f32=524288 (5.28x)"
+    assert rows[4][2] == "hbm_bytes=17408 (30.12x)"
+
+
+def _conv_args(device="cpu"):
+    q, sel, sc = _compressed(32, 16, 0)
+    x = torch.zeros((2, 64, 4), device=device)
+    return x, t(q), t(sel), t(sc)
+
+
+def _qm_args(device="cpu"):
+    packed, sc = _packed(64, 16, 4, 0)
+    return torch.zeros((4, 64), device=device), t(packed), t(sc)
+
+
+@pytest.mark.parametrize("op", ["quant_matmul", "sparse_conv1d"])
+def test_new_wrappers_have_no_fallback_for_other_devices(op):
+    with pytest.raises(ValueError, match="no kernel for device"):
+        if op == "quant_matmul":
+            tops.quant_matmul(*_qm_args("meta"), bits=4)
+        else:
+            tops.sparse_conv1d(*_conv_args("meta"), ksize=7, stride=2,
+                               group_size=G, keep=KEEP)
+
+
+@pytest.mark.parametrize("op", ["quant_matmul", "sparse_conv1d"])
+def test_new_cuda_wrappers_check_before_building(op):
+    """CPU tensors are refused before any build or launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import quant_matmul as tqm
+    from repro_torch.kernels import sparse_conv1d as tsc
+
+    mod = tqm if op == "quant_matmul" else tsc
+    before = mod.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if op == "quant_matmul":
+            tqm.quant_matmul_cuda(*_qm_args(), bits=4)
+        else:
+            tsc.sparse_conv1d_cuda(*_conv_args(), ksize=7, stride=2,
+                                   group_size=G, keep=KEEP)
+    assert mod.launches == before
+    assert op not in _build._LOADED
+
+
+@pytest.mark.parametrize("case", ["quant_k", "quant_bits", "conv_k_dense"])
+def test_new_wrappers_reject_bad_geometry(case):
+    if case == "quant_k":  # 4-bit: 32 packed rows hold K = 64, not 48
+        x, packed, sc = _qm_args()
+        with pytest.raises(ValueError, match="K=48"):
+            tops.quant_matmul(x[:, :48], packed, sc, bits=4)
+    elif case == "quant_bits":
+        x, packed, sc = _qm_args()
+        with pytest.raises(ValueError, match="bits must be one of"):
+            tops.quant_matmul(x, packed, sc, bits=3)
+    else:  # Kk = 16 covers a dense K of 32 < ksize * C = 7 * 8
+        _, q, sel, sc = _conv_args()
+        with pytest.raises(ValueError, match="k_dense=32"):
+            tops.sparse_conv1d(torch.zeros((2, 64, 8)), q, sel, sc, ksize=7,
+                               stride=2, group_size=G, keep=KEEP)

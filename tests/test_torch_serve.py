@@ -26,6 +26,7 @@ from repro.data import iegm as jiegm
 from repro.serve import va_service as jsvc
 from repro.stream import runner as jrunner
 from repro_torch import convert
+from repro_torch.benchmarks import kernels as bench_kernels
 from repro_torch.core import compiler as tc
 from repro_torch.core import vadetect as tva
 from repro_torch.data import iegm as tiegm
@@ -116,12 +117,14 @@ def test_synth_batches_are_seeded():
 
 
 def test_port_imports_no_jax():
-    """The port's serving path imports neither jax nor anything of the
-    JAX package (checked in a fresh interpreter: this one has jax)."""
+    """The port's serving path and its kernel benchmark import neither jax
+    nor anything of the JAX package (checked in a fresh interpreter: this
+    one has jax)."""
     code = (
         "import sys, repro_torch.serve.va_service, repro_torch.convert, "
         "repro_torch.configs.va_cnn, repro_torch.data.iegm, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.kernels.sparse_conv1d, "
+        "repro_torch.kernels.quant_matmul, repro_torch.benchmarks.kernels\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -133,7 +136,9 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["init", "synth", "params", "runner", "service"])
+@pytest.mark.parametrize(
+    "entry", ["init", "synth", "params", "runner", "service", "benchmark"]
+)
 def test_default_device_raises_without_a_card(entry):
     """`device=None` means the CUDA card; with none present an entry
     point raises instead of running on the CPU."""
@@ -146,6 +151,7 @@ def test_default_device_raises_without_a_card(entry):
         "params": lambda: convert.params_from_numpy(np_params(cfg_t.layers, 0)),
         "runner": lambda: trunner.FleetRunner(prog_t, cfg_t, path="kernel"),
         "service": lambda: tsvc.VAService(prog_t, cfg_t, path="kernel"),
+        "benchmark": lambda: bench_kernels.run(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's VA diagnosis path and its kernel benchmark on
-one CUDA card.
+"""Drive the PyTorch port's VA diagnosis path, its kernel benchmark, the
+CMUL sweep and VA co-design training (the quickstart) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,22 +8,29 @@ Run from the repository root on a machine with an H100 and the CUDA
 toolkit. Phases, each printing JSON lines:
 
 1. device — the card (nvidia-smi's name and power limit), then a build of
-   every CUDA kernel (nm_spmm, sparse_conv1d, quant_matmul) from
-   src/repro_torch/kernels/csrc, one nvcc each, all at once;
+   every CUDA kernel (nm_spmm, sparse_conv1d, quant_matmul,
+   bitserial_matmul) from src/repro_torch/kernels/csrc, one nvcc each,
+   all at once;
 2. kernel — each kernel against its plain PyTorch version: nm_spmm and
    sparse_conv1d at the seven sparse VA layers at bucket 256 (the fused
    layer also against im2col -> pad -> nm_spmm, which execute runs), a
    head-like and a ragged shape; quant_matmul at 8/4/2/1 bits x three
-   shapes;
-3. service and benchmark — VAService.diagnose_batch and
-   FleetRunner.classify on path="kernel" at full width (configs/va_cnn
-   CONFIG, then MIXED), held against the reference and twin paths; then
-   the kernel benchmark, repro_torch.benchmarks.kernels.run, on the card.
-   Each run's kernel launches are counted from 0;
+   shapes; bitserial_matmul at the same 12 cases, also against the CUDA
+   quant_matmul and quant.quantized_matmul(exact_bitserial=True);
+3. paths — VAService.diagnose_batch and FleetRunner.classify on
+   path="kernel" at full width (configs/va_cnn CONFIG, then MIXED), held
+   against the reference and twin paths; the kernel benchmark,
+   repro_torch.benchmarks.kernels.run; the CMUL sweep through
+   ops.bitserial_matmul; the cuDNN TF32 check of the training path's
+   convolutions; the quickstart, repro_torch.examples.quickstart.run, at
+   full width (200 adam steps at batch 64, compile, diagnose on the
+   kernel path); and one train step on the card against the same step on
+   the CPU for CONFIG, MIXED and DENSE. Each path's kernel launches are
+   counted from 0;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
-   and benchmark shape, the fused layer against im2col + nm_spmm, and the
-   whole execute, on the card.
+   and benchmark shape, the fused layer against im2col + nm_spmm, the
+   whole execute, and one train step (host and device time), on the card.
 
 The line before the last is the {"kernels": [...]} summary, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either;
@@ -34,6 +41,7 @@ Imports nothing of jax and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,9 +58,20 @@ CONV_EXTRA = (  # (B, T, C, N, ksize, stride) beside the VA layers
     (3, 200, 8, 40, 5, 2),  # ragged: T_out 100 and N 40 off the tiles
 )
 QUANT_SHAPES = ((128, 512, 256), (33, 128, 40), (8, 64, 16))  # (M, K, N)
+CMUL_SWEEP = ((8, 64, 16), (33, 128, 40))  # tests/test_kernels.py's sweep
 KERNEL_RTOL = 1e-4  # max|kernel - plain| / max|plain| (f32, tests/test_kernels.py)
+DEQUANT_TOL = 1e-3  # against x @ dequantize(q, scale) (tests/test_kernels.py)
 LOGITS_TOL = 1e-3  # kernel path vs reference path (tests/test_vadetect.py)
+# one train step, card against CPU: max|card - cpu| / max|cpu| of the loss,
+# grad norm, params and moments. Both are float32; cuDNN sums the
+# convolutions' gradients in another (and run-to-run varying) order than
+# the CPU, and Adam's warm moments pass that on at its own size.
+STEP_RTOL = 1e-4
+TF32_RTOL = 1e-5  # a float32 gradient held against one with TF32 allowed
+TRAIN_BATCH = 64  # the quickstart's batch
 REPS = 25  # timed runs per function; the median is kept
+STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one step
+PROFILE_STEPS = 5
 # H100 SXM data sheet: HBM rate, and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -67,10 +86,12 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def device_ms(torch, fn) -> float:
+def device_ms(torch, fn, sleep_cycles: int = 2_000_000, enqueue=None) -> float:
     """Median device time of `fn` in ms over REPS runs, warm. A sleep
     kernel ahead of each run keeps the card busy while the host enqueues
-    the run, so host overhead does not count."""
+    the run, so host overhead does not count as long as the enqueue ends
+    before the sleep does (`fn` must not wait on the card). Where
+    `enqueue` is a list, the host's enqueue times in ms are appended."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -78,9 +99,12 @@ def device_ms(torch, fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        if enqueue is not None:
+            enqueue.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -124,9 +148,9 @@ def conv_bound(x, n: int, kk: int, valid: int, t_out: int) -> tuple[float, float
 
 
 def quant_bound(m: int, k: int, n: int, packed_bytes: int) -> tuple[float, float]:
-    """Least times in ms for one quant_matmul: (bytes, operations) — x,
-    the packed weight and scale read once and y written once, and
-    2 * M * K * N float32 operations."""
+    """Least times in ms for one quant_matmul or bitserial_matmul (the same
+    function): (bytes, operations) — x, the packed weight and scale read
+    once and y written once, and 2 * M * K * N float32 operations."""
     nbytes = m * k * 4 + packed_bytes + n * 4 + m * n * 4
     return nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / F32_FLOP_PER_S * 1e3
 
@@ -135,6 +159,13 @@ def rel_err(y, y_ref) -> tuple[float, float]:
     """(max abs error, that over max|y_ref|)."""
     err = float((y - y_ref).abs().max())
     return err, err / max(float(y_ref.abs().max()), 1e-30)
+
+
+def tree_rel(got: dict, want: dict, leaves) -> float:
+    """max |got - want| / max |want| over two trees of one structure."""
+    pairs = list(zip(leaves(got), leaves(want)))
+    err = max(float((g.cpu() - w.cpu()).abs().max()) for g, w in pairs)
+    return err / max(max(float(w.abs().max()) for _, w in pairs), 1e-30)
 
 
 def layer_problems(cfg, vadetect) -> list[dict]:
@@ -161,17 +192,23 @@ def main() -> int:
 
     import torch.nn.functional as F
 
+    from repro_torch import optim
+    from repro_torch._tree import leaves, tree_map
     from repro_torch.benchmarks import kernels as bench
     from repro_torch.configs import va_cnn
     from repro_torch.core import compiler, quant, spe, vadetect
     from repro_torch.data import iegm
+    from repro_torch.examples import quickstart
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import bitserial as BS
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import sparse_conv1d as SC
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels._common import decompress_tile, unpack_tile
     from repro_torch.serve.va_service import VAService
     from repro_torch.stream.runner import FleetRunner
+    from repro_torch.train import trainer
 
     # full float32 for every reference matmul (the default; stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,12 +226,12 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
     t0 = time.perf_counter()
-    built = _build.build((K.NAME, SC.NAME, QM.NAME))
+    built = _build.build((K.NAME, SC.NAME, QM.NAME, BS.NAME))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": [{"name": b.name, "seconds": b.seconds,
                        "ptxas": [ln.strip() for ln in b.log.splitlines()
-                                 if "ptxas info" in ln and ("Used" in ln
-                                                            or "spill" in ln)]}
+                                 if ("ptxas info" in ln and "Used" in ln)
+                                 or "spill" in ln]}
                       for b in built]})
 
     # -- 2. each kernel against its plain version ---------------------------
@@ -293,6 +330,38 @@ def main() -> int:
             check(rel <= KERNEL_RTOL,
                   f"quant_matmul {bits}b {(m_q, k_q, n_q)}: rel err {rel}")
 
+    # bitserial_matmul: the same 12 cases, against its plain version, the
+    # CUDA quant_matmul on the same packed weight, and the core CMUL math
+    bs_err = 0.0
+    for bits in BS.BITS:
+        for m_q, k_q, n_q in QUANT_SHAPES:
+            w = torch.randn((k_q, n_q), generator=gen_dev, device=dev)
+            q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+            packed = quant.pack_planes(q, bits)
+            x = torch.randn((m_q, k_q), generator=gen_dev, device=dev)
+            y_k = BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)
+            torch.cuda.synchronize()
+            others = {
+                "plain": BS.bitserial_matmul_plain(x, packed, sc, bits=bits),
+                "quant_matmul": QM.quant_matmul_cuda(x, packed, sc, bits=bits),
+                "quantized_matmul_exact_bitserial": quant.quantized_matmul(
+                    x, q, sc, bits, exact_bitserial=True),
+            }
+            torch.cuda.synchronize()
+            line = {"phase": "kernel", "kernel": BS.NAME, "bits": bits,
+                    "m": m_q, "k": k_q, "n": n_q, "tol": KERNEL_RTOL}
+            check(tuple(y_k.shape) == (m_q, n_q), f"bitserial {bits}b: shape")
+            check(bool(torch.isfinite(y_k).all()), f"bitserial {bits}b: non-finite")
+            for name, y_o in others.items():
+                err, rel = rel_err(y_k, y_o)
+                if name == "plain":
+                    bs_err = max(bs_err, err)
+                line[f"max_abs_err_vs_{name}"] = err
+                line[f"rel_err_vs_{name}"] = rel
+                check(rel <= KERNEL_RTOL, f"bitserial_matmul {bits}b "
+                      f"{(m_q, k_q, n_q)} vs {name}: rel err {rel}")
+            emit(line)
+
     # -- 3. the service path at full width ----------------------------------
     main_launches = None
     gen = torch.Generator().manual_seed(SEED)  # CPU: same weights anywhere
@@ -307,7 +376,7 @@ def main() -> int:
         service = VAService(program, cfg, path="kernel", device=dev)
         runner = FleetRunner(program, cfg, path="kernel", device=dev)
 
-        K.launches = SC.launches = QM.launches = 0
+        K.launches = SC.launches = QM.launches = BS.launches = 0
         diag_k = service.diagnose_batch(recs)
         torch.cuda.synchronize()
         n_service = K.launches
@@ -320,9 +389,10 @@ def main() -> int:
         check(n_service == n_sparse and n_runner == n_sparse,
               f"{cname}: launches per execute {n_service}, {n_runner}, "
               f"expected {n_sparse}")
-        check(SC.launches == 0 and QM.launches == 0,
+        check(SC.launches == 0 and QM.launches == 0 and BS.launches == 0,
               f"{cname}: execute launched sparse_conv1d {SC.launches}, "
-              f"quant_matmul {QM.launches} times; it runs only nm_spmm")
+              f"quant_matmul {QM.launches}, bitserial_matmul {BS.launches} "
+              "times; it runs only nm_spmm")
 
         # comparisons (their launches are not counted above)
         logits = {
@@ -366,18 +436,183 @@ def main() -> int:
 
     # the kernel benchmark on the card: per row one warm call + REPS
     calls = 1 + bench.REPS
-    expected = {K.NAME: calls, SC.NAME: calls, QM.NAME: 4 * calls}
-    K.launches = SC.launches = QM.launches = 0
+    expected = {K.NAME: calls, SC.NAME: calls, QM.NAME: 4 * calls, BS.NAME: 0}
+    K.launches = SC.launches = QM.launches = BS.launches = 0
     rows = bench.run(device="cuda")
     torch.cuda.synchronize()
     bench_launches = {K.NAME: K.launches, SC.NAME: SC.launches,
-                      QM.NAME: QM.launches}
+                      QM.NAME: QM.launches, BS.NAME: BS.launches}
     emit({"phase": "benchmark", "entry": "repro_torch.benchmarks.kernels.run",
           "rows": [{"name": r[0], "us_per_call": r[1], "derived": r[2]}
                    for r in rows],
           "launches": bench_launches, "expected_launches": expected})
     check(bench_launches == expected,
           f"benchmark launches {bench_launches}, expected {expected}")
+
+    # the CMUL sweep (tests/test_kernels.py:43-60, the only caller of the
+    # reference's bitserial kernel): ops.bitserial_matmul and
+    # ops.quant_matmul on every width at the sweep's two shapes
+    sweep = []
+    for bits in BS.BITS:
+        for m_q, k_q, n_q in CMUL_SWEEP:
+            w = torch.randn((k_q, n_q), generator=gen_dev, device=dev)
+            q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+            x = torch.randn((m_q, k_q), generator=gen_dev, device=dev)
+            sweep.append((bits, x, q, sc, quant.pack_planes(q, bits)))
+    K.launches = SC.launches = QM.launches = BS.launches = 0
+    outs = [(ops.bitserial_matmul(x, packed, sc, bits=bits),
+             ops.quant_matmul(x, packed, sc, bits=bits))
+            for bits, x, q, sc, packed in sweep]
+    torch.cuda.synchronize()
+    sweep_launches = {K.NAME: K.launches, SC.NAME: SC.launches,
+                      QM.NAME: QM.launches, BS.NAME: BS.launches}
+    expected = {K.NAME: 0, SC.NAME: 0, QM.NAME: len(sweep), BS.NAME: len(sweep)}
+    worst = dict(ref=0.0, quant=0.0, dequant=0.0)
+    for (bits, x, q, sc, packed), (y_b, y_q) in zip(sweep, outs):
+        y_ref = kref.bitserial_matmul_ref(x, packed, sc, bits=bits,
+                                          k=x.shape[1])
+        y_deq = x @ quant.dequantize(q, sc)
+        worst["ref"] = max(worst["ref"], rel_err(y_b, y_ref)[1])
+        worst["quant"] = max(worst["quant"], rel_err(y_q, y_ref)[1])
+        worst["dequant"] = max(worst["dequant"], rel_err(y_b, y_deq)[1])
+    emit({"phase": "cmul_sweep", "entry": "kernels.ops.bitserial_matmul",
+          "cases": len(sweep), "launches": sweep_launches,
+          "expected_launches": expected,
+          "rel_err_bitserial_vs_ref": worst["ref"],
+          "rel_err_quant_matmul_vs_ref": worst["quant"],
+          "rel_err_bitserial_vs_dequant_matmul": worst["dequant"]})
+    check(sweep_launches == expected,
+          f"CMUL sweep launches {sweep_launches}, expected {expected}")
+    check(worst["ref"] <= KERNEL_RTOL and worst["quant"] <= KERNEL_RTOL,
+          f"CMUL sweep against the oracle: {worst}")
+    check(worst["dequant"] <= DEQUANT_TOL,
+          f"CMUL sweep against x @ dequantize: {worst}")
+
+    # cuDNN's TF32 in the backward of the training path's convolutions: per
+    # VA layer at the quickstart's batch, gradients with TF32 allowed (the
+    # library's default) against those of a float32 convolution, for the
+    # former form (TF32 off around the forward only, so the backward ran
+    # outside the flags) and for the port's spe.conv1d_same
+    def conv_grads(x, w, stride, form):
+        x = x.detach().requires_grad_(True)
+        w = w.detach().requires_grad_(True)
+        if form == "port":
+            y = spe.conv1d_same(x, w, stride)
+        else:
+            _, pad_l, pad_r = spe.same_padding(x.shape[1], w.shape[0], stride)
+            xc = F.pad(x.transpose(1, 2), (pad_l, pad_r))
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                y = F.conv1d(xc, w.permute(2, 1, 0), stride=stride)
+            y = y.transpose(1, 2)
+        g_y = torch.ones_like(y).bernoulli_(0.5, generator=gen_dev) - 0.5
+        return torch.autograd.grad((y * g_y).sum(), (x, w))
+
+    tf32_default = torch.backends.cudnn.allow_tf32
+    tf32_rows = []
+    for m in vadetect.layer_shapes(va_cnn.CONFIG):
+        x = torch.randn((TRAIN_BATCH, m["t_in"], m["c_in"]), generator=gen_dev,
+                        device=dev)
+        w = torch.randn((m["ksize"], m["c_in"], m["c_out"]), generator=gen_dev,
+                        device=dev) * (2.0 / (m["ksize"] * m["c_in"])) ** 0.5
+        seed = int(torch.randint(2**31, (1,), generator=gen_dev, device=dev))
+        grads = {}
+        for form, tf32 in (("f32", False), ("former", True), ("port", True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            gen_dev.manual_seed(seed)  # the same upstream gradient for each
+            grads[form] = conv_grads(x, w, m["stride"],
+                                     "port" if form == "port" else "former")
+        torch.backends.cudnn.allow_tf32 = tf32_default
+        row = {"layer": m["name"]}
+        for form in ("former", "port"):
+            for name, g, g_ref in zip(("x", "w"), grads[form], grads["f32"]):
+                row[f"rel_err_{form}_grad_{name}"] = rel_err(g, g_ref)[1]
+        tf32_rows.append(row)
+    # the whole loss's gradients, TF32 allowed against not
+    cfg = va_cnn.CONFIG
+    params = vadetect.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    batch = iegm.IEGMStream(batch=TRAIN_BATCH, seed=SEED, device=dev).batch_at(0)
+    step_grads = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = vadetect.loss_fn(live, batch, cfg)
+        step_grads[tf32] = torch.autograd.grad(loss, leaves(live))
+    torch.backends.cudnn.allow_tf32 = tf32_default
+    step_tf32 = max(rel_err(a, b)[1]
+                    for a, b in zip(step_grads[True], step_grads[False]))
+    emit({"phase": "tf32", "batch": TRAIN_BATCH, "layers": tf32_rows,
+          "rel_err_port_loss_grads_tf32_allowed_vs_not": step_tf32,
+          "tol_port": TF32_RTOL})
+    for row in tf32_rows:
+        check(max(row["rel_err_port_grad_x"], row["rel_err_port_grad_w"])
+              <= TF32_RTOL, f"TF32 in the port's conv backward: {row}")
+    check(step_tf32 <= TF32_RTOL, f"TF32 in the loss's gradients: {step_tf32}")
+
+    # the quickstart at full width: train, compile, diagnose, report
+    K.launches = SC.launches = QM.launches = BS.launches = 0
+    t0 = time.perf_counter()
+    qs = quickstart.run(device="cuda")
+    torch.cuda.synchronize()
+    qs_seconds = time.perf_counter() - t0
+    qs_launches = {K.NAME: K.launches, SC.NAME: SC.launches,
+                   QM.NAME: QM.launches, BS.NAME: BS.launches}
+    expected = {K.NAME: len(layer_problems(va_cnn.CONFIG, vadetect)),
+                SC.NAME: 0, QM.NAME: 0, BS.NAME: 0}
+    losses = qs["losses"]
+    first10, last10 = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    emit({"phase": "quickstart", "entry": "repro_torch.examples.quickstart.run",
+          "steps": len(losses), "batch": TRAIN_BATCH,
+          "loss_every_50": {i: losses[i] for i in range(0, len(losses), 50)},
+          "loss_first10_mean": first10, "loss_last10_mean": last10,
+          "accuracy_last10_mean": statistics.mean(qs["accuracies"][-10:]),
+          "compiled_kib": qs["compiled_kib"], "compression": qs["compression"],
+          "diagnostic_accuracy": f"{qs['correct']}/{qs['patients']}",
+          "chip": qs["chip"], "seconds": qs_seconds,
+          "launches": qs_launches, "expected_launches": expected})
+    check(qs_launches == expected,
+          f"quickstart launches {qs_launches}, expected {expected}")
+    check(len(losses) == 200 and all(map(math.isfinite, losses)),
+          "quickstart losses: not 200 finite values")
+    check(last10 < first10, f"quickstart loss did not fall: {first10} -> {last10}")
+
+    # one train step on the card against the same step on the CPU, from
+    # warm Adam moments (3 CPU steps first) on the same batch
+    cpu = torch.device("cpu")
+    step_states = {}
+    for cname, cfg in (("CONFIG", va_cnn.CONFIG), ("MIXED", va_cnn.MIXED),
+                       ("DENSE", va_cnn.DENSE)):
+        opt = optim.adam(3e-3)
+        step = trainer.make_train_step(
+            lambda p, b, cfg=cfg: vadetect.loss_fn(p, b, cfg), opt, clip_norm=1.0)
+        state = trainer.init_state(
+            vadetect.init(torch.Generator().manual_seed(SEED), cfg, device=cpu),
+            opt, device=cpu)
+        stream = iegm.IEGMStream(batch=TRAIN_BATCH, seed=SEED, device=cpu)
+        for i in range(3):
+            state, _ = step(state, stream.batch_at(i))
+        batch = stream.batch_at(3)
+        state_d = tree_map(lambda v: v.to(dev), state)
+        batch_d = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        new_c, m_c = step(state, batch)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        new_d, m_d = step(state_d, batch_d)
+        torch.cuda.synchronize()
+        errs = {
+            "loss": rel_err(m_d["loss"].cpu(), m_c["loss"])[1],
+            "grad_norm": rel_err(m_d["grad_norm"].cpu(), m_c["grad_norm"])[1],
+            "params": tree_rel(new_d["params"], new_c["params"], leaves),
+            "adam_m": tree_rel(new_d["opt"]["m"], new_c["opt"]["m"], leaves),
+            "adam_v": tree_rel(new_d["opt"]["v"], new_c["opt"]["v"], leaves),
+        }
+        emit({"phase": "train_step", "config": cname, "batch": TRAIN_BATCH,
+              "rel_err_card_vs_cpu": errs, "tol": STEP_RTOL,
+              "loss": float(m_c["loss"]), "grad_norm": float(m_c["grad_norm"]),
+              "cpu_step_wall_ms": cpu_ms})
+        check(max(errs.values()) <= STEP_RTOL,
+              f"{cname}: card step vs CPU step {errs}")
+        check(int(new_d["step"]) == 4, f"{cname}: step count {int(new_d['step'])}")
+        step_states[cname] = (step, state_d, batch_d)
 
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
@@ -465,12 +700,75 @@ def main() -> int:
               "k": bench.K, "n": bench.N, **t,
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
 
+    bs_totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bs_bytes_ms = bs_ops_ms = 0.0
+    for bits in BS.BITS:
+        w = torch.randn((bench.K, bench.N), generator=gen_dev, device=dev)
+        q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+        packed = quant.pack_planes(q, bits)
+        x = torch.randn((bench.M, bench.K), generator=gen_dev, device=dev)
+        w_deq = unpack_tile(packed, bits).to(torch.float32) * sc
+        t = {
+            "ms": device_ms(torch, lambda: BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)),
+            "plain_ms": device_ms(torch, lambda: BS.bitserial_matmul_plain(x, packed, sc, bits=bits)),
+            "library_ms": device_ms(torch, lambda: torch.matmul(x, w_deq)),
+        }
+        b_ms, o_ms = quant_bound(bench.M, bench.K, bench.N, packed.numel())
+        t["bound_ms"] = max(b_ms, o_ms)
+        bs_bytes_ms, bs_ops_ms = bs_bytes_ms + b_ms, bs_ops_ms + o_ms
+        for key in bs_totals:
+            bs_totals[key] += t[key]
+        emit({"phase": "time", "kernel": BS.NAME, "bits": bits, "m": bench.M,
+              "k": bench.K, "n": bench.N, **t,
+              "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+
     signals = iegm.synth_batch(gen, BUCKET, device=dev)["signal"]
     for path in ("kernel", "reference", "twin"):
         runner = FleetRunner(program, va_cnn.CONFIG, path=path, device=dev)
         emit({"phase": "time", "execute": path, "bucket": BUCKET,
               "device_ms": device_ms(torch, lambda: runner.logits(signals)),
               "wall_ms": wall_ms(torch, lambda: runner.logits(signals))})
+
+    # one train step of the quickstart (CONFIG, adam, batch 64): host time
+    # through a synchronize, and device time behind a sleep long enough to
+    # cover the host's enqueue of the whole step (it never waits on the
+    # card), so the device's busy share of a step is device / wall
+    sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
+    for cname, (step, state_d, batch_d) in step_states.items():
+        enqueue = []
+        t = {
+            "wall_ms": wall_ms(torch, lambda: step(state_d, batch_d)),
+            "device_ms": device_ms(torch, lambda: step(state_d, batch_d),
+                                   STEP_SLEEP_CYCLES, enqueue),
+        }
+        emit({"phase": "time", "train_step": cname, "batch": TRAIN_BATCH, **t,
+              "device_busy_share": t["device_ms"] / t["wall_ms"],
+              "enqueue_ms_max": max(enqueue), "sleep_ms": sleep_ms,
+              "enqueue_covered_by_sleep": max(enqueue) < sleep_ms})
+
+    # where a CONFIG step's time goes: a profiler trace of PROFILE_STEPS
+    # steps — kernels launched per step and device time by kernel name
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state_d, batch_d = step_states["CONFIG"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            step(state_d, batch_d)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
+    top = sorted(on_card, key=lambda e: e.device_time_total, reverse=True)
+    emit({"phase": "profile", "train_step": "CONFIG", "steps": PROFILE_STEPS,
+          "kernels_per_step": sum(e.count for e in on_card) / PROFILE_STEPS,
+          "device_ms_per_step": sum(e.device_time_total for e in on_card)
+          / PROFILE_STEPS / 1e3,
+          "launch_calls_per_step": sum(
+              e.count for e in averages if e.key.startswith("cudaLaunchKernel"))
+          / PROFILE_STEPS,
+          "top_kernels": [{"name": e.key[:80], "count": e.count,
+                           "device_ms": e.device_time_total / 1e3}
+                          for e in top[:8]]})
 
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules),
@@ -509,6 +807,17 @@ def main() -> int:
         "library_ms": quant_totals["library_ms"],
         "at": "sum of 8/4/2/1 bits at the benchmark shape (128, 512, 256); "
               "launches over the benchmark run",
+    }, {
+        "name": BS.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        "replaces": "src/repro/kernels/bitserial.py:67",
+        "launches": sweep_launches[BS.NAME], "max_abs_err": bs_err,
+        "ms": bs_totals["ms"], "plain_ms": bs_totals["plain_ms"],
+        "bound_ms": bs_totals["bound_ms"],
+        "bound_by": "bytes" if bs_bytes_ms >= bs_ops_ms else "operations",
+        "library_ms": bs_totals["library_ms"],
+        "at": "sum of 8/4/2/1 bits at the benchmark shape (128, 512, 256); "
+              "launches over the CMUL sweep",
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

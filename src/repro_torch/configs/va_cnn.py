@@ -19,3 +19,7 @@ MIXED = VAConfig(
                   quantized=True),
     layer_bits=(8, 8, 4, 4, 4, 4, 8, 8),
 )
+
+# Dense float baseline (the paper's implicit comparison point): trained,
+# not compiled.
+DENSE = VAConfig(spe=None)

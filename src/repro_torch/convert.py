@@ -1,6 +1,7 @@
 """Carry weights across from the JAX package, as numpy arrays.
 
-The JAX package's parameters and compiled programs are pytrees of arrays;
+The JAX package's parameters, trainer states and compiled programs are
+pytrees of arrays;
 `np.asarray` on each leaf gives what these functions take, so both
 packages can compute from the same weights without this one importing
 jax. Layouts are the same on both sides.
@@ -40,6 +41,23 @@ def params_from_numpy(
     return {
         name: {k: _tensor(v, np.float32, dev) for k, v in layer.items()}
         for name, layer in tree.items()
+    }
+
+
+def state_from_numpy(tree: Mapping, device: _device.DeviceLike = None) -> dict:
+    """A trainer state {"params", "opt", "step"} as numpy -> the port's
+    state on `device`: float32 params and optimizer moments (`opt` is a
+    dict of parameter trees, e.g. Adam's {"m", "v"}; a None entry stays
+    None) and a 0-d int32 step. A run of the JAX trainer can then go on in
+    the port."""
+    dev = _device.resolve(device)
+    return {
+        "params": params_from_numpy(tree["params"], dev),
+        "opt": {
+            k: None if v is None else params_from_numpy(v, dev)
+            for k, v in tree["opt"].items()
+        },
+        "step": torch.tensor(int(tree["step"]), dtype=torch.int32, device=dev),
     }
 
 

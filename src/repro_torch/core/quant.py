@@ -2,8 +2,12 @@
 
 Port of `repro.core.quant`: symmetric per-channel quantization
 (`quantize` / `dequantize`), the straight-through fake-quant used in
-QAT, and the packed uint8 bit-plane storage (`pack_planes` /
-`unpack_planes`) the compiler writes into each `CompiledLayer`.
+QAT, the packed uint8 bit-plane storage (`pack_planes` /
+`unpack_planes`) the compiler writes into each `CompiledLayer`, and the
+CMUL's two's-complement bit-plane decomposition (`to_bitplanes`,
+`bitserial_matmul_exact`):
+
+    X @ W = sum_b s_b 2^b (X @ W_b),   s_b = -1 for the sign plane else +1
 
 Bit-exactness with the reference: `torch.round` rounds half to even like
 `jnp.round`, and `w / scale` is the same float32 division, so the int8
@@ -156,3 +160,91 @@ def unpack_planes(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
         return torch.where(u > 0, 1, -1).to(torch.int8)
     sign_bit = 1 << (bits - 1)
     return torch.where(u >= sign_bit, u - (1 << bits), u).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane (CMUL) decomposition
+# ---------------------------------------------------------------------------
+
+
+def to_bitplanes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Two's-complement bit planes of a signed integer tensor.
+
+    Returns uint8 of shape (bits, *q.shape) with values in {0, 1}. Plane b
+    is the 2^b coefficient; the top plane is the sign plane and carries
+    weight -2^{bits-1} when recomposing. At 1 bit the single plane
+    encodes {-1, +1} as {0, 1}.
+    """
+    if bits == 1:
+        return (q > 0).to(torch.uint8)[None]
+    u = q.to(torch.int32) & ((1 << bits) - 1)
+    shifts = torch.arange(bits, dtype=torch.int32, device=q.device)
+    planes = (u[None] >> shifts.reshape((bits,) + (1,) * q.ndim)) & 1
+    return planes.to(torch.uint8)
+
+
+def _plane_coeff(b: int, bits: int) -> float:
+    """Weight of plane b: 2^b, or -2^{bits-1} for the sign plane."""
+    return -(2.0 ** (bits - 1)) if b == bits - 1 else 2.0**b
+
+
+def from_bitplanes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of `to_bitplanes`: recompose signed integers (int32)."""
+    if bits == 1:
+        return torch.where(planes[0] > 0, 1, -1).to(torch.int32)
+    weights = torch.tensor(
+        [int(_plane_coeff(b, bits)) for b in range(bits)],
+        dtype=torch.int32, device=planes.device,
+    ).reshape((bits,) + (1,) * (planes.ndim - 1))
+    return (planes.to(torch.int32) * weights).sum(dim=0, dtype=torch.int32)
+
+
+def bitserial_matmul_exact(
+    x: torch.Tensor, q: torch.Tensor, bits: int
+) -> torch.Tensor:
+    """CMUL semantics as bit-plane matmuls: x @ q == sum_b s_b 2^b (x @ W_b).
+
+    The shift-accumulate the chip performs, with every partial product a
+    dense float matmul (full float32: the default matmul precision is
+    "highest"). `x` float, `q` signed int (from `quantize`).
+    """
+    planes = to_bitplanes(q, bits)
+    if bits == 1:
+        # the plane in {0,1} encodes {-1,+1}: w = 2p - 1
+        return 2.0 * (x @ planes[0].to(x.dtype)) - x.sum(dim=-1, keepdim=True)
+    acc = None
+    for b in range(bits):
+        partial = (x @ planes[b].to(x.dtype)) * _plane_coeff(b, bits)
+        acc = partial if acc is None else acc + partial
+    return acc
+
+
+def quantized_matmul(
+    x: torch.Tensor,
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    bits: int,
+    *,
+    exact_bitserial: bool = False,
+) -> torch.Tensor:
+    """x @ dequantize(q): the inference matmul of a CMUL layer.
+
+    With exact_bitserial=True, computes it through the bit-plane
+    decomposition (the same result; the cross-check of the kernel path).
+    """
+    xf = x.to(torch.float32)
+    if exact_bitserial:
+        y = bitserial_matmul_exact(xf, q, bits)
+    else:
+        y = xf @ q.to(torch.float32)
+    if scale.ndim:
+        scale = scale.reshape((1,) * (y.ndim - 1) + (-1,))
+    return (y * scale).to(x.dtype)
+
+
+def storage_bits(shape: tuple[int, ...], bits: int) -> int:
+    """Number of bits needed to store a weight tensor at this precision."""
+    n = 1
+    for s in shape:
+        n *= s
+    return n * bits

@@ -150,3 +150,16 @@ def verify_balance(mask: torch.Tensor, cfg: SparsityConfig) -> bool:
     """Compiler invariant: every (group, channel) has exactly `keep` nnz."""
     counts = _grouped(mask.to(torch.int32), cfg.group_size).sum(dim=1)
     return bool(torch.all(counts == cfg.keep))
+
+
+def sparsity_schedule(
+    step, *, start: int, end: int, final_keep: int, group_size: int
+) -> torch.Tensor:
+    """Gradual pruning schedule: the keep count ramps G -> final_keep over
+    [start, end) (cubic, after Zhu & Gupta), so co-design training adapts.
+    `step` is an int or an integer tensor; returns int32."""
+    t = (torch.as_tensor(step) - start) / max(1, end - start)
+    t = t.to(torch.float32).clamp(0.0, 1.0)
+    frac = 1.0 - (1.0 - t) ** 3  # 0 -> 1
+    keep = group_size - frac * (group_size - final_keep)
+    return torch.ceil(keep).to(torch.int32)

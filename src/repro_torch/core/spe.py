@@ -176,16 +176,64 @@ def im2col(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:
     return win.permute(0, 1, 3, 2).reshape(b, t_out, ksize * c)
 
 
+class _Conv1dF32(torch.autograd.Function):
+    """`F.conv1d` (NCW, no padding) with cuDNN's TF32 switched off in the
+    forward and in the backward. Autograd runs the backward after a `with`
+    block around the forward has closed, where cuDNN's TF32 default would
+    cut the gradients to a 10-bit mantissa; the backward is the same
+    `convolution_backward` autograd would call, under the same flags."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return F.conv1d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [ctx.stride], [0], [1], False, [0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+            )
+        return gx, gw, None
+
+
 def conv1d_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """(B, T, C_in) * (ks, C_in, C_out) -> (B, T_out, C_out), SAME padding,
-    full float32: cuDNN would run a float32 convolution in TF32 by
-    default, so TF32 is switched off for this call only."""
+    full float32 forward and backward: cuDNN would run a float32
+    convolution and its gradients in TF32 by default, so TF32 is switched
+    off for this call and its backward only."""
     ks = w.shape[0]
     _, pad_l, pad_r = same_padding(x.shape[1], ks, stride)
     xc = F.pad(x.transpose(1, 2), (pad_l, pad_r))  # (B, C_in, T + pad)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y = F.conv1d(xc, w.permute(2, 1, 0), stride=stride)
+    y = _Conv1dF32.apply(xc, w.permute(2, 1, 0), stride)
     return y.transpose(1, 2)
+
+
+def linear_init(
+    generator: torch.Generator, k: int, n: int, device: torch.device
+) -> dict:
+    """Glorot-normal (k, n) weight drawn on the generator's device, zero
+    bias, both placed on `device`."""
+    w = torch.randn((k, n), generator=generator, device=generator.device)
+    return {
+        "w": (w * (2.0 / (k + n)) ** 0.5).to(device),
+        "b": torch.zeros((n,), dtype=torch.float32, device=device),
+    }
+
+
+def linear_apply(
+    params: dict, x: torch.Tensor, cfg: Optional[SPEConfig]
+) -> torch.Tensor:
+    """x @ w + b, the weight seen through the SPE constraints when `cfg`
+    is given (prune-STE, then fake-quant)."""
+    w = params["w"]
+    if cfg is not None:
+        w = spe_train_weight(w, cfg)
+    return x @ w + params["b"]
 
 
 def conv1d_init(

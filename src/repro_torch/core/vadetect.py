@@ -117,6 +117,19 @@ def apply(
     return h.mean(dim=1)
 
 
+def loss_fn(
+    params: dict, batch: dict, cfg: VAConfig = VAConfig()
+) -> tuple[torch.Tensor, dict]:
+    """Mean negative log-likelihood of `batch["label"]` under the logits of
+    `batch["signal"]`; returns (loss, {"loss", "accuracy"})."""
+    logits = apply(params, batch["signal"], cfg)
+    labels = batch["label"].to(torch.int64)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return nll, {"loss": nll, "accuracy": acc}
+
+
 def predict(params: dict, x: torch.Tensor, cfg: VAConfig = VAConfig()) -> torch.Tensor:
     """Per-segment class predictions (B,)."""
     return torch.argmax(apply(params, x, cfg, train=False), dim=-1)

@@ -1,11 +1,13 @@
 """Synthetic IEGM data matching the paper's acquisition spec.
 
-Port of the slice of `repro.data.iegm` the diagnosis service needs:
-the 15–55 Hz FIR band-pass (the same numpy taps) and the synthetic
-batches, drawn from a `torch.Generator`. A generator gives other numbers
-than the reference's jax PRNG for the same seed, so tests that compare
-the two packages feed both the same arrays; the port's own draws are
-checked for shape, finiteness and per-seed determinism.
+Port of the slice of `repro.data.iegm` the diagnosis service and VA
+training need: the 15–55 Hz FIR band-pass (the same numpy taps), the
+synthetic batches, drawn from a `torch.Generator`, and `IEGMStream`, the
+deterministic host-shardable stream of training batches. A generator
+gives other numbers than the reference's jax PRNG for the same seed, so
+tests that compare the two packages feed both the same arrays; the
+port's own draws are checked for shape, finiteness and per-seed
+determinism.
 
 Classes: 0 non-VA (normal sinus rhythm, 60–100 bpm discrete beats),
 1 VA (monomorphic VT at 150–250 bpm, or disorganized VF), plus white
@@ -14,7 +16,9 @@ noise and baseline wander. 512 samples @ 250 Hz, normalized per record.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -59,6 +63,14 @@ def bandpass(x: torch.Tensor) -> torch.Tensor:
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         y = F.conv1d(x.reshape(-1, 1, t), taps, padding=taps.shape[-1] // 2)
     return y.reshape(*lead, t)
+
+
+def filter_response_db(freq_hz: np.ndarray) -> np.ndarray:
+    """|H(f)| in dB for test assertions on the pass/stop bands."""
+    taps = bandpass_taps()
+    w = 2j * np.pi * freq_hz[:, None] / SAMPLE_RATE_HZ
+    h = np.exp(-w * np.arange(len(taps))[None, :]) @ taps
+    return 20 * np.log10(np.maximum(np.abs(h), 1e-12))
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +190,44 @@ def synth_diagnosis_batch(
     labels = d.bernoulli((batch,)).to(torch.int32)
     sig = _signals(d, labels.repeat_interleave(segments), True)
     return {"signal": sig.reshape(batch, segments, RECORD_LEN), "label": labels}
+
+
+def _stream_seed(seed: int, host_id: int, step: int) -> int:
+    """A 63-bit generator seed from (seed, host_id, step), spread by
+    numpy's SeedSequence so neighbouring triples draw unrelated streams."""
+    state = np.random.SeedSequence([seed, host_id, step]).generate_state(
+        1, np.uint64
+    )
+    return int(state[0]) >> 1
+
+
+@dataclasses.dataclass
+class IEGMStream:
+    """Deterministic, host-shardable stream of training batches.
+
+    `batch_at(step)` seeds a fresh generator on the stream's device from
+    (seed, host_id, step) and draws the batch there: a restart at step k
+    regenerates the identical batch (the checkpoint/restart contract), and
+    every host draws its own. `device=None` means the CUDA card; the
+    stream raises at construction when there is none.
+    """
+
+    batch: int
+    seed: int = 0
+    host_id: int = 0
+    num_hosts: int = 1
+    device: _device.DeviceLike = None
+
+    def __post_init__(self):
+        self.device = _device.resolve(self.device)
+
+    def batch_at(self, step: int) -> dict[str, torch.Tensor]:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_stream_seed(self.seed, self.host_id, step))
+        return synth_batch(gen, self.batch, device=self.device)
+
+    def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1

@@ -6,12 +6,15 @@
                   memory + the SPE matmul (`csrc/sparse_conv1d.cu`)
 - quant_matmul  : packed 8/4/2/1-bit dequant matmul
                   (`csrc/quant_matmul.cu`)
+- bitserial     : the CMUL — one sum per two's-complement bit plane of
+                  the packed weight, shift-accumulated
+                  (`csrc/bitserial_matmul.cu`)
 
-All three are CUDA C++ for sm_90a.
+All four are CUDA C++ for sm_90a, one for each Pallas kernel of the JAX
+package.
 
 `ops` holds the public wrappers (batch handling, device dispatch); `ref`
-the plain oracles; `_build` compiles `csrc/` at first use. The Pallas
-kernels still to be ported are listed in ROADMAP.md.
+the plain oracles; `_build` compiles `csrc/` at first use.
 """
 
 from repro_torch.kernels import ops, ref

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import nm_spmm as _nm_spmm
 from repro_torch.kernels import quant_matmul as _quant_matmul
 from repro_torch.kernels import sparse_conv1d as _sparse_conv1d
@@ -62,6 +63,40 @@ def nm_spmm(
     return y.reshape(*lead, n)
 
 
+def _packed_matmul(x, packed, scale, bits, plain, cuda, name) -> torch.Tensor:
+    """(..., K) x packed (K·bits/8, N) -> (..., N) f32 through `plain` on a
+    CPU tensor or the CUDA kernel `cuda` on a CUDA one."""
+    kp, n = packed.shape
+    x2, lead = flatten_batch(x)
+    _quant_matmul.check_k(x2.shape[1], kp, bits)
+    sc = _scale(scale, n, x.device)
+    if x.device.type == "cpu":
+        y = plain(x2, packed, sc, bits=bits)
+    elif x.device.type == "cuda":
+        y = cuda(x2.to(torch.float32).contiguous(), packed.contiguous(),
+                 sc.contiguous(), bits=bits)
+    else:
+        raise ValueError(f"{name} has no kernel for device {x.device}")
+    return y.reshape(*lead, n)
+
+
+def bitserial_matmul(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    *,
+    bits: int,
+) -> torch.Tensor:
+    """CMUL bit-plane matmul (..., K) x packed (K·bits/8, N) -> (..., N) f32.
+
+    K (the contraction of `x`) must equal packed rows * (8 // bits).
+    """
+    return _packed_matmul(
+        x, packed, scale, bits, _bitserial.bitserial_matmul_plain,
+        _bitserial.bitserial_matmul_cuda, "bitserial_matmul",
+    )
+
+
 def quant_matmul(
     x: torch.Tensor,
     packed: torch.Tensor,
@@ -73,20 +108,10 @@ def quant_matmul(
 
     K (the contraction of `x`) must equal packed rows * (8 // bits).
     """
-    kp, n = packed.shape
-    x2, lead = flatten_batch(x)
-    _quant_matmul.check_k(x2.shape[1], kp, bits)
-    sc = _scale(scale, n, x.device)
-    if x.device.type == "cpu":
-        y = _quant_matmul.quant_matmul_plain(x2, packed, sc, bits=bits)
-    elif x.device.type == "cuda":
-        y = _quant_matmul.quant_matmul_cuda(
-            x2.to(torch.float32).contiguous(), packed.contiguous(),
-            sc.contiguous(), bits=bits,
-        )
-    else:
-        raise ValueError(f"quant_matmul has no kernel for device {x.device}")
-    return y.reshape(*lead, n)
+    return _packed_matmul(
+        x, packed, scale, bits, _quant_matmul.quant_matmul_plain,
+        _quant_matmul.quant_matmul_cuda, "quant_matmul",
+    )
 
 
 def sparse_conv1d(

@@ -58,10 +58,14 @@ def check_k(k: int, packed_rows: int, bits: int) -> None:
         )
 
 
-def _check(x, packed, scale, bits) -> None:
+def check_operands(x, packed, scale, bits, fn: str) -> None:
+    """Raise unless (x, packed, scale) are what the packed-weight kernels
+    take: contiguous 2-D CUDA tensors of one device, float32 x and scale,
+    uint8 packed, consistent shapes, within a 32-row-tile grid. `fn` names
+    the caller in the message."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"quant_matmul_cuda takes CUDA tensors, got x on {dev}")
+        raise ValueError(f"{fn} takes CUDA tensors, got x on {dev}")
     for name, t, dtype in (
         ("x", x, torch.float32),
         ("packed", packed, torch.uint8),
@@ -94,7 +98,7 @@ def quant_matmul_cuda(
     (1, N) f32 scale -> (M, N) f32, on the current stream. Raises on
     anything the kernel does not take, and if the launch fails."""
     global launches
-    _check(x, packed, scale, bits)
+    check_operands(x, packed, scale, bits, "quant_matmul_cuda")
     (m, k), n = x.shape, packed.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:

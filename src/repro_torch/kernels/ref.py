@@ -39,6 +39,22 @@ def nm_spmm_ref(
     return y
 
 
+def bitserial_matmul_ref(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    bits: int,
+    k: int,
+) -> torch.Tensor:
+    """y = x @ dequantize(unpack(packed)), defined through the exact
+    bit-serial shift-accumulate (`quant.bitserial_matmul_exact`), the
+    CMUL's own arithmetic. Output float32."""
+    q = Q.unpack_planes(packed, bits, k)
+    y = Q.bitserial_matmul_exact(x.to(torch.float32), q, bits)
+    return y * scale.reshape((1,) * (y.ndim - 1) + (-1,))
+
+
 def quant_matmul_ref(
     x: torch.Tensor,
     packed: torch.Tensor,

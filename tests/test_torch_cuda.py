@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-versions, and nm_spmm through the service path.
+versions, nm_spmm through the service path, and the training step on the
+card against the same step on the CPU.
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -10,21 +11,28 @@ run it there with the repository's conftest left out:
 Tolerances: 1e-4 relative to max|y| for the kernel against its plain
 version (float32, summed in another order — tests/test_kernels.py's
 float32 tolerance), 1e-3 on logits across compute paths
-(tests/test_vadetect.py).
+(tests/test_vadetect.py), 1e-4 relative for a train step on the card
+against the CPU (cuDNN sums the gradients in another order), 1e-5
+relative for a gradient with cuDNN's TF32 allowed against one without
+(TF32 would differ by about 1e-3).
 """
 
 import pytest
 import torch
 
+from repro_torch import optim
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import va_cnn
 from repro_torch.core import compiler, spe, vadetect
 from repro_torch.data import iegm
 from repro_torch.core import quant
+from repro_torch.kernels import bitserial as tbs
 from repro_torch.kernels import nm_spmm as tk
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import sparse_conv1d as tsc
 from repro_torch.serve.va_service import VAService
+from repro_torch.train import trainer
 
 G, KEEP = 16, 8
 
@@ -141,3 +149,77 @@ def test_quant_matmul_kernel_matches_plain(cuda, bits, m, k, nn):
     torch.cuda.synchronize()
     assert tqm.launches == before + 1
     assert _rel_err(y, tqm.quant_matmul_plain(x, packed, scale, bits=bits)) <= 1e-4
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+@pytest.mark.parametrize("m,k,nn", [(8, 64, 16), (33, 128, 40)])
+def test_bitserial_kernel_matches_plain(cuda, bits, m, k, nn):
+    gen = torch.Generator(device=cuda).manual_seed(bits + m)
+    q, scale = quant.quantize(
+        torch.randn((k, nn), generator=gen, device=cuda),
+        quant.QuantConfig(bits=bits),
+    )
+    packed = quant.pack_planes(q, bits)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    before = tbs.launches
+    y = ops.bitserial_matmul(x, packed, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert tbs.launches == before + 1
+    assert _rel_err(y, tbs.bitserial_matmul_plain(x, packed, scale, bits=bits)) <= 1e-4
+    assert _rel_err(y, tqm.quant_matmul_cuda(x, packed, scale, bits=bits)) <= 1e-4
+
+
+def _rel_tree(a, b) -> float:
+    pairs = list(zip(leaves(a), leaves(b)))
+    err = max(float((x.cpu() - y.cpu()).abs().max()) for x, y in pairs)
+    return err / max(float(y.abs().max()) for _, y in pairs)
+
+
+@pytest.mark.parametrize("name", ["CONFIG", "MIXED", "DENSE"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """From warm Adam moments (3 CPU steps), one quickstart step on the
+    card and on the CPU on the same batch."""
+    cfg = getattr(va_cnn, name)
+    cpu = torch.device("cpu")
+    opt = optim.adam(3e-3)
+    step = trainer.make_train_step(lambda p, b: vadetect.loss_fn(p, b, cfg),
+                                   opt, clip_norm=1.0)
+    state = trainer.init_state(
+        vadetect.init(torch.Generator().manual_seed(0), cfg, device=cpu), opt,
+        device=cpu)
+    stream = iegm.IEGMStream(batch=16, seed=0, device=cpu)
+    for i in range(3):
+        state, _ = step(state, stream.batch_at(i))
+    batch = stream.batch_at(3)
+    new_c, m_c = step(state, batch)
+    new_d, m_d = step(tree_map(lambda v: v.to(cuda), state),
+                      {k: v.to(cuda) for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        assert float(m_d[key]) == pytest.approx(float(m_c[key]), rel=1e-4)
+    assert _rel_tree(new_d["params"], new_c["params"]) <= 1e-4
+    assert _rel_tree(new_d["opt"]["m"], new_c["opt"]["m"]) <= 1e-4
+
+
+def test_conv_backward_stays_float32_with_tf32_allowed(cuda):
+    """cuDNN allows TF32 by default; the port's convolution keeps its
+    backward in float32 all the same (VA conv2 at batch 64)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((64, 128, 24), generator=gen, device=cuda)
+    w = torch.randn((5, 24, 32), generator=gen, device=cuda) * 0.1
+    g_y = torch.randn((64, 128, 32), generator=gen, device=cuda)
+
+    def grads():
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = spe.conv1d_same(xl, wl, 1)
+        return torch.autograd.grad((y * g_y).sum(), (xl, wl))
+
+    default = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        want = grads()
+        torch.backends.cudnn.allow_tf32 = True
+        got = grads()
+    finally:
+        torch.backends.cudnn.allow_tf32 = default
+    for g, g_ref in zip(got, want):
+        assert _rel_err(g, g_ref) <= 1e-5

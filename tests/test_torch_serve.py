@@ -25,13 +25,15 @@ from repro.core import compiler as jc
 from repro.data import iegm as jiegm
 from repro.serve import va_service as jsvc
 from repro.stream import runner as jrunner
-from repro_torch import convert
+from repro_torch import convert, optim
 from repro_torch.benchmarks import kernels as bench_kernels
 from repro_torch.core import compiler as tc
 from repro_torch.core import vadetect as tva
 from repro_torch.data import iegm as tiegm
+from repro_torch.examples import quickstart
 from repro_torch.serve import va_service as tsvc
 from repro_torch.stream import runner as trunner
+from repro_torch.train import trainer as ttrainer
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -117,14 +119,17 @@ def test_synth_batches_are_seeded():
 
 
 def test_port_imports_no_jax():
-    """The port's serving path and its kernel benchmark import neither jax
-    nor anything of the JAX package (checked in a fresh interpreter: this
+    """The port's serving path, its kernel benchmark, the CMUL and the
+    training path import neither jax nor anything of the JAX package (checked in a fresh interpreter: this
     one has jax)."""
     code = (
         "import sys, repro_torch.serve.va_service, repro_torch.convert, "
         "repro_torch.configs.va_cnn, repro_torch.data.iegm, "
         "repro_torch.kernels.ops, repro_torch.kernels.sparse_conv1d, "
-        "repro_torch.kernels.quant_matmul, repro_torch.benchmarks.kernels\n"
+        "repro_torch.kernels.quant_matmul, repro_torch.benchmarks.kernels, "
+        "repro_torch.kernels.bitserial, repro_torch.optim, "
+        "repro_torch.dist.accumulate, repro_torch.train.trainer, "
+        "repro_torch.examples.quickstart\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -137,7 +142,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize(
-    "entry", ["init", "synth", "params", "runner", "service", "benchmark"]
+    "entry", ["init", "synth", "params", "runner", "service", "benchmark",
+              "stream", "trainer", "state", "quickstart"]
 )
 def test_default_device_raises_without_a_card(entry):
     """`device=None` means the CUDA card; with none present an entry
@@ -152,6 +158,13 @@ def test_default_device_raises_without_a_card(entry):
         "runner": lambda: trunner.FleetRunner(prog_t, cfg_t, path="kernel"),
         "service": lambda: tsvc.VAService(prog_t, cfg_t, path="kernel"),
         "benchmark": lambda: bench_kernels.run(),
+        "stream": lambda: tiegm.IEGMStream(batch=2),
+        "trainer": lambda: ttrainer.init_state(
+            convert.params_from_numpy(np_params(cfg_t.layers, 0), device=CPU),
+            optim.adam(3e-3)),
+        "state": lambda: convert.state_from_numpy(
+            {"params": np_params(cfg_t.layers, 0), "opt": {}, "step": 0}),
+        "quickstart": lambda: quickstart.run(steps=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

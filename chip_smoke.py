@@ -10,13 +10,16 @@ toolkit. Phases, each printing JSON lines:
 1. device — the card (nvidia-smi's name and power limit), then a build of
    every CUDA kernel (nm_spmm, sparse_conv1d, quant_matmul,
    bitserial_matmul) from src/repro_torch/kernels/csrc, one nvcc each,
-   all at once;
+   all at once, with ptxas's registers and spills; the tensor-core
+   instructions (HGMMA) in the SASS of quant_matmul and bitserial_matmul;
 2. kernel — each kernel against its plain PyTorch version: nm_spmm and
    sparse_conv1d at the seven sparse VA layers at bucket 256 (the fused
    layer also against im2col -> pad -> nm_spmm, which execute runs), a
    head-like and a ragged shape; quant_matmul at 8/4/2/1 bits x three
-   shapes; bitserial_matmul at the same 12 cases, also against the CUDA
-   quant_matmul and quant.quantized_matmul(exact_bitserial=True);
+   shapes and at (64, 4096, 4096) at 8 and 1 bits; bitserial_matmul at the
+   same 14 cases, also against the CUDA quant_matmul and
+   quant.quantized_matmul(exact_bitserial=True); both twice on the same
+   inputs, bit-identical; their grid and cluster at the benchmark shape;
 3. paths — VAService.diagnose_batch and FleetRunner.classify on
    path="kernel" at full width (configs/va_cnn CONFIG, then MIXED), held
    against the reference and twin paths; the kernel benchmark,
@@ -31,6 +34,10 @@ toolkit. Phases, each printing JSON lines:
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
    whole execute, and one train step (host and device time), on the card.
+   quant_matmul and bitserial_matmul, and their library call, are also
+   timed per launch in a run of RUN_LAUNCHES (ms_in_run), and at
+   (64, 4096, 4096) at 8 and 1 bits against both bounds, float32 and
+   tensor-core (tc_bound_ms).
 
 The line before the last is the {"kernels": [...]} summary, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either;
@@ -58,6 +65,9 @@ CONV_EXTRA = (  # (B, T, C, N, ksize, stride) beside the VA layers
     (3, 200, 8, 40, 5, 2),  # ragged: T_out 100 and N 40 off the tiles
 )
 QUANT_SHAPES = ((128, 512, 256), (33, 128, 40), (8, 64, 16))  # (M, K, N)
+# a qwen3-8b projection's width (src/repro/configs/qwen3_8b.py) at 64 rows,
+# at these widths
+LARGE, LARGE_BITS = (64, 4096, 4096), (8, 1)
 CMUL_SWEEP = ((8, 64, 16), (33, 128, 40))  # tests/test_kernels.py's sweep
 KERNEL_RTOL = 1e-4  # max|kernel - plain| / max|plain| (f32, tests/test_kernels.py)
 DEQUANT_TOL = 1e-3  # against x @ dequantize(q, scale) (tests/test_kernels.py)
@@ -70,11 +80,16 @@ STEP_RTOL = 1e-4
 TF32_RTOL = 1e-5  # a float32 gradient held against one with TF32 allowed
 TRAIN_BATCH = 64  # the quickstart's batch
 REPS = 25  # timed runs per function; the median is kept
-STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one step
+RUN_LAUNCHES = 100  # back-to-back launches a ms_in_run run
+RUN_REPS = 5  # ms_in_run runs; the median is kept
+RUN_SLEEP_CYCLES = 40_000_000  # covers the host's enqueue of one run
+STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one step or bucket
 PROFILE_STEPS = 5
-# H100 SXM data sheet: HBM rate, and float32 outside the tensor cores
+# H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
+# on them (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def emit(obj: dict) -> None:
@@ -109,6 +124,32 @@ def device_ms(torch, fn, sleep_cycles: int = 2_000_000, enqueue=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(torch, fn) -> tuple[float, float]:
+    """Device time per launch in ms over RUN_LAUNCHES back-to-back calls of
+    `fn` between two CUDA events, median of RUN_REPS runs, warm, and the
+    longest host enqueue of a run in ms. A sleep kernel ahead of each run
+    keeps the card busy while the host enqueues it, so the launches run
+    back to back on the card (the enqueue must end before the sleep: the
+    caller compares it with the sleep's time)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times, enqueue = [], 0.0
+    for _ in range(RUN_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(RUN_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(RUN_LAUNCHES):
+            fn()
+        enqueue = max(enqueue, (time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / RUN_LAUNCHES)
+    return statistics.median(times), enqueue
 
 
 def wall_ms(torch, fn) -> float:
@@ -153,6 +194,23 @@ def quant_bound(m: int, k: int, n: int, packed_bytes: int) -> tuple[float, float
     once and y written once, and 2 * M * K * N float32 operations."""
     nbytes = m * k * 4 + packed_bytes + n * 4 + m * n * 4
     return nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / F32_FLOP_PER_S * 1e3
+
+
+def tc_bound_ms(m: int, k: int, n: int, packed_bytes: int) -> float:
+    """Least time in ms for one quant_matmul or bitserial_matmul on the
+    tensor cores: the bytes of `quant_bound` against the two TF32 passes,
+    2 * (2 * M * K * N) operations at the TF32 rate; the larger."""
+    nbytes_ms, _ = quant_bound(m, k, n, packed_bytes)
+    return max(nbytes_ms, 2 * 2 * m * k * n / TF32_FLOP_PER_S * 1e3)
+
+
+def sass_count(cuobjdump: Path, path: Path, op: str) -> int:
+    """How often the SASS of the library at `path` names the instruction
+    `op` (`cuobjdump -sass`)."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return out.count(op)
 
 
 def rel_err(y, y_ref) -> tuple[float, float]:
@@ -233,6 +291,13 @@ def main() -> int:
                                  if ("ptxas info" in ln and "Used" in ln)
                                  or "spill" in ln]}
                       for b in built]})
+    # the tensor cores in the two CMUL kernels: wgmma compiles to HGMMA
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    hgmma = {b.name: sass_count(cuobjdump, b.path, "HGMMA") for b in built
+             if b.name in (QM.NAME, BS.NAME)}
+    emit({"phase": "sass", "hgmma": hgmma})
+    check(len(hgmma) == 2 and min(hgmma.values()) > 0,
+          f"no HGMMA in the SASS of quant_matmul / bitserial_matmul: {hgmma}")
 
     # -- 2. each kernel against its plain version ---------------------------
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
@@ -308,59 +373,82 @@ def main() -> int:
                   f"{name}: sparse_conv1d vs im2col + nm_spmm rel err {rel_mm}")
         emit(line)
 
-    # quant_matmul: every bit width at the benchmark's and the tests' shapes
+    # quant_matmul: every bit width at the benchmark's and the tests' shapes,
+    # and the large shape at two widths; each twice, bit-identical
+    cmul_cases = [(bits, shape) for bits in QM.BITS for shape in QUANT_SHAPES]
+    cmul_cases += [(bits, LARGE) for bits in LARGE_BITS]
+    # the large shape draws from its own generator, so that every later
+    # input drawn from gen_dev is what it was before these cases existed
+    gen_large = torch.Generator(device=dev).manual_seed(SEED + 1)
     quant_err = 0.0
-    for bits in QM.BITS:
-        for m_q, k_q, n_q in QUANT_SHAPES:
-            w = torch.randn((k_q, n_q), generator=gen_dev, device=dev)
-            q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
-            packed = quant.pack_planes(q, bits)
-            x = torch.randn((m_q, k_q), generator=gen_dev, device=dev)
-            y_k = QM.quant_matmul_cuda(x, packed, sc, bits=bits)
-            torch.cuda.synchronize()
-            y_p = QM.quant_matmul_plain(x, packed, sc, bits=bits)
-            torch.cuda.synchronize()
-            err, rel = rel_err(y_k, y_p)
-            quant_err = max(quant_err, err)
-            emit({"phase": "kernel", "kernel": QM.NAME, "bits": bits,
-                  "m": m_q, "k": k_q, "n": n_q, "max_abs_err": err,
-                  "rel_err": rel, "tol": KERNEL_RTOL})
-            check(tuple(y_k.shape) == (m_q, n_q), f"quant {bits}b: shape")
-            check(bool(torch.isfinite(y_k).all()), f"quant {bits}b: non-finite")
-            check(rel <= KERNEL_RTOL,
-                  f"quant_matmul {bits}b {(m_q, k_q, n_q)}: rel err {rel}")
+    for bits, (m_q, k_q, n_q) in cmul_cases:
+        g = gen_large if (m_q, k_q, n_q) == LARGE else gen_dev
+        w = torch.randn((k_q, n_q), generator=g, device=dev)
+        q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+        packed = quant.pack_planes(q, bits)
+        x = torch.randn((m_q, k_q), generator=g, device=dev)
+        y_k = QM.quant_matmul_cuda(x, packed, sc, bits=bits)
+        y_again = QM.quant_matmul_cuda(x, packed, sc, bits=bits)
+        torch.cuda.synchronize()
+        y_p = QM.quant_matmul_plain(x, packed, sc, bits=bits)
+        torch.cuda.synchronize()
+        err, rel = rel_err(y_k, y_p)
+        quant_err = max(quant_err, err)
+        same = torch.equal(y_k, y_again)
+        emit({"phase": "kernel", "kernel": QM.NAME, "bits": bits,
+              "m": m_q, "k": k_q, "n": n_q, "max_abs_err": err,
+              "rel_err": rel, "tol": KERNEL_RTOL, "repeat_identical": same})
+        check(tuple(y_k.shape) == (m_q, n_q), f"quant {bits}b: shape")
+        check(bool(torch.isfinite(y_k).all()), f"quant {bits}b: non-finite")
+        check(rel <= KERNEL_RTOL,
+              f"quant_matmul {bits}b {(m_q, k_q, n_q)}: rel err {rel}")
+        check(same, f"quant_matmul {bits}b {(m_q, k_q, n_q)}: repeat differs")
 
-    # bitserial_matmul: the same 12 cases, against its plain version, the
+    # bitserial_matmul: the same 14 cases, against its plain version, the
     # CUDA quant_matmul on the same packed weight, and the core CMUL math
     bs_err = 0.0
-    for bits in BS.BITS:
-        for m_q, k_q, n_q in QUANT_SHAPES:
-            w = torch.randn((k_q, n_q), generator=gen_dev, device=dev)
-            q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
-            packed = quant.pack_planes(q, bits)
-            x = torch.randn((m_q, k_q), generator=gen_dev, device=dev)
-            y_k = BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)
-            torch.cuda.synchronize()
-            others = {
-                "plain": BS.bitserial_matmul_plain(x, packed, sc, bits=bits),
-                "quant_matmul": QM.quant_matmul_cuda(x, packed, sc, bits=bits),
-                "quantized_matmul_exact_bitserial": quant.quantized_matmul(
-                    x, q, sc, bits, exact_bitserial=True),
-            }
-            torch.cuda.synchronize()
-            line = {"phase": "kernel", "kernel": BS.NAME, "bits": bits,
-                    "m": m_q, "k": k_q, "n": n_q, "tol": KERNEL_RTOL}
-            check(tuple(y_k.shape) == (m_q, n_q), f"bitserial {bits}b: shape")
-            check(bool(torch.isfinite(y_k).all()), f"bitserial {bits}b: non-finite")
-            for name, y_o in others.items():
-                err, rel = rel_err(y_k, y_o)
-                if name == "plain":
-                    bs_err = max(bs_err, err)
-                line[f"max_abs_err_vs_{name}"] = err
-                line[f"rel_err_vs_{name}"] = rel
-                check(rel <= KERNEL_RTOL, f"bitserial_matmul {bits}b "
-                      f"{(m_q, k_q, n_q)} vs {name}: rel err {rel}")
-            emit(line)
+    for bits, (m_q, k_q, n_q) in cmul_cases:
+        g = gen_large if (m_q, k_q, n_q) == LARGE else gen_dev
+        w = torch.randn((k_q, n_q), generator=g, device=dev)
+        q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+        packed = quant.pack_planes(q, bits)
+        x = torch.randn((m_q, k_q), generator=g, device=dev)
+        y_k = BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)
+        y_again = BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)
+        torch.cuda.synchronize()
+        others = {
+            "plain": BS.bitserial_matmul_plain(x, packed, sc, bits=bits),
+            "quant_matmul": QM.quant_matmul_cuda(x, packed, sc, bits=bits),
+            "quantized_matmul_exact_bitserial": quant.quantized_matmul(
+                x, q, sc, bits, exact_bitserial=True),
+        }
+        torch.cuda.synchronize()
+        same = torch.equal(y_k, y_again)
+        line = {"phase": "kernel", "kernel": BS.NAME, "bits": bits,
+                "m": m_q, "k": k_q, "n": n_q, "tol": KERNEL_RTOL,
+                "repeat_identical": same}
+        check(tuple(y_k.shape) == (m_q, n_q), f"bitserial {bits}b: shape")
+        check(bool(torch.isfinite(y_k).all()), f"bitserial {bits}b: non-finite")
+        for name, y_o in others.items():
+            err, rel = rel_err(y_k, y_o)
+            if name == "plain":
+                bs_err = max(bs_err, err)
+            line[f"max_abs_err_vs_{name}"] = err
+            line[f"rel_err_vs_{name}"] = rel
+            check(rel <= KERNEL_RTOL, f"bitserial_matmul {bits}b "
+                  f"{(m_q, k_q, n_q)} vs {name}: rel err {rel}")
+        emit(line)
+        check(same, f"bitserial_matmul {bits}b {(m_q, k_q, n_q)}: repeat differs")
+
+    # the launch geometry of both at the benchmark shape, per width, and at
+    # the large shape
+    for mod in (QM, BS):
+        for bits, (m_q, k_q, n_q) in (
+                [(b, (bench.M, bench.K, bench.N)) for b in mod.BITS]
+                + [(b, LARGE) for b in LARGE_BITS]):
+            emit({"phase": "geometry", "kernel": mod.NAME, "bits": bits,
+                  "m": m_q, "k": k_q, "n": n_q,
+                  **mod.launch_geometry(m_q, k_q, n_q, bits=bits)})
 
     # -- 3. the service path at full width ----------------------------------
     main_launches = None
@@ -618,7 +706,8 @@ def main() -> int:
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
     emit({"phase": "time", "floor": "one-element add_",
-          "ms": device_ms(torch, lambda: one.add_(1.0))})
+          "ms": device_ms(torch, lambda: one.add_(1.0)),
+          "ms_in_run": run_ms(torch, lambda: one.add_(1.0))[0]})
     program = timed
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bytes_ms = ops_ms = 0.0
@@ -678,62 +767,73 @@ def main() -> int:
               "kk": kk, "valid_weights": valid, **t,
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
 
-    quant_totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    quant_bytes_ms = quant_ops_ms = 0.0
-    for bits in QM.BITS:
-        w = torch.randn((bench.K, bench.N), generator=gen_dev, device=dev)
+    # quant_matmul, then bitserial_matmul, at every width at the benchmark
+    # shape (their sums go into the kernels line), then at the large shape;
+    # ms_in_run per launch in a run of RUN_LAUNCHES behind a sleep
+    run_sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(RUN_SLEEP_CYCLES))
+    cmul_fns = {QM.NAME: (QM.quant_matmul_cuda, QM.quant_matmul_plain),
+                BS.NAME: (BS.bitserial_matmul_cuda, BS.bitserial_matmul_plain)}
+    cmul_totals, cmul_bound_by = {}, {}
+    enqueue_max = 0.0
+    timed_cases = [(name, bits, (bench.M, bench.K, bench.N), gen_dev)
+                   for name in cmul_fns for bits in BS.BITS]
+    timed_cases += [(name, bits, LARGE, gen_large)
+                    for name in cmul_fns for bits in LARGE_BITS]
+    for name, bits, (m_q, k_q, n_q), g in timed_cases:
+        kernel_fn, plain_fn = cmul_fns[name]
+        w = torch.randn((k_q, n_q), generator=g, device=dev)
         q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
         packed = quant.pack_planes(q, bits)
-        x = torch.randn((bench.M, bench.K), generator=gen_dev, device=dev)
+        x = torch.randn((m_q, k_q), generator=g, device=dev)
         w_deq = unpack_tile(packed, bits).to(torch.float32) * sc
+        run = {"kernel": lambda: kernel_fn(x, packed, sc, bits=bits),
+               "library": lambda: torch.matmul(x, w_deq)}
+        in_run = {key: run_ms(torch, fn) for key, fn in run.items()}
+        enqueue_max = max([enqueue_max] + [e for _, e in in_run.values()])
         t = {
-            "ms": device_ms(torch, lambda: QM.quant_matmul_cuda(x, packed, sc, bits=bits)),
-            "plain_ms": device_ms(torch, lambda: QM.quant_matmul_plain(x, packed, sc, bits=bits)),
-            "library_ms": device_ms(torch, lambda: torch.matmul(x, w_deq)),
+            "ms": device_ms(torch, run["kernel"]),
+            "plain_ms": device_ms(torch, lambda: plain_fn(x, packed, sc, bits=bits)),
+            "library_ms": device_ms(torch, run["library"]),
+            "ms_in_run": in_run["kernel"][0],
+            "library_ms_in_run": in_run["library"][0],
         }
-        b_ms, o_ms = quant_bound(bench.M, bench.K, bench.N, packed.numel())
+        b_ms, o_ms = quant_bound(m_q, k_q, n_q, packed.numel())
         t["bound_ms"] = max(b_ms, o_ms)
-        quant_bytes_ms, quant_ops_ms = quant_bytes_ms + b_ms, quant_ops_ms + o_ms
-        for key in quant_totals:
-            quant_totals[key] += t[key]
-        emit({"phase": "time", "kernel": QM.NAME, "bits": bits, "m": bench.M,
-              "k": bench.K, "n": bench.N, **t,
+        t["tc_bound_ms"] = tc_bound_ms(m_q, k_q, n_q, packed.numel())
+        emit({"phase": "time", "kernel": name, "bits": bits, "m": m_q,
+              "k": k_q, "n": n_q, **t,
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+        if (m_q, k_q, n_q) == LARGE:
+            continue
+        totals_k = cmul_totals.setdefault(name, dict.fromkeys(t, 0.0))
+        for key in t:
+            totals_k[key] += t[key]
+        by = cmul_bound_by.setdefault(name, [0.0, 0.0])
+        by[0], by[1] = by[0] + b_ms, by[1] + o_ms
+    # false would mean that some ms_in_run also counts the host's enqueue
+    emit({"phase": "time", "ms_in_run_sleep_ms": run_sleep_ms,
+          "ms_in_run_enqueue_ms_max": enqueue_max,
+          "enqueue_covered_by_sleep": enqueue_max < run_sleep_ms})
 
-    bs_totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bs_bytes_ms = bs_ops_ms = 0.0
-    for bits in BS.BITS:
-        w = torch.randn((bench.K, bench.N), generator=gen_dev, device=dev)
-        q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
-        packed = quant.pack_planes(q, bits)
-        x = torch.randn((bench.M, bench.K), generator=gen_dev, device=dev)
-        w_deq = unpack_tile(packed, bits).to(torch.float32) * sc
-        t = {
-            "ms": device_ms(torch, lambda: BS.bitserial_matmul_cuda(x, packed, sc, bits=bits)),
-            "plain_ms": device_ms(torch, lambda: BS.bitserial_matmul_plain(x, packed, sc, bits=bits)),
-            "library_ms": device_ms(torch, lambda: torch.matmul(x, w_deq)),
-        }
-        b_ms, o_ms = quant_bound(bench.M, bench.K, bench.N, packed.numel())
-        t["bound_ms"] = max(b_ms, o_ms)
-        bs_bytes_ms, bs_ops_ms = bs_bytes_ms + b_ms, bs_ops_ms + o_ms
-        for key in bs_totals:
-            bs_totals[key] += t[key]
-        emit({"phase": "time", "kernel": BS.NAME, "bits": bits, "m": bench.M,
-              "k": bench.K, "n": bench.N, **t,
-              "bound_by": "bytes" if b_ms >= o_ms else "operations"})
-
+    # one bucket through each path: its device time behind a sleep long
+    # enough to cover the host's enqueue of the whole call (about 60 small
+    # ops, over a millisecond on a slow host)
+    sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
     signals = iegm.synth_batch(gen, BUCKET, device=dev)["signal"]
     for path in ("kernel", "reference", "twin"):
         runner = FleetRunner(program, va_cnn.CONFIG, path=path, device=dev)
+        enqueue = []
         emit({"phase": "time", "execute": path, "bucket": BUCKET,
-              "device_ms": device_ms(torch, lambda: runner.logits(signals)),
-              "wall_ms": wall_ms(torch, lambda: runner.logits(signals))})
+              "device_ms": device_ms(torch, lambda: runner.logits(signals),
+                                     STEP_SLEEP_CYCLES, enqueue),
+              "wall_ms": wall_ms(torch, lambda: runner.logits(signals)),
+              "enqueue_ms_max": max(enqueue),
+              "enqueue_covered_by_sleep": max(enqueue) < sleep_ms})
 
     # one train step of the quickstart (CONFIG, adam, batch 64): host time
     # through a synchronize, and device time behind a sleep long enough to
     # cover the host's enqueue of the whole step (it never waits on the
     # card), so the device's busy share of a step is device / wall
-    sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
     for cname, (step, state_d, batch_d) in step_states.items():
         enqueue = []
         t = {
@@ -796,29 +896,24 @@ def main() -> int:
         "im2col_nm_spmm_ms": conv_totals["im2col_nm_spmm_ms"],
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the benchmark run",
-    }, {
-        "name": QM.NAME, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
-        "replaces": "src/repro/kernels/quant_matmul.py:42",
-        "launches": bench_launches[QM.NAME], "max_abs_err": quant_err,
-        "ms": quant_totals["ms"], "plain_ms": quant_totals["plain_ms"],
-        "bound_ms": quant_totals["bound_ms"],
-        "bound_by": "bytes" if quant_bytes_ms >= quant_ops_ms else "operations",
-        "library_ms": quant_totals["library_ms"],
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        **{key: cmul_totals[name][key] for key in
+           ("ms", "plain_ms", "bound_ms")},
+        "bound_by": ("bytes" if cmul_bound_by[name][0] >= cmul_bound_by[name][1]
+                     else "operations"),
+        **{key: cmul_totals[name][key] for key in
+           ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms")},
         "at": "sum of 8/4/2/1 bits at the benchmark shape (128, 512, 256); "
-              "launches over the benchmark run",
-    }, {
-        "name": BS.NAME, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
-        "replaces": "src/repro/kernels/bitserial.py:67",
-        "launches": sweep_launches[BS.NAME], "max_abs_err": bs_err,
-        "ms": bs_totals["ms"], "plain_ms": bs_totals["plain_ms"],
-        "bound_ms": bs_totals["bound_ms"],
-        "bound_by": "bytes" if bs_bytes_ms >= bs_ops_ms else "operations",
-        "library_ms": bs_totals["library_ms"],
-        "at": "sum of 8/4/2/1 bits at the benchmark shape (128, 512, 256); "
-              "launches over the CMUL sweep",
-    }]})
+              f"launches over {over}",
+    } for name, replaces, launches, err, over in (
+        (QM.NAME, "src/repro/kernels/quant_matmul.py:42",
+         bench_launches[QM.NAME], quant_err, "the benchmark run"),
+        (BS.NAME, "src/repro/kernels/bitserial.py:67",
+         sweep_launches[BS.NAME], bs_err, "the CMUL sweep"),
+    )]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

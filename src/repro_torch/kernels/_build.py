@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 alone into `build/kernels/<name>-<digest>.so` at the repository root (a
-directory `.gitignore` lists), where the digest covers the source and the
-flags: an unchanged kernel is built once, an edited one anew. Sources
+directory `.gitignore` lists), where the digest covers the source, every
+header it includes from `csrc/` and the flags: an unchanged kernel is built
+once, an edited one (or one whose header was edited) anew. Sources
 include only the CUDA runtime's headers, never PyTorch's, so a build
 takes seconds. `build` starts one `nvcc` per source, all at once.
 
@@ -17,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +59,24 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu`, then every header it includes with quotes,
+    recursively, each once, in the order first reached."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep not in found:
+                found.append(dep)
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...]) -> list[Built]:

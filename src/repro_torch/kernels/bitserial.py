@@ -20,7 +20,8 @@ plane, shift-accumulate, scale — which the CPU path and the tests use and
 against which `chip_smoke.py` holds the kernel on the card.
 
 `launches` counts kernel launches: `bitserial_matmul_cuda` adds one where
-it launches and nowhere else.
+it launches and nowhere else. `launch_geometry` reports the grid and the
+cluster split a launch would take on the current card (no launch).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from repro_torch.core import quant as Q
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import unpack_tile
-from repro_torch.kernels.quant_matmul import check_operands
+from repro_torch.kernels.quant_matmul import check_operands, cmul_geometry
 
 NAME = "bitserial_matmul"
 BITS = (8, 4, 2, 1)
@@ -49,8 +50,18 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int
         ] * 4 + [ctypes.c_void_p]
         lib.bitserial_matmul_f32.restype = ctypes.c_int
+        lib.bitserial_matmul_geometry.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.bitserial_matmul_geometry.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launch_geometry(m: int, k: int, n: int, *, bits: int) -> dict:
+    """The grid and cluster split of a `bitserial_matmul_cuda` launch at
+    (M, K, N) on the current card (`quant_matmul.cmul_geometry`)."""
+    return cmul_geometry(_library().bitserial_matmul_geometry, m, k, n, bits)
 
 
 def bitserial_matmul_cuda(

@@ -15,7 +15,8 @@ and the tests use and against which `chip_smoke.py` holds the kernel on
 the card.
 
 `launches` counts kernel launches: `quant_matmul_cuda` adds one where it
-launches and nowhere else.
+launches and nowhere else. `launch_geometry` reports the grid and the
+cluster split a launch would take on the current card (no launch).
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int
         ] * 4 + [ctypes.c_void_p]
         lib.quant_matmul_f32.restype = ctypes.c_int
+        lib.quant_matmul_geometry.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.quant_matmul_geometry.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -61,7 +66,7 @@ def check_k(k: int, packed_rows: int, bits: int) -> None:
 def check_operands(x, packed, scale, bits, fn: str) -> None:
     """Raise unless (x, packed, scale) are what the packed-weight kernels
     take: contiguous 2-D CUDA tensors of one device, float32 x and scale,
-    uint8 packed, consistent shapes, within a 32-row-tile grid. `fn` names
+    uint8 packed, consistent shapes, within a 64-row-tile grid. `fn` names
     the caller in the message."""
     dev = x.device
     if dev.type != "cuda":
@@ -83,8 +88,28 @@ def check_operands(x, packed, scale, bits, fn: str) -> None:
             f"shapes: packed {tuple(packed.shape)}, scale {tuple(scale.shape)}"
         )
     check_k(k, kp, bits)
-    if max(m, k, n) >= 2**31 or m > 65535 * 32:
+    if max(m, k, n) >= 2**31 or m > 65535 * 64:
         raise ValueError(f"M={m}, K={k}, N={n} out of the kernel's grid")
+
+
+def cmul_geometry(fn, m: int, k: int, n: int, bits: int) -> dict:
+    """What the C function `fn` (`<kernel>_geometry` of a library built on
+    `csrc/cmul_tc.cuh`) says a launch at (M, K, N) takes on the current
+    card: grid, blocks, cluster size (the K split), dynamic shared memory
+    in bytes and the blocks an SM holds at once."""
+    out = (ctypes.c_int * 6)()
+    err = fn(m, k, n, bits, out)
+    if err != 0:
+        raise RuntimeError(f"no launch geometry at bits={bits}: CUDA error {err}")
+    grid = tuple(out[:3])
+    return {"grid": grid, "blocks": grid[0] * grid[1] * grid[2],
+            "cluster": out[3], "smem_bytes": out[4], "blocks_per_sm": out[5]}
+
+
+def launch_geometry(m: int, k: int, n: int, *, bits: int) -> dict:
+    """The grid and cluster split of a `quant_matmul_cuda` launch at
+    (M, K, N) on the current card (`cmul_geometry`)."""
+    return cmul_geometry(_library().quant_matmul_geometry, m, k, n, bits)
 
 
 def quant_matmul_cuda(

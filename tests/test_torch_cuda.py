@@ -10,7 +10,8 @@ run it there with the repository's conftest left out:
 
 Tolerances: 1e-4 relative to max|y| for the kernel against its plain
 version (float32, summed in another order — tests/test_kernels.py's
-float32 tolerance), 1e-3 on logits across compute paths
+float32 tolerance; for the CMUL kernels, two TF32 passes on the tensor
+cores, about 1e-6), a repeated CMUL launch bit-identical, 1e-3 on logits across compute paths
 (tests/test_vadetect.py), 1e-4 relative for a train step on the card
 against the CPU (cuDNN sums the gradients in another order), 1e-5
 relative for a gradient with cuDNN's TF32 allowed against one without
@@ -167,6 +168,79 @@ def test_bitserial_kernel_matches_plain(cuda, bits, m, k, nn):
     assert tbs.launches == before + 1
     assert _rel_err(y, tbs.bitserial_matmul_plain(x, packed, scale, bits=bits)) <= 1e-4
     assert _rel_err(y, tqm.quant_matmul_cuda(x, packed, scale, bits=bits)) <= 1e-4
+
+
+# the CMUL kernels' tiling: 64-row tiles (M), 32-column tiles (N), 32-wide
+# K chunks split across a cluster; K = 136 is not a whole number of chunks
+CMUL_M = [1, 33, 64, 65, 128]
+CMUL_N = [1, 40, 256]
+CMUL_K = ["vpb", 64, 136, 512, 4096]  # vpb: one packed row
+
+
+def _cmul_operands(cuda, bits, m, k, nn, seed):
+    """x, packed, scale of a random weight; where N > 1 its last column is
+    all zero with scale 0."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((k, nn), generator=gen, device=cuda)
+    if nn > 1:
+        w[:, -1] = 0.0
+    q, scale = quant.quantize(w, quant.QuantConfig(bits=bits))
+    if nn > 1:
+        scale[:, -1] = 0.0
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    return x, quant.pack_planes(q, bits), scale
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+@pytest.mark.parametrize("m", CMUL_M)
+@pytest.mark.parametrize("nn", CMUL_N)
+@pytest.mark.parametrize("k", CMUL_K)
+def test_cmul_kernels_at_the_tile_edges(cuda, bits, m, nn, k):
+    """Both CMUL kernels against their plain versions, each other and
+    themselves (a second launch on the same inputs is bit-identical: the
+    cluster sums its K split in a fixed order, no atomics)."""
+    k = 8 // bits if k == "vpb" else k
+    x, packed, scale = _cmul_operands(cuda, bits, m, k, nn, bits * m + nn + k)
+    y = {}
+    for name, fn, plain in (
+        ("quant", tqm.quant_matmul_cuda, tqm.quant_matmul_plain),
+        ("bitserial", tbs.bitserial_matmul_cuda, tbs.bitserial_matmul_plain),
+    ):
+        y[name] = fn(x, packed, scale, bits=bits)
+        again = fn(x, packed, scale, bits=bits)
+        torch.cuda.synchronize()
+        assert tuple(y[name].shape) == (m, nn)
+        y_plain = plain(x, packed, scale, bits=bits)
+        err = float((y[name] - y_plain).abs().max())
+        assert err <= 1e-4 * float(y_plain.abs().max()), name
+        assert torch.equal(y[name], again), name
+        if nn > 1:
+            assert bool((y[name][:, -1] == 0).all()), name
+    err = float((y["bitserial"] - y["quant"]).abs().max())
+    assert err <= 1e-4 * float(y["quant"].abs().max())
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+@pytest.mark.parametrize("m,k,nn", [(33, 136, 40), (128, 512, 256)])
+def test_cmul_kernels_over_a_wide_range_of_x(cuda, bits, m, k, nn):
+    """x from 1e-20 to 1e20: row 0 spans the whole range, every other row
+    has one magnitude from that range. Each row is held at 1e-4 of its own
+    max|y|, so the split of x into TF32 parts must hold at every scale."""
+    x, packed, scale = _cmul_operands(cuda, bits, m, k, nn, bits + k)
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    exps = torch.empty((m, 1), device=cuda).uniform_(-20, 20, generator=gen)
+    exps[0] = 0.0
+    spread = torch.empty((1, k), device=cuda).uniform_(-20, 20, generator=gen)
+    x = x * 10.0 ** exps
+    x[0] = x[0] * 10.0 ** spread[0]
+    for fn, plain in ((tqm.quant_matmul_cuda, tqm.quant_matmul_plain),
+                      (tbs.bitserial_matmul_cuda, tbs.bitserial_matmul_plain)):
+        y = fn(x, packed, scale, bits=bits)
+        torch.cuda.synchronize()
+        y_plain = plain(x, packed, scale, bits=bits)
+        assert bool(torch.isfinite(y).all())
+        row_err = (y - y_plain).abs().amax(dim=1)
+        assert bool((row_err <= 1e-4 * y_plain.abs().amax(dim=1)).all())
 
 
 def _rel_tree(a, b) -> float:

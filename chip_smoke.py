@@ -11,11 +11,12 @@ toolkit. Phases, each printing JSON lines:
    every CUDA kernel (nm_spmm, sparse_conv1d, quant_matmul,
    bitserial_matmul) from src/repro_torch/kernels/csrc, one nvcc each,
    all at once, with ptxas's registers and spills; the tensor-core
-   instructions (HGMMA) in the SASS of quant_matmul and bitserial_matmul;
+   instructions (HGMMA) in the SASS of all four;
 2. kernel — each kernel against its plain PyTorch version: nm_spmm and
    sparse_conv1d at the seven sparse VA layers at bucket 256 (the fused
-   layer also against im2col -> pad -> nm_spmm, which execute runs), a
-   head-like and a ragged shape; quant_matmul at 8/4/2/1 bits x three
+   layer also against im2col -> pad -> nm_spmm, which execute runs, bit
+   for bit), a head-like and a ragged shape, each twice, bit-identical,
+   and their geometry (tile width, grid) at each layer; quant_matmul at 8/4/2/1 bits x three
    shapes and at (64, 4096, 4096) at 8 and 1 bits; bitserial_matmul at the
    same 14 cases, also against the CUDA quant_matmul and
    quant.quantized_matmul(exact_bitserial=True); both twice on the same
@@ -33,11 +34,12 @@ toolkit. Phases, each printing JSON lines:
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
-   whole execute, and one train step (host and device time), on the card.
-   quant_matmul and bitserial_matmul, and their library call, are also
-   timed per launch in a run of RUN_LAUNCHES (ms_in_run), and at
-   (64, 4096, 4096) at 8 and 1 bits against both bounds, float32 and
-   tensor-core (tc_bound_ms).
+   whole execute (CONFIG and MIXED, kernel and dense "twin" paths, CONFIG
+   also the reference path), and one train step (host and device time),
+   on the card. Every kernel and its library call are also timed per
+   launch in a run of RUN_LAUNCHES (ms_in_run), against both bounds,
+   float32 and tensor-core (tc_bound_ms); the CMUL pair also at
+   (64, 4096, 4096) at 8 and 1 bits.
 
 The line before the last is the {"kernels": [...]} summary, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either;
@@ -188,6 +190,14 @@ def conv_bound(x, n: int, kk: int, valid: int, t_out: int) -> tuple[float, float
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
 
 
+def spe_tc_bound_ms(nbytes_ms: float, m: int, k: int, n: int) -> float:
+    """Least time in ms for one nm_spmm or sparse_conv1d on the tensor
+    cores: its bytes (`nbytes_ms`, from `bound` or `conv_bound`) against the
+    two TF32 passes over the dense K x N, 2 * (2 * M * K * N) operations at
+    the TF32 rate; the larger."""
+    return max(nbytes_ms, 2 * 2 * m * k * n / TF32_FLOP_PER_S * 1e3)
+
+
 def quant_bound(m: int, k: int, n: int, packed_bytes: int) -> tuple[float, float]:
     """Least times in ms for one quant_matmul or bitserial_matmul (the same
     function): (bytes, operations) — x, the packed weight and scale read
@@ -291,13 +301,12 @@ def main() -> int:
                                  if ("ptxas info" in ln and "Used" in ln)
                                  or "spill" in ln]}
                       for b in built]})
-    # the tensor cores in the two CMUL kernels: wgmma compiles to HGMMA
+    # the tensor cores in all four kernels: wgmma compiles to HGMMA
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    hgmma = {b.name: sass_count(cuobjdump, b.path, "HGMMA") for b in built
-             if b.name in (QM.NAME, BS.NAME)}
+    hgmma = {b.name: sass_count(cuobjdump, b.path, "HGMMA") for b in built}
     emit({"phase": "sass", "hgmma": hgmma})
-    check(len(hgmma) == 2 and min(hgmma.values()) > 0,
-          f"no HGMMA in the SASS of quant_matmul / bitserial_matmul: {hgmma}")
+    check(len(hgmma) == 4 and min(hgmma.values()) > 0,
+          f"no HGMMA in the SASS of some kernel: {hgmma}")
 
     # -- 2. each kernel against its plain version ---------------------------
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
@@ -311,17 +320,20 @@ def main() -> int:
         x = torch.randn((p["m"], p["k"]), generator=gen_dev, device=dev)
         args = (x, layer.values_q, layer.select, layer.scale)
         y_k = K.nm_spmm_cuda(*args, group_size=16, keep=8)
+        y_again = K.nm_spmm_cuda(*args, group_size=16, keep=8)
         torch.cuda.synchronize()
         y_p = K.nm_spmm_plain(*args, group_size=16, keep=8)
         torch.cuda.synchronize()
         err = float((y_k - y_p).abs().max())
         rel = err / max(float(y_p.abs().max()), 1e-30)
         max_abs_err = max(max_abs_err, err)
+        same = torch.equal(y_k, y_again)
         emit({"phase": "kernel", "kernel": K.NAME, **p, "max_abs_err": err,
-              "rel_err": rel, "tol": KERNEL_RTOL})
+              "rel_err": rel, "tol": KERNEL_RTOL, "repeat_identical": same})
         check(tuple(y_k.shape) == (p["m"], p["n"]), f"{p}: shape {tuple(y_k.shape)}")
         check(bool(torch.isfinite(y_k).all()), f"{p}: non-finite output")
         check(rel <= KERNEL_RTOL, f"{p}: kernel vs plain rel err {rel}")
+        check(same, f"{p}: nm_spmm repeat differs")
 
     # sparse_conv1d: the seven sparse VA layers of the CONFIG program
     # (phase 3's first program: same seed) at bucket 256, then the extras
@@ -345,15 +357,18 @@ def main() -> int:
         args = (x, layer.values_q, layer.select, layer.scale)
         kw = dict(ksize=ks, stride=stride, group_size=16, keep=8)
         y_k = SC.sparse_conv1d_cuda(*args, **kw)
+        y_again = SC.sparse_conv1d_cuda(*args, **kw)
         torch.cuda.synchronize()
         y_p = SC.sparse_conv1d_plain(*args, **kw)
         torch.cuda.synchronize()
         err, rel = rel_err(y_k, y_p)
         conv_err = max(conv_err, err)
+        same = torch.equal(y_k, y_again)
         line = {"phase": "kernel", "kernel": SC.NAME, "layer": name,
                 "x": list(shape), "n": layer.values_q.shape[1], "ksize": ks,
                 "stride": stride, "max_abs_err": err, "rel_err": rel,
-                "tol": KERNEL_RTOL}
+                "tol": KERNEL_RTOL, "repeat_identical": same}
+        check(same, f"{name}: sparse_conv1d repeat differs")
         t_out = (shape[1] - 1) // stride + 1
         check(tuple(y_k.shape) == (shape[0], t_out, layer.values_q.shape[1]),
               f"{name}: shape {tuple(y_k.shape)}")
@@ -367,10 +382,12 @@ def main() -> int:
                                group_size=16, keep=8)
             torch.cuda.synchronize()
             err_mm, rel_mm = rel_err(y_k, y_mm)
+            exact = torch.equal(y_k.reshape(y_mm.shape), y_mm)
             line.update(max_abs_err_vs_im2col_nm_spmm=err_mm,
-                        rel_err_vs_im2col_nm_spmm=rel_mm)
-            check(rel_mm <= KERNEL_RTOL,
-                  f"{name}: sparse_conv1d vs im2col + nm_spmm rel err {rel_mm}")
+                        rel_err_vs_im2col_nm_spmm=rel_mm,
+                        identical_to_im2col_nm_spmm=exact)
+            check(exact, f"{name}: sparse_conv1d differs from im2col + "
+                  f"nm_spmm (rel err {rel_mm})")
         emit(line)
 
     # quant_matmul: every bit width at the benchmark's and the tests' shapes,
@@ -440,6 +457,14 @@ def main() -> int:
         emit(line)
         check(same, f"bitserial_matmul {bits}b {(m_q, k_q, n_q)}: repeat differs")
 
+    # the SPE kernels' launch geometry at each VA layer (the fused layer's
+    # B * T_out output steps are nm_spmm's M)
+    for p in problems:
+        emit({"phase": "geometry", "kernel": K.NAME, **p,
+              **K.launch_geometry(p["m"], p["k"], p["n"])})
+        emit({"phase": "geometry", "kernel": SC.NAME, **p,
+              **SC.launch_geometry(BUCKET, p["m"] // BUCKET, p["k"], p["n"])})
+
     # the launch geometry of both at the benchmark shape, per width, and at
     # the large shape
     for mod in (QM, BS):
@@ -453,12 +478,11 @@ def main() -> int:
     # -- 3. the service path at full width ----------------------------------
     main_launches = None
     gen = torch.Generator().manual_seed(SEED)  # CPU: same weights anywhere
-    timed = None  # the CONFIG program, timed in phase 4
+    timed = {}  # each program, timed in phase 4
     for cname, cfg in (("CONFIG", va_cnn.CONFIG), ("MIXED", va_cnn.MIXED)):
         params = vadetect.init(gen, cfg, device=dev)
         program = compiler.compile_model(params, cfg)
-        if timed is None:
-            timed = program
+        timed[cname] = (program, cfg)
         recs = iegm.synth_diagnosis_batch(gen, PATIENTS, device=dev)["signal"]
         signals = iegm.synth_batch(gen, BUCKET, device=dev)["signal"]
         service = VAService(program, cfg, path="kernel", device=dev)
@@ -708,28 +732,45 @@ def main() -> int:
     emit({"phase": "time", "floor": "one-element add_",
           "ms": device_ms(torch, lambda: one.add_(1.0)),
           "ms_in_run": run_ms(torch, lambda: one.add_(1.0))[0]})
-    program = timed
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    program = timed["CONFIG"][0]
+    # ms_in_run per launch in a run of RUN_LAUNCHES behind a sleep
+    run_sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(RUN_SLEEP_CYCLES))
+    enqueue_max = 0.0
+
+    def in_run(run: dict) -> dict:
+        """ms_in_run of the kernel and the library call in `run`."""
+        nonlocal enqueue_max
+        got = {key: run_ms(torch, fn) for key, fn in run.items()}
+        enqueue_max = max([enqueue_max] + [e for _, e in got.values()])
+        return {"ms_in_run": got["kernel"][0],
+                "library_ms_in_run": got["library"][0]}
+
+    spe_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ms_in_run",
+                "library_ms_in_run", "tc_bound_ms")
+    totals = dict.fromkeys(spe_keys, 0.0)
     bytes_ms = ops_ms = 0.0
     for p, name in zip(problems, [m["name"] for m in program.layer_meta]):
         layer = program.layers[name]
         x = torch.randn((p["m"], p["k"]), generator=gen_dev, device=dev)
         args = (x, layer.values_q, layer.select, layer.scale)
         w_dense = decompress_tile(layer.values_q, layer.select, 16, 8) * layer.scale
+        run = {"kernel": lambda: K.nm_spmm_cuda(*args, group_size=16, keep=8),
+               "library": lambda: torch.matmul(x, w_dense)}
         t = {
-            "ms": device_ms(torch, lambda: K.nm_spmm_cuda(*args, group_size=16, keep=8)),
+            "ms": device_ms(torch, run["kernel"]),
             "plain_ms": device_ms(torch, lambda: K.nm_spmm_plain(*args, group_size=16, keep=8)),
-            "library_ms": device_ms(torch, lambda: torch.matmul(x, w_dense)),
+            "library_ms": device_ms(torch, run["library"]),
+            **in_run(run),
         }
         b_ms, o_ms = bound(p["m"], p["k"], p["kk"], p["n"])
         t["bound_ms"] = max(b_ms, o_ms)
+        t["tc_bound_ms"] = spe_tc_bound_ms(b_ms, p["m"], p["k"], p["n"])
         bytes_ms, ops_ms = bytes_ms + b_ms, ops_ms + o_ms
         for key in totals:
             totals[key] += t[key]
         emit({"phase": "time", "kernel": K.NAME, **p, **t,
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
-    conv_totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       im2col_nm_spmm_ms=0.0)
+    conv_totals = dict.fromkeys(spe_keys + ("im2col_nm_spmm_ms",), 0.0)
     conv_bytes_ms = conv_ops_ms = 0.0
     for m in program.layer_meta:
         layer = program.layers[m["name"]]
@@ -748,17 +789,22 @@ def main() -> int:
             return ops.nm_spmm(flat, layer.values_q, layer.select, layer.scale,
                                group_size=16, keep=8)
 
+        run = {"kernel": lambda: SC.sparse_conv1d_cuda(*args, **kw),
+               "library": lambda: spe.conv1d_same(x, w_conv, stride)}
         t = {
-            "ms": device_ms(torch, lambda: SC.sparse_conv1d_cuda(*args, **kw)),
+            "ms": device_ms(torch, run["kernel"]),
             "plain_ms": device_ms(torch, lambda: SC.sparse_conv1d_plain(*args, **kw)),
-            "library_ms": device_ms(torch, lambda: spe.conv1d_same(x, w_conv, stride)),
+            "library_ms": device_ms(torch, run["library"]),
             "im2col_nm_spmm_ms": device_ms(torch, im2col_nm_spmm),
+            **in_run(run),
         }
         kk = layer.values_q.shape[0]
         rows_d = (torch.arange(kk, device=dev) // 8)[:, None] * 16 + layer.select.long()
         valid = int((rows_d < ks * c).sum())
         b_ms, o_ms = conv_bound(x, n, kk, valid, m["t_out"])
         t["bound_ms"] = max(b_ms, o_ms)
+        t["tc_bound_ms"] = spe_tc_bound_ms(b_ms, BUCKET * m["t_out"],
+                                           layer.k_dense, n)
         conv_bytes_ms, conv_ops_ms = conv_bytes_ms + b_ms, conv_ops_ms + o_ms
         for key in conv_totals:
             conv_totals[key] += t[key]
@@ -768,13 +814,10 @@ def main() -> int:
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
 
     # quant_matmul, then bitserial_matmul, at every width at the benchmark
-    # shape (their sums go into the kernels line), then at the large shape;
-    # ms_in_run per launch in a run of RUN_LAUNCHES behind a sleep
-    run_sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(RUN_SLEEP_CYCLES))
+    # shape (their sums go into the kernels line), then at the large shape
     cmul_fns = {QM.NAME: (QM.quant_matmul_cuda, QM.quant_matmul_plain),
                 BS.NAME: (BS.bitserial_matmul_cuda, BS.bitserial_matmul_plain)}
     cmul_totals, cmul_bound_by = {}, {}
-    enqueue_max = 0.0
     timed_cases = [(name, bits, (bench.M, bench.K, bench.N), gen_dev)
                    for name in cmul_fns for bits in BS.BITS]
     timed_cases += [(name, bits, LARGE, gen_large)
@@ -788,14 +831,11 @@ def main() -> int:
         w_deq = unpack_tile(packed, bits).to(torch.float32) * sc
         run = {"kernel": lambda: kernel_fn(x, packed, sc, bits=bits),
                "library": lambda: torch.matmul(x, w_deq)}
-        in_run = {key: run_ms(torch, fn) for key, fn in run.items()}
-        enqueue_max = max([enqueue_max] + [e for _, e in in_run.values()])
         t = {
             "ms": device_ms(torch, run["kernel"]),
             "plain_ms": device_ms(torch, lambda: plain_fn(x, packed, sc, bits=bits)),
             "library_ms": device_ms(torch, run["library"]),
-            "ms_in_run": in_run["kernel"][0],
-            "library_ms_in_run": in_run["library"][0],
+            **in_run(run),
         }
         b_ms, o_ms = quant_bound(m_q, k_q, n_q, packed.numel())
         t["bound_ms"] = max(b_ms, o_ms)
@@ -817,13 +857,18 @@ def main() -> int:
 
     # one bucket through each path: its device time behind a sleep long
     # enough to cover the host's enqueue of the whole call (about 60 small
-    # ops, over a millisecond on a slow host)
+    # ops, over a millisecond on a slow host); CONFIG and MIXED on the kernel
+    # and the dense ("twin") path, CONFIG also on the reference path
     sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
     signals = iegm.synth_batch(gen, BUCKET, device=dev)["signal"]
-    for path in ("kernel", "reference", "twin"):
-        runner = FleetRunner(program, va_cnn.CONFIG, path=path, device=dev)
+    for cname, path in (("CONFIG", "kernel"), ("CONFIG", "reference"),
+                        ("CONFIG", "twin"), ("MIXED", "kernel"),
+                        ("MIXED", "twin")):
+        prog, cfg = timed[cname]
+        runner = FleetRunner(prog, cfg, path=path, device=dev)
         enqueue = []
-        emit({"phase": "time", "execute": path, "bucket": BUCKET,
+        emit({"phase": "time", "execute": path, "config": cname,
+              "bucket": BUCKET,
               "device_ms": device_ms(torch, lambda: runner.logits(signals),
                                      STEP_SLEEP_CYCLES, enqueue),
               "wall_ms": wall_ms(torch, lambda: runner.logits(signals)),
@@ -878,10 +923,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
         "replaces": "src/repro/kernels/nm_spmm.py:68",
         "launches": main_launches, "max_abs_err": max_abs_err,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
+        **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": totals["library_ms"],
+        **{key: totals[key] for key in
+           ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms")},
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the service run",
     }, {
@@ -889,11 +934,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",
         "replaces": "src/repro/kernels/sparse_conv1d.py:64",
         "launches": bench_launches[SC.NAME], "max_abs_err": conv_err,
-        "ms": conv_totals["ms"], "plain_ms": conv_totals["plain_ms"],
-        "bound_ms": conv_totals["bound_ms"],
+        **{key: conv_totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if conv_bytes_ms >= conv_ops_ms else "operations",
-        "library_ms": conv_totals["library_ms"],
-        "im2col_nm_spmm_ms": conv_totals["im2col_nm_spmm_ms"],
+        **{key: conv_totals[key] for key in
+           ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms",
+            "im2col_nm_spmm_ms")},
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the benchmark run",
     }] + [{

@@ -7,189 +7,64 @@
 // where compressed row r of column n reads dense row d = (r / keep) * G +
 // select[r, n], tap = d / C and ch = d % C, and xpad is x with XLA's SAME
 // padding (pad_l zeros on the left). Dense rows d >= ks * C are the
-// compiler's group padding: they contribute zero, and x is not read for them.
+// compiler's group padding: they meet zeros.
 //
 // x (B, T, C) float32, unpadded; values (Kk, N) int8; select (Kk, N) uint8;
 // scale (1, N) float32 -> y (B, T_out, N) float32, all row-major and
 // contiguous. T_out and pad_l come from the wrapper (core/spe.same_padding).
 //
 // Replaces repro/kernels/sparse_conv1d.py:sparse_conv1d_call (the Pallas TPU
-// kernel). Its point is that no im2col patches are written to device memory:
-// it cuts the windows inside VMEM. This kernel keeps that. A block takes one
-// batch row, one tile of kBlockT output steps and a 32-column strip; it stages
-// the tile's input span, (kBlockT - 1) * stride + ks rows of C floats, in
-// shared memory once (zeros where the span runs past either end of x: the
-// SAME padding is never materialised), and every output row reads its window
-// from there. In the staged span the window of local output row m starts at
-// m * stride * C, and (tap, ch) sits at offset tap * C + ch = d inside it, so
-// the dense row index d is itself the offset: no division by C in the loop.
+// kernel). Its point is that no im2col patches are written to device memory.
+// This kernel keeps that: it is nm_spmm (spe_tc.cuh) on the patch matrix of
+// the layer, (B * T_out, K), whose row m = b * T_out + t is never written
+// anywhere. Its window, dense entries d = tap * C + ch, is one contiguous
+// run of the signal, x[b] from (t * stride - pad_l) * C on, so the copies
+// that stage a chunk of row m read it from there, and zero-fill what falls
+// before 0 or after T * C (the SAME padding) or at d >= ks * C (the group
+// padding: finite zeros, so 0 * NaN cannot arise). A 64-row tile may span
+// several batch rows (T_out = 16 at conv6); each row finds its own.
 //
-// What bounds it on this card: bytes and operations about equally. At
-// bucket 256 the seven sparse VA layers read about 23 MB of activations and
-// write about 23 MB against 0.63 GFLOP of sparse multiply-adds: about 14 us
-// of HBM at 3.35 TB/s against 9.5 us of float32 FMA at 67 TFLOP/s (H100 SXM
-// data sheet), and layer by layer the two are close, so which one bounds
-// varies (chip_smoke.py reckons both per layer from its inputs and measures
-// the kernel). The im2col path (core/compiler.execute: patches written, then
-// nm_spmm) moves about 83 MB for the same work.
+// What bounds it on this card: bytes. At bucket 256 the seven sparse VA
+// layers read about 23 MB of activations and write about 23 MB: about 14 us
+// of HBM at 3.35 TB/s, against two TF32 passes over the dense K (5 us at 495
+// TFLOP/s; H100 SXM data sheet). The im2col path (core/compiler.execute:
+// patches written, then nm_spmm) moves about 83 MB for the same work. The
+// windows overlap (ks / stride times at each signal row), so the copies
+// read each row that often, from L2 after the first.
 //
-// What the design does about it: x is read from device memory once per
-// 32-column strip (the strips of one tile run side by side, so for N > 32 the
-// re-reads come from L2), coalesced; the compressed weights, a few KB, are
-// read once per block and decoded into shared memory as a float weight and a
-// dense offset (-1 for group padding); y is written once, coalesced along n.
-// As in nm_spmm the 32 lanes of a warp own 32 output columns of one output
-// row and gather from one 16-float group window of that row's span, free of
-// bank conflicts; each thread keeps RPT rows' sums in registers, and RPT
-// shrinks with T_out so that short layers (conv5, conv6) do not leave most
-// warps idle. Sums are float32 FMAs in r order, and the scale comes last.
-// Tensor cores are not used: float32 inputs would need TF32, which misses the
-// 1e-4 tolerance of the float32 tests.
+// Staged values, B tile, chunk order and plan are nm_spmm's for the same
+// (B * T_out, K, N), so the result is bit-identical to im2col -> pad ->
+// nm_spmm.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "spe_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 32;  // one lane per output column
-constexpr int kMaxGridY = 65535;
-constexpr long long kMaxGridX = 2147483647LL;
-
-// Rows per thread: the smallest of 1, 2, 4, 8 whose tile (kWarps * RPT
-// output steps) covers T_out, else 8.
-int rows_per_thread(int t_out) {
-  int rpt = 1;
-  while (rpt < 8 && kWarps * rpt < t_out) rpt *= 2;
-  return rpt;
-}
-
-size_t smem_bytes(int rpt, int C, int Kk, int ks, int stride) {
-  const size_t span = static_cast<size_t>(kWarps * rpt - 1) * stride + ks;
-  return span * C * sizeof(float) +
-         static_cast<size_t>(Kk) * kBlockN * (sizeof(float) + sizeof(int));
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(kThreads)
-sparse_conv1d_kernel(const float* __restrict__ x,
-                     const int8_t* __restrict__ values,
-                     const uint8_t* __restrict__ select,
-                     const float* __restrict__ scale, float* __restrict__ y,
-                     int T, int C, int N, int Kk, int ks, int stride,
-                     int pad_l, int T_out, int tiles, int G, int keep) {
-  constexpr int kBlockT = kWarps * RPT;
-  extern __shared__ float smem[];
-  const int span = (kBlockT - 1) * stride + ks;
-  float* xs = smem;                                     // [span][C]
-  float* ws = xs + span * C;                            // [Kk][kBlockN]
-  int* ds = reinterpret_cast<int*>(ws + Kk * kBlockN);  // [Kk][kBlockN]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x % tiles) * kBlockT;
-  const int n0 = blockIdx.y * kBlockN;
-  const int rows = min(kBlockT, T_out - t0);
-
-  // Stage the input span: rows t0 * stride - pad_l ... of x[b]. Those rows
-  // are contiguous in x, so span * C consecutive floats; any outside
-  // [0, T * C) are the SAME padding and staged as zero.
-  const float* xb = x + static_cast<size_t>(b) * T * C;
-  const long long g0 = static_cast<long long>(t0 * stride - pad_l) * C;
-  const long long g_end = static_cast<long long>(T) * C;
-  for (int i = tid; i < span * C; i += kThreads) {
-    const long long g = g0 + i;
-    xs[i] = (g >= 0 && g < g_end) ? xb[g] : 0.f;
+// the window of output step m = b * T_out + t, read from x[b]
+struct WindowRows {
+  const float* x;
+  int M, T, C, T_out, stride, pad_l, kc;  // kc = ksize * C
+  __device__ spe::Rows row(int m) const {
+    if (m >= M) return {0, 0, 0};
+    const int b = m / T_out, t = m % T_out;
+    const long long s = static_cast<long long>(t * stride - pad_l) * C;
+    const long long tc = static_cast<long long>(T) * C;
+    const long long hi = tc - s < kc ? tc - s : kc;
+    return {static_cast<long long>(b) * tc + s, s < 0 ? static_cast<int>(-s) : 0,
+            static_cast<int>(hi)};
   }
-
-  // Stage this strip's weights as a float value and a dense offset d; group
-  // padding (d >= ks * C) and columns past N get offset -1 and are skipped.
-  const int kc = ks * C;
-  for (int i = tid; i < Kk * kBlockN; i += kThreads) {
-    const int r = i / kBlockN;
-    const int n = n0 + i % kBlockN;
-    float w = 0.f;
-    int d = -1;
-    if (n < N) {
-      const size_t at = static_cast<size_t>(r) * N + n;
-      const int dd = (r / keep) * G + select[at];
-      if (dd < kc) {
-        w = static_cast<float>(values[at]);
-        d = dd;
-      }
-    }
-    ws[i] = w;
-    ds[i] = d;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  // this thread's output rows are warp, warp + kWarps, ...; row m's window
-  // starts at m * stride * C in the span
-  const float* xw = xs + warp * stride * C;
-  const int row_step = kWarps * stride * C;
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int r = 0; r < Kk; ++r) {
-    const int d = ds[r * kBlockN + lane];
-    if (d < 0) continue;
-    const float w = ws[r * kBlockN + lane];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      acc[i] = fmaf(w, xw[i * row_step + d], acc[i]);
-  }
-
-  const int n = n0 + lane;
-  if (n < N) {
-    const float s = scale[n];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int m = warp + i * kWarps;
-      if (m < rows)
-        y[(static_cast<size_t>(b) * T_out + t0 + m) * N + n] = acc[i] * s;
-    }
-  }
-}
-
-template <int RPT>
-int launch(const void* x, const void* values, const void* select,
-           const void* scale, void* y, int B, int T, int C, int N, int Kk,
-           int ks, int stride, int pad_l, int T_out, int G, int keep,
-           cudaStream_t stream) {
-  constexpr int kBlockT = kWarps * RPT;
-  const int tiles = (T_out + kBlockT - 1) / kBlockT;
-  const long long grid_x = static_cast<long long>(B) * tiles;
-  const int grid_y = (N + kBlockN - 1) / kBlockN;
-  if (grid_x > kMaxGridX || grid_y > kMaxGridY)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(RPT, C, Kk, ks, stride);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv1d_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(grid_x), grid_y);
-  sparse_conv1d_kernel<RPT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(values),
-      static_cast<const uint8_t*>(select), static_cast<const float*>(scale),
-      static_cast<float*>(y), T, C, N, Kk, ks, stride, pad_l, T_out, tiles, G,
-      keep);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
-// Dynamic shared memory one launch needs; the wrapper checks it against the
-// card's per-block limit before launching.
-extern "C" size_t sparse_conv1d_smem_bytes(int T_out, int C, int Kk, int ks,
-                                           int stride) {
-  return smem_bytes(rows_per_thread(T_out), C, Kk, ks, stride);
+// Dynamic shared memory of a launch with dense K `k_dense` and N columns
+// (nm_spmm's at the same K and N); over the card's per-block limit where no
+// tile width fits; the wrapper checks it before launching.
+extern "C" size_t sparse_conv1d_smem_bytes(int k_dense, int N) {
+  return spe::fit_smem(k_dense, N);
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns the CUDA error (0 on success).
 extern "C" int sparse_conv1d_f32(const void* x, const void* values,
                                  const void* select, const void* scale,
                                  void* y, int B, int T, int C, int N, int Kk,
@@ -197,21 +72,22 @@ extern "C" int sparse_conv1d_f32(const void* x, const void* values,
                                  int G, int keep, void* stream) {
   if (B <= 0 || T_out <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (T <= 0 || C <= 0 || Kk <= 0 || ks <= 0 || stride <= 0 || G <= 0 ||
-      keep <= 0 || pad_l < 0)
+      keep <= 0 || pad_l < 0 || Kk % keep)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_thread(T_out)) {
-    case 1:
-      return launch<1>(x, values, select, scale, y, B, T, C, N, Kk, ks,
-                       stride, pad_l, T_out, G, keep, s);
-    case 2:
-      return launch<2>(x, values, select, scale, y, B, T, C, N, Kk, ks,
-                       stride, pad_l, T_out, G, keep, s);
-    case 4:
-      return launch<4>(x, values, select, scale, y, B, T, C, N, Kk, ks,
-                       stride, pad_l, T_out, G, keep, s);
-    default:
-      return launch<8>(x, values, select, scale, y, B, T, C, N, Kk, ks,
-                       stride, pad_l, T_out, G, keep, s);
-  }
+  const long long m = static_cast<long long>(B) * T_out;
+  const int k_dense = (Kk / keep) * G;
+  if (m > 2147483647LL || k_dense < ks * C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WindowRows rows{static_cast<const float*>(x), static_cast<int>(m), T,
+                        C, T_out, stride, pad_l, ks * C};
+  const int vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return spe::launch(rows, values, select, scale, y, static_cast<int>(m),
+                     k_dense, N, Kk, G, keep, vec,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The launch's geometry on the current card for B * T_out output steps,
+// into out[7] (spe::geometry); returns the CUDA error (0 on success).
+extern "C" int sparse_conv1d_geometry(int M, int K, int N, int* out) {
+  return spe::geometry<WindowRows>(M, K, N, out);
 }

@@ -4,16 +4,17 @@ Balanced select-index sparse matmul:
 
     y[m, n] = scale[n] * sum_r values[r, n] * x[m, (r // keep) * G + select[r, n]]
 
-`nm_spmm_cuda` launches `csrc/nm_spmm.cu` (replacing the Pallas
-`repro/kernels/nm_spmm.py:nm_spmm_2d`; the source explains its design and
-bound). `nm_spmm_plain` is the same function in plain PyTorch —
-decompress the weight tile, one float32 matmul, scale — which the CPU
-path and the tests use and against which `chip_smoke.py` holds the kernel
-on the card.
+`nm_spmm_cuda` launches `csrc/nm_spmm.cu` on `csrc/spe_tc.cuh`
+(replacing the Pallas `repro/kernels/nm_spmm.py:nm_spmm_2d`; the sources
+explain its design and bound). `nm_spmm_plain` is the same function in
+plain PyTorch — decompress the weight tile, one float32 matmul, scale —
+which the CPU path and the tests use and against which `chip_smoke.py`
+holds the kernel on the card.
 
 `launches` counts kernel launches: `nm_spmm_cuda` adds one where it
 launches and nowhere else, so a run can show that its path went through
-the kernel.
+the kernel. `launch_geometry` reports the tile width and grid a launch
+would take on the current card (no launch).
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ def _library() -> ctypes.CDLL:
         lib.nm_spmm_f32.restype = ctypes.c_int
         lib.nm_spmm_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.nm_spmm_smem_bytes.restype = ctypes.c_size_t
+        lib.nm_spmm_geometry.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.nm_spmm_geometry.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -77,6 +82,39 @@ def _check(x, values, select, scale, group_size, keep) -> None:
         raise ValueError("dimensions must fit in a 32-bit int")
 
 
+def spe_geometry(fn, m: int, k: int, n: int) -> dict:
+    """What the C function `fn` (`<kernel>_geometry` of a library built on
+    `csrc/spe_tc.cuh`) says a launch at (M, K, N) takes on the current
+    card: grid, blocks, cluster size, dynamic shared memory in bytes, the
+    blocks an SM holds at once and the output tile's width BN."""
+    out = (ctypes.c_int * 7)()
+    err = fn(m, k, n, out)
+    if err != 0:
+        raise RuntimeError(f"no launch geometry at {(m, k, n)}: CUDA error {err}")
+    grid = tuple(out[:3])
+    return {"grid": grid, "blocks": grid[0] * grid[1] * grid[2],
+            "cluster": out[3], "smem_bytes": out[4], "blocks_per_sm": out[5],
+            "bn": out[6]}
+
+
+def launch_geometry(m: int, k: int, n: int) -> dict:
+    """The tile width and grid of an `nm_spmm_cuda` launch at (M, K, N) on
+    the current card (`spe_geometry`)."""
+    return spe_geometry(_library().nm_spmm_geometry, m, k, n)
+
+
+def check_smem(lib_fn, k: int, n: int, what: str) -> None:
+    """Raise ValueError where the C function `lib_fn` (`<kernel>_smem_bytes`
+    of a library built on `csrc/spe_tc.cuh`) says no tile width fits the
+    dense K `k` in a block's shared memory."""
+    smem = lib_fn(k, n)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block, over "
+            f"the {_MAX_SMEM_BYTES} a block can have"
+        )
+
+
 def nm_spmm_cuda(
     x: torch.Tensor,
     values: torch.Tensor,
@@ -96,12 +134,7 @@ def nm_spmm_cuda(
     if m == 0 or n == 0:
         return y
     lib = _library()
-    smem = lib.nm_spmm_smem_bytes(k, kk)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"K={k}, Kk={kk} needs {smem} bytes of shared memory per block, "
-            f"over the {_MAX_SMEM_BYTES} a block can have"
-        )
+    check_smem(lib.nm_spmm_smem_bytes, k, n, f"K={k}, N={n}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nm_spmm_f32(

@@ -7,16 +7,18 @@ balanced select-index sparse matmul, times the scale — no bias, no ReLU:
 
     y[b, t, n] = scale[n] * sum_r values[r, n] * patches[b, t, (r // keep) * G + select[r, n]]
 
-`sparse_conv1d_cuda` launches `csrc/sparse_conv1d.cu` (replacing the Pallas
-`repro/kernels/sparse_conv1d.py:sparse_conv1d_call`; the source explains
-its design and bound), which cuts the windows in shared memory and writes
-no patches to device memory. `sparse_conv1d_plain` is the same function in
-plain PyTorch — `core.spe.im2col`, pad to K, `nm_spmm_plain` — which the
-CPU path and the tests use and against which `chip_smoke.py` holds the
-kernel on the card.
+`sparse_conv1d_cuda` launches `csrc/sparse_conv1d.cu` on
+`csrc/spe_tc.cuh` (replacing the Pallas
+`repro/kernels/sparse_conv1d.py:sparse_conv1d_call`; the sources explain
+its design and bound), which reads each window from the signal as it
+stages it and writes no patches to device memory. `sparse_conv1d_plain`
+is the same function in plain PyTorch — `core.spe.im2col`, pad to K,
+`nm_spmm_plain` — which the CPU path and the tests use and against which
+`chip_smoke.py` holds the kernel on the card.
 
 `launches` counts kernel launches: `sparse_conv1d_cuda` adds one where it
-launches and nowhere else.
+launches and nowhere else. `launch_geometry` reports the tile width and
+grid a launch would take on the current card (no launch).
 """
 
 from __future__ import annotations
@@ -28,12 +30,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.spe import im2col, same_padding
 from repro_torch.kernels import _build
-from repro_torch.kernels.nm_spmm import nm_spmm_plain
+from repro_torch.kernels.nm_spmm import check_smem, nm_spmm_plain, spe_geometry
 
 NAME = "sparse_conv1d"
 launches = 0
-# per-block dynamic shared memory an H100 grants (227 KB)
-_MAX_SMEM_BYTES = 232_448
 
 _lib = None
 
@@ -46,8 +46,12 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int
         ] * 11 + [ctypes.c_void_p]
         lib.sparse_conv1d_f32.restype = ctypes.c_int
-        lib.sparse_conv1d_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.sparse_conv1d_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.sparse_conv1d_smem_bytes.restype = ctypes.c_size_t
+        lib.sparse_conv1d_geometry.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.sparse_conv1d_geometry.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -71,6 +75,14 @@ def check_geometry(
             "compressed weight does not cover the window"
         )
     return k_dense
+
+
+def launch_geometry(b: int, t_out: int, k_dense: int, n: int) -> dict:
+    """The tile width and grid of a `sparse_conv1d_cuda` launch with B * T_out
+    output steps, dense K `k_dense` and N columns on the current card
+    (`nm_spmm.spe_geometry`)."""
+    return spe_geometry(_library().sparse_conv1d_geometry, b * t_out,
+                        k_dense, n)
 
 
 def _check(x, values, select, scale, ksize, stride, group_size, keep) -> None:
@@ -125,13 +137,9 @@ def sparse_conv1d_cuda(
     if y.numel() == 0:
         return y
     lib = _library()
-    smem = lib.sparse_conv1d_smem_bytes(t_out, c, kk, ksize, stride)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"C={c}, Kk={kk}, ksize={ksize}, stride={stride} needs {smem} "
-            f"bytes of shared memory per block, over the {_MAX_SMEM_BYTES} "
-            "a block can have"
-        )
+    k_dense = (kk // keep) * group_size
+    check_smem(lib.sparse_conv1d_smem_bytes, k_dense, n,
+               f"k_dense={k_dense}, N={n}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sparse_conv1d_f32(

@@ -10,8 +10,9 @@ run it there with the repository's conftest left out:
 
 Tolerances: 1e-4 relative to max|y| for the kernel against its plain
 version (float32, summed in another order — tests/test_kernels.py's
-float32 tolerance; for the CMUL kernels, two TF32 passes on the tensor
-cores, about 1e-6), a repeated CMUL launch bit-identical, 1e-3 on logits across compute paths
+float32 tolerance; for the CMUL and SPE kernels, two TF32 passes on the tensor
+cores, about 1e-6), a repeated launch bit-identical, the fused
+sparse_conv1d bit-identical to im2col -> pad -> nm_spmm, 1e-3 on logits across compute paths
 (tests/test_vadetect.py), 1e-4 relative for a train step on the card
 against the CPU (cuDNN sums the gradients in another order), 1e-5
 relative for a gradient with cuDNN's TF32 allowed against one without
@@ -118,7 +119,8 @@ def test_sparse_conv1d_kernel_matches_plain(cuda, b, tt, c, nn, ks, stride):
 
 def test_sparse_conv1d_matches_im2col_nm_spmm_at_conv2(cuda):
     """conv2 (24 channels x 5 taps = 120, group-padded to 128): the fused
-    kernel equals execute's im2col -> pad -> nm_spmm on the card."""
+    kernel equals execute's im2col -> pad -> nm_spmm on the card, bit for
+    bit (both stage the same values and run the same plan, spe_tc.cuh)."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     layer = spe.compile_layer(
         torch.randn((128, 32), generator=gen, device=cuda), spe.SPEConfig()
@@ -132,7 +134,111 @@ def test_sparse_conv1d_matches_im2col_nm_spmm_at_conv2(cuda):
                           ksize=5, stride=1, **kw)
     torch.cuda.synchronize()
     assert (tsc.launches, tk.launches) == (before[0] + 1, before[1] + 1)
-    assert _rel_err(y, y_mm) <= 1e-4
+    assert torch.equal(y.reshape(y_mm.shape), y_mm)
+
+
+# the SPE kernels' tiling (spe_tc.cuh): 64-row M tiles, output tiles 8 to
+# 96 wide (N tiled above 96, narrowed where the tiles would not fill the
+# SMs or the B tile would not fit), 32-wide K chunks; K = 800 narrows the
+# tile to fit the B tile in shared memory
+SPE_M = [1, 63, 64, 65, 4097]
+SPE_N = [1, 16, 24, 40, 96, 130]
+SPE_K = [16, 32, 192, 800]
+
+
+def _spe_layer(cuda, k_dense, nn, gen):
+    """A compiled random (k_dense, N) layer; where N > 1 its last column is
+    all zero with scale 0."""
+    w = torch.randn((k_dense, nn), generator=gen, device=cuda)
+    if nn > 1:
+        w[:, -1] = 0.0
+    layer = spe.compile_layer(w, spe.SPEConfig())
+    if nn > 1:
+        layer.scale[:, -1] = 0.0
+    return layer
+
+
+@pytest.mark.parametrize("m", SPE_M)
+@pytest.mark.parametrize("nn", SPE_N)
+@pytest.mark.parametrize("k", SPE_K)
+def test_nm_spmm_at_the_tile_edges(cuda, m, nn, k):
+    """Against the plain version and itself (a second launch on the same
+    inputs is bit-identical); a zero column with scale 0 stays zero."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + nn + k)
+    layer = _spe_layer(cuda, k, nn, gen)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    args = (x, layer.values_q, layer.select, layer.scale)
+    y = tk.nm_spmm_cuda(*args, group_size=G, keep=KEEP)
+    again = tk.nm_spmm_cuda(*args, group_size=G, keep=KEEP)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (m, nn)
+    y_plain = tk.nm_spmm_plain(*args, group_size=G, keep=KEEP)
+    assert float((y - y_plain).abs().max()) <= 1e-4 * float(y_plain.abs().max())
+    assert torch.equal(y, again)
+    if nn > 1:
+        assert bool((y[:, -1] == 0).all())
+
+
+@pytest.mark.parametrize("t_out", [1, 16, 32, 65])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("c", [4, 24, 64])
+@pytest.mark.parametrize("ks", [1, 3, 5, 7])
+def test_sparse_conv1d_at_the_tile_edges(cuda, t_out, stride, c, ks):
+    """Five batch rows, so 64-row tiles cross batch rows wherever T_out <
+    64; K group-padded wherever ks * C is not a multiple of 16. Against the
+    plain version, itself, and im2col -> pad -> nm_spmm bit for bit; a zero
+    column with scale 0 stays zero."""
+    b, nn = 5, 24
+    gen = torch.Generator(device=cuda).manual_seed(t_out * 31 + stride * 7 + c + ks)
+    k_dense = -(-(ks * c) // G) * G
+    layer = _spe_layer(cuda, k_dense, nn, gen)
+    x = torch.randn((b, t_out * stride, c), generator=gen, device=cuda)
+    args = (x, layer.values_q, layer.select, layer.scale)
+    kw = dict(ksize=ks, stride=stride, group_size=G, keep=KEEP)
+    y = tsc.sparse_conv1d_cuda(*args, **kw)
+    again = tsc.sparse_conv1d_cuda(*args, **kw)
+    flat = torch.nn.functional.pad(spe.im2col(x, ks, stride),
+                                   (0, k_dense - ks * c))
+    y_mm = tk.nm_spmm_cuda(flat.reshape(b * t_out, k_dense), layer.values_q,
+                           layer.select, layer.scale, group_size=G, keep=KEEP)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (b, t_out, nn)
+    assert _rel_err(y, tsc.sparse_conv1d_plain(*args, **kw)) <= 1e-4
+    assert torch.equal(y, again)
+    assert torch.equal(y.reshape(y_mm.shape), y_mm)
+    assert bool((y[..., -1] == 0).all())
+
+
+def _wide_range(x, gen):
+    """x from 1e-20 to 1e20: row 0 spans the whole range, every other row
+    has one magnitude from that range."""
+    rows, k = x.shape[0], x.shape[-1]
+    exps = torch.empty((rows, 1), device=x.device).uniform_(-20, 20, generator=gen)
+    exps[0] = 0.0
+    spread = torch.empty((1, k), device=x.device).uniform_(-20, 20, generator=gen)
+    x = x * 10.0 ** exps
+    x[0] = x[0] * 10.0 ** spread[0]
+    return x
+
+
+@pytest.mark.parametrize("m,k,nn", [(33, 192, 40), (130, 64, 130), (4097, 96, 48)])
+def test_spe_kernels_over_a_wide_range_of_x(cuda, m, k, nn):
+    """Each row is held at 1e-4 of its own max|y|, so the split of x into
+    TF32 parts must hold at every scale; sparse_conv1d at ksize 1 (its
+    patch rows are the signal's rows) on the same x."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + nn)
+    layer = _spe_layer(cuda, k, nn, gen)
+    x = _wide_range(torch.randn((m, k), generator=gen, device=cuda), gen)
+    args = (layer.values_q, layer.select, layer.scale)
+    kw = dict(group_size=G, keep=KEEP)
+    y_plain = tk.nm_spmm_plain(x, *args, **kw)
+    ys = [tk.nm_spmm_cuda(x, *args, **kw),
+          tsc.sparse_conv1d_cuda(x[None], *args, ksize=1, stride=1, **kw)[0]]
+    torch.cuda.synchronize()
+    for y in ys:
+        assert bool(torch.isfinite(y).all())
+        row_err = (y - y_plain).abs().amax(dim=1)
+        assert bool((row_err <= 1e-4 * y_plain.abs().amax(dim=1)).all())
 
 
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])

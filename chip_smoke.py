@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VA diagnosis path, its kernel benchmark, the
-CMUL sweep and VA co-design training (the quickstart) on one CUDA card.
+CMUL sweep, VA co-design training (the quickstart) and the streaming fleet
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -31,11 +32,27 @@ toolkit. Phases, each printing JSON lines:
    kernel path); and one train step on the card against the same step on
    the CPU for CONFIG, MIXED and DENSE. Each path's kernel launches are
    counted from 0;
+   fleet — nm_spmm against its plain version at the seven layers of the
+   fleet's program for every bucket a fleet run declares (8, 32, 128,
+   512), with its geometry there; the 1000-patient streaming fleet
+   (repro_torch.stream.simulate with repro_torch.examples.stream_fleet's
+   set-up: sources -> scheduler -> runner -> vote) on path="kernel" and
+   path="twin", its nm_spmm launches counted from 0 (7 a bucket, the
+   warm-up buckets included, on the kernel path; none on the twin path),
+   no drops and a real-time factor of at least 1 on both, the same
+   counts; every kernel-path bucket's logits, recorded in that run, held
+   against the twin path's on the same input; then FLEET_REPS more runs a
+   path in turns, the last with telemetry on for the pack / classify /
+   vote split from its spans, the others for the spread of the
+   wall; and the throughput benchmark,
+   repro_torch.benchmarks.stream_throughput.run(smoke=True), with its
+   checks;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
    whole execute (CONFIG and MIXED, kernel and dense "twin" paths, CONFIG
-   also the reference path), and one train step (host and device time),
+   also the reference path; the fleet's program at its buckets 32, 128 and
+   512 on both fleet paths), and one train step (host and device time),
    on the card. Every kernel and its library call are also timed per
    launch in a run of RUN_LAUNCHES (ms_in_run), against both bounds,
    float32 and tensor-core (tc_bound_ms); the CMUL pair also at
@@ -55,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -81,12 +99,20 @@ LOGITS_TOL = 1e-3  # kernel path vs reference path (tests/test_vadetect.py)
 STEP_RTOL = 1e-4
 TF32_RTOL = 1e-5  # a float32 gradient held against one with TF32 allowed
 TRAIN_BATCH = 64  # the quickstart's batch
-REPS = 25  # timed runs per function; the median is kept
+REPS = 15  # timed runs per function; the median is kept
 RUN_LAUNCHES = 100  # back-to-back launches a ms_in_run run
 RUN_REPS = 5  # ms_in_run runs; the median is kept
-RUN_SLEEP_CYCLES = 40_000_000  # covers the host's enqueue of one run
-STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one step or bucket
+RUN_SLEEP_CYCLES = 40_000_000  # covers the host's enqueue of one run or bucket
+STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one train step
 PROFILE_STEPS = 5
+# every bucket a fleet run declares: the example's (32, 128, 512) and the
+# throughput benchmark's smaller drain bucket (8)
+FLEET_KERNEL_BUCKETS = (8, 32, 128, 512)
+FLEET_REPS = 4  # fleet runs a path after the counted one: spread, then spans
+# the counts of a fleet run, equal on the kernel and the twin path
+FLEET_COUNTS = ("segments_total", "batches_total", "padded_total",
+                "diagnoses_total", "va_diagnoses_total", "urgent_packed_total",
+                "dropped_total", "batches_by_bucket")
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
 # on them (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -236,15 +262,15 @@ def tree_rel(got: dict, want: dict, leaves) -> float:
     return err / max(max(float(w.abs().max()) for _, w in pairs), 1e-30)
 
 
-def layer_problems(cfg, vadetect) -> list[dict]:
-    """(M, K, Kk, N) of every sparse layer's nm_spmm at bucket BUCKET."""
+def layer_problems(cfg, vadetect, bucket: int = BUCKET) -> list[dict]:
+    """(M, K, Kk, N) of every sparse layer's nm_spmm at `bucket`."""
     out = []
     for i, m in enumerate(vadetect.layer_shapes(cfg)):
         spe = cfg.layer_spe(i)
         if not (spe and spe.sparse):
             continue
         k = -(-(m["ksize"] * m["c_in"]) // spe.group_size) * spe.group_size
-        out.append(dict(layer=m["name"], m=BUCKET * m["t_out"], k=k,
+        out.append(dict(layer=m["name"], m=bucket * m["t_out"], k=k,
                         kk=k // spe.group_size * spe.keep, n=m["c_out"]))
     return out
 
@@ -260,13 +286,14 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch import optim
+    from repro_torch import obs, optim
     from repro_torch._tree import leaves, tree_map
     from repro_torch.benchmarks import kernels as bench
+    from repro_torch.benchmarks import stream_throughput
     from repro_torch.configs import va_cnn
     from repro_torch.core import compiler, quant, spe, vadetect
     from repro_torch.data import iegm
-    from repro_torch.examples import quickstart
+    from repro_torch.examples import quickstart, stream_fleet
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import bitserial as BS
     from repro_torch.kernels import nm_spmm as K
@@ -275,12 +302,18 @@ def main() -> int:
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels._common import decompress_tile, unpack_tile
     from repro_torch.serve.va_service import VAService
-    from repro_torch.stream.runner import FleetRunner
+    from repro_torch.stream import FleetRunner, simulate
     from repro_torch.train import trainer
 
     # full float32 for every reference matmul (the default; stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
+
+    def clock(after: str) -> None:
+        """Seconds since the imports, at the end of each phase."""
+        emit({"phase": "clock", "after": after,
+              "seconds": time.perf_counter() - t_main})
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(
@@ -303,10 +336,15 @@ def main() -> int:
                       for b in built]})
     # the tensor cores in all four kernels: wgmma compiles to HGMMA
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    hgmma = {b.name: sass_count(cuobjdump, b.path, "HGMMA") for b in built}
+    with ThreadPoolExecutor(len(built)) as pool:  # one cuobjdump each, at once
+        counts = list(pool.map(
+            lambda b: sass_count(cuobjdump, b.path, "HGMMA"), built))
+    hgmma = {b.name: n for b, n in zip(built, counts)}
     emit({"phase": "sass", "hgmma": hgmma})
     check(len(hgmma) == 4 and min(hgmma.values()) > 0,
           f"no HGMMA in the SASS of some kernel: {hgmma}")
+
+    clock("device and build")
 
     # -- 2. each kernel against its plain version ---------------------------
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
@@ -474,6 +512,8 @@ def main() -> int:
             emit({"phase": "geometry", "kernel": mod.NAME, "bits": bits,
                   "m": m_q, "k": k_q, "n": n_q,
                   **mod.launch_geometry(m_q, k_q, n_q, bits=bits)})
+
+    clock("kernel")
 
     # -- 3. the service path at full width ----------------------------------
     main_launches = None
@@ -726,6 +766,155 @@ def main() -> int:
         check(int(new_d["step"]) == 4, f"{cname}: step count {int(new_d['step'])}")
         step_states[cname] = (step, state_d, batch_d)
 
+    clock("paths")
+
+    # -- the streaming fleet on the card ---------------------------------------
+    # nm_spmm against its plain version at the seven sparse layers of the
+    # fleet's program, at every bucket a fleet run declares, and its geometry
+    fleet_program = stream_fleet.build_program(dev)
+    gen_fleet = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fleet_err = 0.0
+    for bucket in FLEET_KERNEL_BUCKETS:
+        for p in layer_problems(va_cnn.CONFIG, vadetect, bucket):
+            layer = fleet_program.layers[p["layer"]]
+            x = torch.randn((p["m"], p["k"]), generator=gen_fleet, device=dev)
+            args = (x, layer.values_q, layer.select, layer.scale)
+            y_k = K.nm_spmm_cuda(*args, group_size=16, keep=8)
+            torch.cuda.synchronize()
+            y_p = K.nm_spmm_plain(*args, group_size=16, keep=8)
+            err, rel = rel_err(y_k, y_p)
+            fleet_err = max(fleet_err, err)
+            emit({"phase": "kernel", "kernel": K.NAME, "bucket": bucket, **p,
+                  "max_abs_err": err, "rel_err": rel, "tol": KERNEL_RTOL})
+            emit({"phase": "geometry", "kernel": K.NAME, "bucket": bucket, **p,
+                  **K.launch_geometry(p["m"], p["k"], p["n"])})
+            check(tuple(y_k.shape) == (p["m"], p["n"]), f"fleet {p}: shape")
+            check(bool(torch.isfinite(y_k).all()), f"fleet {p}: non-finite")
+            check(rel <= KERNEL_RTOL, f"fleet bucket {bucket} {p}: rel err {rel}")
+
+    # the 1000-patient fleet (the example's set-up) through simulate, on
+    # each path, its launches counted from 0 (the warm-up classifies each
+    # declared bucket once before the timed loop); the kernel path's runner
+    # records every bucket's input and logits for the twin comparison below
+    fleet_cfg = stream_fleet.fleet_config()
+    n_sparse = len(layer_problems(va_cnn.CONFIG, vadetect))
+    runners = {"kernel": FleetRunner(fleet_program, path="kernel", device=dev,
+                                     record=True),
+               "twin": FleetRunner(fleet_program, path="twin", device=dev)}
+    fleet, fleet_launches, recorded = {}, None, None
+    for path, runner in runners.items():
+        K.launches = SC.launches = QM.launches = BS.launches = 0
+        out = simulate(stream_fleet.fleet_config(path), runner=runner)
+        torch.cuda.synchronize()
+        launches = {K.NAME: K.launches, SC.NAME: SC.launches,
+                    QM.NAME: QM.launches, BS.NAME: BS.launches}
+        m = out["metrics"]
+        executes = m["batches_total"] + len(fleet_cfg.buckets)
+        expected = {K.NAME: n_sparse * executes if path == "kernel" else 0,
+                    SC.NAME: 0, QM.NAME: 0, BS.NAME: 0}
+        if path == "kernel":
+            fleet_launches = launches[K.NAME]
+            recorded, runner.recorded = runner.recorded, None
+        emit({"phase": "fleet", "entry": "repro_torch.stream.simulate",
+              "path": path, "card": smi, "patients": fleet_cfg.n_patients,
+              "buckets": list(fleet_cfg.buckets), "launches": launches,
+              "expected_launches": expected,
+              "segments_per_s_wall": m["segments_per_s_wall"],
+              "realtime_factor": out["realtime"]["realtime_factor"],
+              "wall_s": m["wall_s"],
+              "counts": {k: m[k] for k in FLEET_COUNTS},
+              "deadline_slack_s": m.get("deadline_slack_s"),
+              "jit_cache_misses": out["jit_cache_misses"],
+              "accuracy": out["accuracy"], "chip_model": out["chip"]})
+        check(launches == expected,
+              f"fleet {path}: launches {launches}, expected {expected}")
+        check(m["dropped_total"] == 0, f"fleet {path}: dropped {m['dropped_total']}")
+        check(out["realtime"]["realtime_factor"] >= 1.0,
+              f"fleet {path}: real-time factor {out['realtime']['realtime_factor']}")
+        check(out["jit_cache_misses"] == len(fleet_cfg.buckets),
+              f"fleet {path}: {out['jit_cache_misses']} bucket shapes")
+        check(m["segments_total"] == fleet_cfg.n_patients * 6,
+              f"fleet {path}: {m['segments_total']} segments")
+        fleet[path] = out
+    counts = {p: {k: fleet[p]["metrics"][k] for k in FLEET_COUNTS} for p in fleet}
+    check(counts["kernel"] == counts["twin"], f"fleet counts differ: {counts}")
+
+    # every kernel-path bucket's logits against the twin path's on the same
+    # input; every row is compared (a padding row repeats its batch's last
+    # valid row)
+    by_bucket, flips, flip_margin = {}, 0, 0.0
+    for x, y_k in recorded[len(fleet_cfg.buckets):]:  # after the warm-up
+        y_t = runners["twin"].logits(x)
+        err = float((y_k - y_t).abs().max())
+        by_bucket[len(x)] = max(by_bucket.get(len(x), 0.0), err)
+        flip = y_k.argmax(-1) != y_t.argmax(-1)
+        margin = (y_t[:, 1] - y_t[:, 0]).abs()[flip]
+        flips += int(flip.sum())
+        if margin.numel():
+            flip_margin = max(flip_margin, float(margin.max()))
+    emit({"phase": "fleet_paths", "card": smi,
+          "buckets_compared": len(recorded) - len(fleet_cfg.buckets),
+          "max_abs_err_logits_kernel_vs_twin_by_bucket": by_bucket,
+          "flip_rows": flips, "flip_twin_margin_max": flip_margin,
+          "tol": LOGITS_TOL})
+    check(max(by_bucket.values()) <= LOGITS_TOL,
+          f"fleet logits kernel vs twin: {by_bucket}")
+    check(flip_margin < LOGITS_TOL,
+          f"a fleet prediction flipped at twin margin {flip_margin}")
+
+    # FLEET_REPS more runs a path on the same runners, in turns (kernel,
+    # twin, twin, kernel, ...): all but the last for the spread of the
+    # loop's wall, the last with telemetry enabled for where its time goes
+    # (the spans: classify and vote are dispatch; the rest of the flush is
+    # the bank gather, the wait for the card and the copy back)
+    rates = {p: [fleet[p]["metrics"]["segments_per_s_wall"]] for p in fleet}
+    for rep in range(FLEET_REPS):
+        traced = rep == FLEET_REPS - 1
+        for path in (("kernel", "twin") if rep % 2 == 0 else ("twin", "kernel")):
+            if traced:
+                tel = obs.configure(enabled=True)
+            out = simulate(stream_fleet.fleet_config(path), runner=runners[path])
+            m = out["metrics"]
+            check(m["dropped_total"] == 0, f"fleet {path}: drops")
+            if not traced:
+                rates[path].append(m["segments_per_s_wall"])
+                continue
+            span_s = {}
+            for e in tel.tracer.events():
+                if e["type"] == "span":
+                    span_s[e["name"]] = span_s.get(e["name"], 0.0) + e["dur_us"] / 1e6
+            obs.reset()
+            pack, flush = span_s["stream/pack"], span_s["stream/flush"]
+            classify, vote = span_s["stream/classify"], span_s["stream/vote"]
+            emit({"phase": "fleet_split", "path": path, "card": smi,
+                  "telemetry": "enabled", "wall_s": m["wall_s"],
+                  "segments_per_s_wall": m["segments_per_s_wall"],
+                  "realtime_factor": out["realtime"]["realtime_factor"],
+                  "batches": m["batches_total"], "pack_s": pack,
+                  "flush_s": flush, "classify_dispatch_s": classify,
+                  "vote_dispatch_s": vote,
+                  "flush_gather_wait_copy_s": flush - classify - vote,
+                  "outside_spans_s": m["wall_s"] - pack - flush})
+    emit({"phase": "fleet_reps", "card": smi, "runs_per_path": FLEET_REPS,
+          "segments_per_s_wall": rates,
+          "median": {p: statistics.median(r) for p, r in rates.items()},
+          "realtime_factor_median": {
+              p: statistics.median(r) * fleet_cfg.period_s / fleet_cfg.n_patients
+              for p, r in rates.items()}})
+
+    # the throughput benchmark in its smoke form; its checks stand
+    rec = stream_throughput.run(smoke=True, device="cuda")
+    obs.reset()
+    emit({"phase": "stream_throughput",
+          "entry": "repro_torch.benchmarks.stream_throughput.run(smoke=True)",
+          "card": smi, "cells": rec["cells"],
+          "realtime_1000_patients": rec["realtime_1000_patients"],
+          "overhead": rec["telemetry"]["overhead"],
+          "recompiles": rec["telemetry"]["recompiles"],
+          "peak_device_memory_bytes": rec["telemetry"]["peak_device_memory_bytes"]})
+
+    clock("fleet")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -857,9 +1046,9 @@ def main() -> int:
 
     # one bucket through each path: its device time behind a sleep long
     # enough to cover the host's enqueue of the whole call (about 60 small
-    # ops, over a millisecond on a slow host); CONFIG and MIXED on the kernel
-    # and the dense ("twin") path, CONFIG also on the reference path
-    sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
+    # ops, a few milliseconds at most; the run's sleep, run_sleep_ms);
+    # CONFIG and MIXED on the kernel and the dense ("twin") path, CONFIG
+    # also on the reference path
     signals = iegm.synth_batch(gen, BUCKET, device=dev)["signal"]
     for cname, path in (("CONFIG", "kernel"), ("CONFIG", "reference"),
                         ("CONFIG", "twin"), ("MIXED", "kernel"),
@@ -870,15 +1059,31 @@ def main() -> int:
         emit({"phase": "time", "execute": path, "config": cname,
               "bucket": BUCKET,
               "device_ms": device_ms(torch, lambda: runner.logits(signals),
-                                     STEP_SLEEP_CYCLES, enqueue),
+                                     RUN_SLEEP_CYCLES, enqueue),
               "wall_ms": wall_ms(torch, lambda: runner.logits(signals)),
               "enqueue_ms_max": max(enqueue),
-              "enqueue_covered_by_sleep": max(enqueue) < sleep_ms})
+              "enqueue_covered_by_sleep": max(enqueue) < run_sleep_ms})
+
+    # the fleet's program at each bucket of the example's ladder, on both
+    # fleet paths
+    for bucket in fleet_cfg.buckets:
+        signals = iegm.synth_batch(gen, bucket, device=dev)["signal"]
+        for path in ("kernel", "twin"):
+            runner = FleetRunner(fleet_program, path=path, device=dev)
+            enqueue = []
+            emit({"phase": "time", "execute": path, "config": "fleet",
+                  "bucket": bucket, "card": smi,
+                  "device_ms": device_ms(torch, lambda: runner.logits(signals),
+                                         RUN_SLEEP_CYCLES, enqueue),
+                  "wall_ms": wall_ms(torch, lambda: runner.logits(signals)),
+                  "enqueue_ms_max": max(enqueue),
+                  "enqueue_covered_by_sleep": max(enqueue) < run_sleep_ms})
 
     # one train step of the quickstart (CONFIG, adam, batch 64): host time
     # through a synchronize, and device time behind a sleep long enough to
     # cover the host's enqueue of the whole step (it never waits on the
     # card), so the device's busy share of a step is device / wall
+    sleep_ms = device_ms(torch, lambda: torch.cuda._sleep(STEP_SLEEP_CYCLES))
     for cname, (step, state_d, batch_d) in step_states.items():
         enqueue = []
         t = {
@@ -915,6 +1120,7 @@ def main() -> int:
                            "device_ms": e.device_time_total / 1e3}
                           for e in top[:8]]})
 
+    clock("time")
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules),
           "jax or the JAX package was imported")
@@ -922,13 +1128,15 @@ def main() -> int:
         "name": K.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
         "replaces": "src/repro/kernels/nm_spmm.py:68",
-        "launches": main_launches, "max_abs_err": max_abs_err,
+        "launches": fleet_launches, "launches_service": main_launches,
+        "max_abs_err": max(max_abs_err, fleet_err),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         **{key: totals[key] for key in
            ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms")},
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
-              "the service run",
+              "the 1000-patient fleet's kernel-path run (launches_service: "
+              "over the service run)",
     }, {
         "name": SC.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",

@@ -1,9 +1,10 @@
 """Synthetic IEGM data matching the paper's acquisition spec.
 
-Port of the slice of `repro.data.iegm` the diagnosis service and VA
-training need: the 15–55 Hz FIR band-pass (the same numpy taps), the
-synthetic batches, drawn from a `torch.Generator`, and `IEGMStream`, the
-deterministic host-shardable stream of training batches. A generator
+Port of `repro.data.iegm`: the 15–55 Hz FIR band-pass (the same numpy
+taps), the synthetic batches, drawn from a `torch.Generator`,
+`IEGMStream`, the deterministic host-shardable stream of training
+batches, and the per-patient segment streams of the monitoring fleet
+(`patient_labels`, `segment_batch`, `stream_segments`). A generator
 gives other numbers than the reference's jax PRNG for the same seed, so
 tests that compare the two packages feed both the same arrays; the
 port's own draws are checked for shape, finiteness and per-seed
@@ -17,6 +18,7 @@ noise and baseline wander. 512 samples @ 250 Hz, normalized per record.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Iterator
 
@@ -192,13 +194,122 @@ def synth_diagnosis_batch(
     return {"signal": sig.reshape(batch, segments, RECORD_LEN), "label": labels}
 
 
-def _stream_seed(seed: int, host_id: int, step: int) -> int:
-    """A 63-bit generator seed from (seed, host_id, step), spread by
-    numpy's SeedSequence so neighbouring triples draw unrelated streams."""
-    state = np.random.SeedSequence([seed, host_id, step]).generate_state(
+def _stream_seed(seed: int, stream: int, index: int) -> int:
+    """A 63-bit generator seed from (seed, host_id, step) or (seed,
+    patient, seq), spread by numpy's SeedSequence so neighbouring triples
+    draw unrelated streams."""
+    state = np.random.SeedSequence([seed, stream, index]).generate_state(
         1, np.uint64
     )
     return int(state[0]) >> 1
+
+
+# ---------------------------------------------------------------------------
+# Per-patient deterministic segment streams (the fleet-monitoring feed)
+# ---------------------------------------------------------------------------
+
+# Keys the per-patient *condition* draw apart from the per-segment draws:
+# a segment is keyed (seed, patient, seq), the label (seed, patient,
+# _LABEL_FOLD), so the constant must sit outside any reachable seq (seqs
+# are segment counters).
+_LABEL_FOLD = 0x7FFFFFFF
+
+
+def patient_labels(
+    seed: int, patient_ids, va_fraction: float = 0.5
+) -> torch.Tensor:
+    """Persistent per-patient condition (0 non-VA / 1 VA), int32 (B,) on
+    the CPU: one uniform draw per patient from SeedSequence([seed,
+    patient, _LABEL_FOLD]), VA below `va_fraction`, so every view of the
+    fleet (sources, tests, benchmarks) agrees on the ground truth."""
+    pids = np.asarray(patient_ids, np.int64).ravel()
+    draws = [_label_draw(seed, p) for p in pids.tolist()]
+    return torch.as_tensor(np.asarray(draws) < va_fraction, dtype=torch.int32)
+
+
+# A fleet is often simulated again over the same (patient, seq) rows — a
+# benchmark's repeated runs, one path against another — so the per-row
+# draws are memoized (up to 16384 rows, 32 MiB of float32 on the CPU):
+# a row costs about a millisecond of host time to draw, a hit a fraction
+# of a microsecond. The cache holds values that the arguments determine
+# bit for bit; callers get copies (`torch.cat`).
+_ROW_CACHE = 1 << 14
+
+
+@functools.lru_cache(maxsize=_ROW_CACHE)
+def _label_draw(seed: int, patient: int) -> float:
+    """The patient's condition draw, from SeedSequence([seed, patient,
+    _LABEL_FOLD])."""
+    return np.random.default_rng([seed, patient, _LABEL_FOLD]).random()
+
+
+@functools.lru_cache(maxsize=_ROW_CACHE)
+def _segment_row(
+    seed: int, patient: int, seq: int, label: int, device: torch.device
+) -> torch.Tensor:
+    """One (1, 512) record of `label`, drawn, band-passed and normalized
+    on its own from a generator seeded by (seed, patient, seq)."""
+    gen = torch.Generator().manual_seed(_stream_seed(seed, patient, seq))
+    labels = torch.tensor([label], dtype=torch.int32, device=device)
+    return _signals(_Draw(gen, device), labels, True)
+
+
+def segment_batch(
+    seed: int,
+    patient_ids,
+    seqs,
+    *,
+    va_fraction: float = 0.5,
+    device: _device.DeviceLike = None,
+) -> dict[str, torch.Tensor]:
+    """Batched deterministic segments for (patient, seq) pairs:
+    {signal (B, 512) f32, label (B,) i32} on `device`.
+
+    Every row is drawn, band-passed and normalized on its own, from a
+    generator seeded by (seed, patient, seq), so the same triple
+    regenerates a bit-identical row whatever the batch's composition or
+    order (rows are memoized: `_segment_row`); the label is the
+    patient's persistent `patient_labels` draw.
+    The reference keys rows with jax's threefry `fold_in`, which torch
+    cannot reproduce: the rows hold the same properties, not the same
+    numbers."""
+    dev = _device.resolve(device)
+    pids = np.asarray(patient_ids, np.int64).ravel()
+    sqs = np.asarray(seqs, np.int64).ravel()
+    if pids.shape != sqs.shape:
+        raise ValueError(f"{pids.shape[0]} patients for {sqs.shape[0]} seqs")
+    labels = patient_labels(seed, pids, va_fraction)
+    rows = [
+        _segment_row(seed, p, s, y, dev)
+        for p, s, y in zip(pids.tolist(), sqs.tolist(), labels.tolist())
+    ]
+    signal = (
+        torch.cat(rows) if rows
+        else torch.zeros((0, RECORD_LEN), dtype=torch.float32, device=dev)
+    )
+    return {"signal": signal, "label": labels.to(dev)}
+
+
+def stream_segments(
+    patient_id: int,
+    *,
+    seed: int = 0,
+    start: int = 0,
+    va_fraction: float = 0.5,
+    device: _device.DeviceLike = None,
+) -> Iterator[dict]:
+    """Infinite per-patient segment iterator (the device's view of one
+    implant's telemetry). Deterministic: two iterators for the same
+    (seed, patient_id) yield identical segments; restarting at `start=k`
+    regenerates segment k exactly."""
+    seq = start
+    while True:
+        out = segment_batch(
+            seed, [patient_id], [seq], va_fraction=va_fraction, device=device
+        )
+        yield {"signal": out["signal"][0], "label": int(out["label"][0]),
+               "seq": seq}
+        seq += 1
 
 
 @dataclasses.dataclass

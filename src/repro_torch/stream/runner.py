@@ -1,6 +1,10 @@
 """Bucketed batched inference over the compiled accelerator program.
 
-Port of `repro.stream.runner` on one device (no mesh yet). Compute paths:
+Port of `repro.stream.runner` on one device (no mesh yet). Each
+`classify` is a cell tracked by the telemetry probe
+(`stream.classify.<path>`), and the runner keeps the set of bucket
+shapes it has classified: the scheduler's pad-to-bucket contract keeps
+`jit_cache_misses()` at the number of declared buckets. Compute paths:
 
   * ``twin``      — the program's sparse-quantized weights decompressed
     once at construction into dequantized dense conv weights and run
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, obs
 from repro_torch.core import compiler, sparsity, vadetect
 from repro_torch.core.spe import conv1d_same
 
@@ -69,11 +73,19 @@ class FleetRunner:
         *,
         path: str = "twin",
         device: _device.DeviceLike = None,
+        record: bool = False,
     ):
         self.device = _device.resolve(device)
         self.program = program.to(self.device)
         self.cfg = cfg
         self.path = path
+        self._shapes_seen: set[int] = set()
+        # with `record`, the (input, logits) device tensors of every
+        # classified bucket, in order — for checking one path against
+        # another on the same inputs
+        self.recorded: list[tuple[torch.Tensor, torch.Tensor]] | None = (
+            [] if record else None
+        )
         if path == "twin":
             weights = twin_weights(self.program)
             meta = self.program.layer_meta
@@ -82,6 +94,15 @@ class FleetRunner:
             self._logits = lambda x: compiler.execute(
                 self.program, x, cfg, path=path
             )
+        self._infer = obs.get().probe.track(
+            f"stream.classify.{path}", self._predict
+        )
+
+    def _predict(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._logits(x)
+        if self.recorded is not None:
+            self.recorded.append((x, y))
+        return torch.argmax(y, dim=-1).to(torch.int32)
 
     def logits(self, signals) -> torch.Tensor:
         """(bucket, 512) -> (bucket, 2) float32 logits on the runner's
@@ -91,8 +112,12 @@ class FleetRunner:
             return self._logits(x)
 
     def classify(self, signals) -> torch.Tensor:
-        """(bucket, 512) f32 -> (bucket,) int32 predictions."""
-        return torch.argmax(self.logits(signals), dim=-1).to(torch.int32)
+        """(bucket, 512) f32 -> (bucket,) int32 predictions on the
+        runner's device."""
+        x = torch.as_tensor(signals, dtype=torch.float32, device=self.device)
+        self._shapes_seen.add(int(x.shape[0]))
+        with torch.inference_mode():
+            return self._infer(x)
 
     # -- accounting (the modelled chip's time, not a measurement) ----------
 
@@ -114,4 +139,10 @@ class FleetRunner:
     def modeled_segments_per_s(self) -> float:
         """Modelled chip-fleet throughput (N chips, saturated)."""
         return self.n_devices / self.chip_latency_s
+
+    def jit_cache_misses(self) -> int:
+        """Distinct batch shapes `classify` has seen — the count of
+        compiled variants in the reference. The scheduler's pad-to-bucket
+        contract keeps this at len(buckets)."""
+        return len(self._shapes_seen)
 

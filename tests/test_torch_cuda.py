@@ -1,6 +1,6 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-versions, nm_spmm through the service path, and the training step on the
-card against the same step on the CPU.
+versions, nm_spmm through the service path and the streaming fleet, and
+the training step on the card against the same step on the CPU.
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -34,6 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import sparse_conv1d as tsc
 from repro_torch.serve.va_service import VAService
+from repro_torch.stream import FleetConfig, FleetRunner, simulate
 from repro_torch.train import trainer
 
 G, KEEP = 16, 8
@@ -403,3 +404,39 @@ def test_conv_backward_stays_float32_with_tf32_allowed(cuda):
         torch.backends.cudnn.allow_tf32 = default
     for g, g_ref in zip(got, want):
         assert _rel_err(g, g_ref) <= 1e-5
+
+
+@pytest.mark.parametrize("bucket", [8, 32, 128, 256, 512])
+def test_fleet_on_the_kernel_path_matches_the_cpu(cuda, bucket):
+    """The fleet on the card's kernel path against the same run on the
+    CPU (plain nm_spmm): every bucket's logits within 1e-3, a differing
+    prediction only where the CPU's margin |l1 - l0| is under it, and the
+    same counts."""
+    cfg = FleetConfig(n_patients=bucket, segments_per_patient=6,
+                      buckets=(bucket,), va_fraction=0.05, jitter_frac=0.05,
+                      seed=bucket, path="kernel")
+    program = compiler.compile_model(
+        vadetect.init(torch.Generator().manual_seed(bucket), device="cpu"))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        runner = FleetRunner(program, path="kernel", device=dev, record=True)
+        before = tk.launches
+        out = simulate(cfg, runner=runner)
+        torch.cuda.synchronize()
+        seen = [(x.cpu(), y.cpu()) for x, y in runner.recorded]
+        runs.append((out, seen, tk.launches - before))
+    (out_c, seen_c, n_c), (out_p, seen_p, n_p) = runs
+    # 7 sparse layers a bucket, the warm-up bucket included
+    assert n_c == 7 * (out_c["metrics"]["batches_total"] + 1) and n_p == 0
+    assert len(seen_c) == len(seen_p)
+    for (x_c, y_c), (x_p, y_p) in zip(seen_c, seen_p):
+        assert torch.equal(x_c, x_p)
+        assert float((y_c - y_p).abs().max()) <= 1e-3
+        flips = y_c.argmax(-1) != y_p.argmax(-1)
+        margin = (y_p[:, 1] - y_p[:, 0]).abs()
+        assert bool((margin[flips] < 1e-3).all())
+    wall = ("wall_s", "segments_per_s_wall", "diagnoses_per_s_wall")
+    assert ({k: v for k, v in out_c["metrics"].items() if k not in wall}
+            == {k: v for k, v in out_p["metrics"].items() if k not in wall})
+    assert out_c["metrics"]["dropped_total"] == 0
+    assert out_c["jit_cache_misses"] == out_p["jit_cache_misses"] == 1

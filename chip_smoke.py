@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VA diagnosis path, its kernel benchmark, the
-CMUL sweep, VA co-design training (the quickstart) and the streaming fleet
-on one CUDA card.
+CMUL sweep, VA co-design training (the quickstart), the streaming fleet
+and the paper's entry points (the benchmark orchestrator, the ablation,
+the inference demo, train_va with checkpoints and restart) on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -47,6 +49,19 @@ toolkit. Phases, each printing JSON lines:
    wall; and the throughput benchmark,
    repro_torch.benchmarks.stream_throughput.run(smoke=True), with its
    checks;
+   paper — the orchestrator repro_torch.benchmarks.run.main (table1,
+   kernels, ablation) with its CSV captured: the header, every row, the
+   table1 rows equal to table1.run()'s, the kernel launches equal to the
+   kernel benchmark's alone; the ablation's five points at STEPS x BATCH
+   (every loss finite, weights_kb and compression equal to the same
+   params compiled on the CPU); va_inference_demo.main at 200 steps
+   (kernel and reference argmax agreeing on all 32 rows for CONFIG and
+   MIXED, nm_spmm launched 14 times); train_va.main at 300 steps, then
+   at 350 on the same checkpoint directory (resumed at 300, LATEST 350,
+   at most 3 step directories); fault.run_training at CONFIG with faults
+   at steps 7 and 13 against a clean run (2 failures, step 20, final
+   params within STEP_RTOL); a card state's checkpoint restored onto the
+   card bit for bit, its save timed;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -66,14 +81,19 @@ Imports nothing of jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -99,12 +119,14 @@ LOGITS_TOL = 1e-3  # kernel path vs reference path (tests/test_vadetect.py)
 STEP_RTOL = 1e-4
 TF32_RTOL = 1e-5  # a float32 gradient held against one with TF32 allowed
 TRAIN_BATCH = 64  # the quickstart's batch
-REPS = 15  # timed runs per function; the median is kept
+REPS = 10  # timed runs per function; the median is kept
 RUN_LAUNCHES = 100  # back-to-back launches a ms_in_run run
 RUN_REPS = 5  # ms_in_run runs; the median is kept
 RUN_SLEEP_CYCLES = 40_000_000  # covers the host's enqueue of one run or bucket
 STEP_SLEEP_CYCLES = 100_000_000  # covers the host's enqueue of one train step
 PROFILE_STEPS = 5
+RUN_ABLATION_STEPS = 10  # the orchestrator's ablation, beside the full phase
+CONV_REPEATS = 4  # each VA layer's convolution backward, for determinism
 # every bucket a fleet run declares: the example's (32, 128, 512) and the
 # throughput benchmark's smaller drain bucket (8)
 FLEET_KERNEL_BUCKETS = (8, 32, 128, 512)
@@ -288,12 +310,19 @@ def main() -> int:
 
     from repro_torch import obs, optim
     from repro_torch._tree import leaves, tree_map
+    from repro_torch.benchmarks import ablation
     from repro_torch.benchmarks import kernels as bench
-    from repro_torch.benchmarks import stream_throughput
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks import stream_throughput, table1
     from repro_torch.configs import va_cnn
     from repro_torch.core import compiler, quant, spe, vadetect
     from repro_torch.data import iegm
-    from repro_torch.examples import quickstart, stream_fleet
+    from repro_torch.examples import (
+        quickstart,
+        stream_fleet,
+        train_va,
+        va_inference_demo,
+    )
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import bitserial as BS
     from repro_torch.kernels import nm_spmm as K
@@ -303,7 +332,7 @@ def main() -> int:
     from repro_torch.kernels._common import decompress_tile, unpack_tile
     from repro_torch.serve.va_service import VAService
     from repro_torch.stream import FleetRunner, simulate
-    from repro_torch.train import trainer
+    from repro_torch.train import checkpoint, fault, trainer
 
     # full float32 for every reference matmul (the default; stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -915,6 +944,233 @@ def main() -> int:
 
     clock("fleet")
 
+    # -- the paper's entry points -------------------------------------------
+    # the orchestrator (table1, kernels, ablation) as a user runs it, its
+    # stdout captured: its table1 rows hold the port's own table1 strings.
+    # Its ablation section runs RUN_ABLATION_STEPS a point: the ablation
+    # phase below trains every point at the full STEPS
+    def launches_now() -> dict:
+        return {K.NAME: K.launches, SC.NAME: SC.launches,
+                QM.NAME: QM.launches, BS.NAME: BS.launches}
+
+    K.launches = SC.launches = QM.launches = BS.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), mock.patch.object(
+            ablation, "run",
+            functools.partial(ablation.run, steps=RUN_ABLATION_STEPS)):
+        bench_run.main(device="cuda")
+    torch.cuda.synchronize()
+    run_seconds = time.perf_counter() - t0
+    csv_lines = buf.getvalue().splitlines()
+    run_launches = launches_now()
+    csv_rows = [ln.split(",", 2) for ln in csv_lines[1:]]
+    emit({"phase": "benchmarks_run", "entry": "repro_torch.benchmarks.run.main",
+          "card": smi, "seconds": run_seconds, "launches": run_launches,
+          "ablation_steps": RUN_ABLATION_STEPS,
+          "rows": [{"name": r[0], "us_per_call": float(r[1]), "derived": r[2]}
+                   for r in csv_rows]})
+    check(csv_lines[0] == "name,us_per_call,derived",
+          f"run.py header: {csv_lines[:1]}")
+    t1_rows = table1.run()
+    check([r[0] for r in csv_rows] ==
+          [r[0] for r in t1_rows]
+          + [f"kernels.{n}" for n in ("nm_spmm", "quant_matmul_8b",
+                                      "quant_matmul_4b", "quant_matmul_2b",
+                                      "quant_matmul_1b", "sparse_conv1d")]
+          + [f"ablation.{name}" for name, _ in ablation.POINTS],
+          f"run.py rows: {[r[0] for r in csv_rows]}")
+    # table1: the chip model's rows, each derived string equal to the
+    # port's own on the host (the model takes no device)
+    emit({"phase": "table1", "card": smi,
+          "rows": [{"name": n, "us": us, "derived": d} for n, us, d in t1_rows]})
+    check([r[2] for r in csv_rows[:5]] == [r[2] for r in t1_rows],
+          "table1 rows of run.py differ from table1.run()")
+    check(run_launches == bench_launches,
+          f"run.py launches {run_launches}, the kernel benchmark's alone "
+          f"{bench_launches}")
+    clock("benchmarks_run")
+
+    # ablation: every point at STEPS x BATCH on the card; its storage held
+    # against the same trained params compiled on the CPU
+    cpu = torch.device("cpu")
+    for name, spe_cfg in ablation.POINTS:
+        point = ablation.train_point(spe_cfg, device=dev)
+        _, us, derived = ablation.row(name, point)
+        kb, ratio = point["weights_kb"], point["compress"]
+        kb_cpu, ratio_cpu = ablation.storage(
+            tree_map(lambda v: v.to(cpu), point["params"]), point["cfg"])
+        emit({"phase": "ablation", "point": name, "card": smi,
+              "steps": ablation.STEPS, "batch": ablation.BATCH,
+              "us_per_step": us, "derived": derived,
+              "acc": sum(point["accuracies"][-10:]) / 10,
+              "weights_kb": kb, "compress": ratio,
+              "weights_kb_cpu": kb_cpu, "compress_cpu": ratio_cpu,
+              "loss_first": point["losses"][0], "loss_last": point["losses"][-1]})
+        check(len(point["losses"]) == ablation.STEPS
+              and all(map(math.isfinite, point["losses"])),
+              f"ablation {name}: a loss is not finite")
+        check((kb, ratio) == (kb_cpu, ratio_cpu),
+              f"ablation {name}: storage {kb, ratio} on the card, "
+              f"{kb_cpu, ratio_cpu} on the CPU")
+    clock("ablation")
+
+    # the inference demo: three points trained 200 steps, the two sparse
+    # ones compiled and run on the kernel path (7 nm_spmm an execute)
+    K.launches = SC.launches = QM.launches = BS.launches = 0
+    t0 = time.perf_counter()
+    demo = va_inference_demo.main(device="cuda")
+    torch.cuda.synchronize()
+    demo_launches = launches_now()
+    expected = {K.NAME: 2 * n_sparse, SC.NAME: 0, QM.NAME: 0, BS.NAME: 0}
+    emit({"phase": "inference_demo",
+          "entry": "repro_torch.examples.va_inference_demo.main",
+          "card": smi, "seconds": time.perf_counter() - t0, "points": demo,
+          "launches": demo_launches, "expected_launches": expected})
+    check(demo_launches == expected,
+          f"inference demo launches {demo_launches}, expected {expected}")
+    check([p["kernel_argmax_agree"] for p in demo[:2]] == [1.0, 1.0],
+          f"inference demo: kernel and reference argmax disagree: {demo[:2]}")
+    clock("inference_demo")
+
+    # train_va: 300 steps with checkpoints, then a second call to 350 on
+    # the same directory, which resumes from the newest checkpoint
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    va_dir = str(ckpt_root / "train_va")
+    runs = []
+    for steps in (300, 350):
+        t0 = time.perf_counter()
+        out = train_va.main(["--steps", str(steps), "--ckpt", va_dir],
+                            device="cuda")
+        torch.cuda.synchronize()
+        runs.append((out, time.perf_counter() - t0))
+    (first, first_s), (second, second_s) = runs
+    latest = (Path(va_dir) / "LATEST").read_text()
+    step_dirs = sorted(p.name for p in Path(va_dir).glob("step_*"))
+    emit({"phase": "train_va", "entry": "repro_torch.examples.train_va.main",
+          "card": smi, "seconds": [first_s, second_s],
+          "train_wall_s": [sum(h["wall_s"] for h in r["history"])
+                           for r, _ in runs],
+          "steps_run": [len(r["history"]) for r, _ in runs],
+          "first_step": [r["history"][0]["step"] for r, _ in runs],
+          "loss": [[r["history"][0]["loss"], r["history"][-1]["loss"]]
+                   for r, _ in runs],
+          "accuracies": [{k: r[k] for k in ("segment_acc", "diagnostic_acc",
+                                            "precision", "recall")}
+                         for r, _ in runs],
+          "stragglers_flagged": [len(r["flagged"]) for r, _ in runs],
+          "latest": latest, "step_dirs": step_dirs})
+    check(first["history"][0]["step"] == 0 and len(first["history"]) == 300,
+          "train_va: the first call did not run steps 0-299")
+    check(second["history"][0]["step"] == 300,
+          f"train_va: resumed at {second['history'][0]['step']}, not 300")
+    check(latest == "350", f"train_va: LATEST reads {latest!r}")
+    check(len(step_dirs) <= 3, f"train_va: {step_dirs} kept")
+    clock("train_va")
+
+    # fault replay: 20 CONFIG steps at batch 64 with faults at 7 and 13
+    # (checkpoints every 5), against the same 20 steps with no fault
+    cfg = va_cnn.CONFIG
+    opt = optim.adamw(3e-3, weight_decay=1e-4)
+    step = trainer.make_train_step(
+        lambda p, b: vadetect.loss_fn(p, b, cfg), opt, clip_norm=1.0)
+    init = trainer.init_state(
+        vadetect.init(torch.Generator().manual_seed(SEED), cfg, device=dev),
+        opt, device=dev)
+    stream = iegm.IEGMStream(batch=TRAIN_BATCH, seed=SEED, device=dev)
+    replay = {}
+    for name, hook in (("faulted", fault.FaultInjector({7, 13})),
+                       ("clean", None)):
+        final, history = fault.run_training(
+            step, init, stream.batch_at, num_steps=20,
+            ckpt_dir=str(ckpt_root / name), ckpt_every=5, fault_hook=hook,
+            log_every=0)
+        replay[name] = (final, history, hook)
+    (f_state, f_hist, injector), (c_state, c_hist, _) = (replay["faulted"],
+                                                         replay["clean"])
+    replay_rel = tree_rel(f_state["params"], c_state["params"], leaves)
+    emit({"phase": "fault_replay", "card": smi, "batch": TRAIN_BATCH,
+          "failures": injector.failures, "final_step": int(f_state["step"]),
+          "steps_run": [len(f_hist), len(c_hist)],
+          "max_rel_diff_final_params_faulted_vs_clean": replay_rel,
+          "bit_identical": all(torch.equal(a, b) for a, b in zip(
+              leaves(f_state["params"]), leaves(c_state["params"]))),
+          "tol": STEP_RTOL})
+    # where a replay can differ: each VA layer's convolution backward
+    # (spe.conv1d_same, batch 64) CONV_REPEATS times on the same inputs,
+    # each gradient against the first bit for bit, and the device kernels
+    # those backwards ran that are not PyTorch's own, by name, from one
+    # profile (a sleep kernel after each layer marks where it ends)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    conv_det = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for m in vadetect.layer_shapes(cfg):
+            x = torch.randn((TRAIN_BATCH, m["t_in"], m["c_in"]),
+                            generator=gen_dev, device=dev)
+            w = torch.randn((m["ksize"], m["c_in"], m["c_out"]),
+                            generator=gen_dev, device=dev)
+            g_y = torch.randn((TRAIN_BATCH, m["t_out"], m["c_out"]),
+                              generator=gen_dev, device=dev)
+
+            def conv_grads():
+                xl = x.clone().requires_grad_(True)
+                wl = w.clone().requires_grad_(True)
+                y = spe.conv1d_same(xl, wl, m["stride"])
+                return torch.autograd.grad((y * g_y).sum(), (xl, wl))
+
+            reps = [conv_grads() for _ in range(CONV_REPEATS)]
+            torch.cuda._sleep(1)
+            conv_det.append({
+                "layer": m["name"],
+                "grad_x_repeats_identical": all(
+                    torch.equal(r[0], reps[0][0]) for r in reps),
+                "grad_w_repeats_identical": all(
+                    torch.equal(r[1], reps[0][1]) for r in reps)})
+        torch.cuda.synchronize()
+    by_layer, names = [], set()
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        if "spin_kernel" in e.name:
+            by_layer.append(sorted(names))
+            names = set()
+        elif "at::native" not in e.name:
+            names.add(e.name[:100])
+    if len(by_layer) == len(conv_det):
+        for row, kernel_names in zip(conv_det, by_layer):
+            row["kernels"] = kernel_names
+    emit({"phase": "conv_determinism", "card": smi, "batch": TRAIN_BATCH,
+          "kernels_all": sorted({n for ns in by_layer for n in ns} | names),
+          "repeats": CONV_REPEATS, "layers": conv_det})
+    check(injector.failures == 2, f"fault replay: {injector.failures} failures")
+    check(int(f_state["step"]) == 20, f"fault replay: step {int(f_state['step'])}")
+    check(replay_rel <= STEP_RTOL,
+          f"fault replay: final params {replay_rel} apart")
+    clock("fault_replay")
+
+    # a checkpoint of a card state, saved and restored onto the card bit
+    # for bit; the save timed
+    ck_dir = str(ckpt_root / "roundtrip")
+    t0 = time.perf_counter()
+    checkpoint.save(c_state, ck_dir, 20)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restored, ck_step = checkpoint.restore(ck_dir, c_state)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    pairs = []
+    tree_map(lambda a, b: pairs.append((a, b)), restored, c_state)
+    same = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in pairs)
+    emit({"phase": "checkpoint", "card": smi, "leaves": len(pairs),
+          "save_ms": save_ms, "restore_ms": restore_ms, "bit_identical": same})
+    check(ck_step == 20 and len(pairs) == 49 and same,
+          "checkpoint: the card state did not come back bit for bit")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    clock("checkpoint")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -1098,9 +1354,6 @@ def main() -> int:
 
     # where a CONFIG step's time goes: a profiler trace of PROFILE_STEPS
     # steps — kernels launched per step and device time by kernel name
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step, state_d, batch_d = step_states["CONFIG"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):

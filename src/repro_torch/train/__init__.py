@@ -1,5 +1,7 @@
-"""Training (port of `repro.train`); for now the single-device trainer."""
+"""Training (port of `repro.train`): the single-device trainer, atomic
+keep-k checkpoints, and the checkpoint-restart loop with its straggler
+watchdog."""
 
-from repro_torch.train import trainer
+from repro_torch.train import checkpoint, fault, trainer
 
-__all__ = ["trainer"]
+__all__ = ["checkpoint", "fault", "trainer"]

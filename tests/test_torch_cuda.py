@@ -1,6 +1,8 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-versions, nm_spmm through the service path and the streaming fleet, and
-the training step on the card against the same step on the CPU.
+versions, nm_spmm through the service path and the streaming fleet,
+the training step on the card against the same step on the CPU, a
+checkpoint of a card state restored bit for bit, and the training loop's
+wait for the card inside its step span.
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -440,3 +442,69 @@ def test_fleet_on_the_kernel_path_matches_the_cpu(cuda, bucket):
             == {k: v for k, v in out_p["metrics"].items() if k not in wall})
     assert out_c["metrics"]["dropped_total"] == 0
     assert out_c["jit_cache_misses"] == out_p["jit_cache_misses"] == 1
+
+
+def test_checkpoint_roundtrip_of_a_card_state(cuda, tmp_path):
+    """A CONFIG adamw state trained a step on the card: saved, restored
+    onto the card bit for bit (dtypes, devices and the 0-d int32 step
+    kept), and onto the CPU with `device="cpu"`."""
+    from repro_torch.train import checkpoint
+
+    cfg = va_cnn.CONFIG
+    opt = optim.adamw(3e-3)
+    state = trainer.init_state(
+        vadetect.init(torch.Generator().manual_seed(0), cfg, device=cuda), opt,
+        device=cuda)
+    step = trainer.make_train_step(lambda p, b: vadetect.loss_fn(p, b, cfg),
+                                   opt, clip_norm=1.0)
+    state, _ = step(state, iegm.IEGMStream(batch=16, device=cuda).batch_at(0))
+    checkpoint.save(state, str(tmp_path), 1)
+    for dev in (None, "cpu"):
+        restored, s = checkpoint.restore(str(tmp_path), state, device=dev)
+        assert s == 1
+        pairs = []
+        tree_map(lambda g, w: pairs.append((g, w)), restored, state)
+        assert len(pairs) == 49
+        for g, w in pairs:
+            assert g.dtype == w.dtype
+            assert g.device.type == ("cuda" if dev is None else "cpu")
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_run_training_waits_for_the_card_inside_the_span(cuda):
+    """With telemetry on, every `train.step_latency_s` observation (the
+    step's `wall_s`) is at least the device time of that step's work:
+    `run_training` waits for the card inside the `train/step` span. A
+    step here is one long device-side sleep, its time read from CUDA
+    events around it."""
+    from repro_torch import obs
+    from repro_torch.train import fault
+
+    events = []
+
+    def train_step(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        events.append((start, end))
+        return state + 1, {"loss": state.to(torch.float32)}
+
+    tel = obs.configure(enabled=True)
+    try:
+        final, history = fault.run_training(
+            train_step, torch.zeros((), device=cuda), lambda step: None,
+            num_steps=5, log_every=0)
+    finally:
+        obs.reset()
+    torch.cuda.synchronize()
+    device_s = [s.elapsed_time(e) / 1e3 for s, e in events]
+    assert int(final) == 5 and len(history) == 5
+    assert min(device_s) > 1e-3
+    for h, d in zip(history, device_s):
+        assert h["wall_s"] >= d, (h["wall_s"], d)
+    hist = tel.registry.snapshot()["histograms"]["train.step_latency_s"]
+    assert hist["count"] == 5
+    assert hist["min"] >= min(device_s)
+    assert hist["sum"] == pytest.approx(sum(h["wall_s"] for h in history))

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VA diagnosis path, its kernel benchmark, the
-CMUL sweep, VA co-design training (the quickstart), the streaming fleet
-and the paper's entry points (the benchmark orchestrator, the ablation,
-the inference demo, train_va with checkpoints and restart) on one CUDA
-card.
+CMUL sweep, VA co-design training (the quickstart), the streaming fleet,
+the paper's entry points (the benchmark orchestrator, the ablation, the
+inference demo, train_va with checkpoints and restart) and LM serving
+(launch.serve at qwen3-8b's full width) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -62,6 +62,23 @@ toolkit. Phases, each printing JSON lines:
    at steps 7 and 13 against a clean run (2 failures, step 20, final
    params within STEP_RTOL); a card state's checkpoint restored onto the
    card bit for bit, its save timed;
+   lm_serve — quant_matmul at qwen3-8b's four projection shapes (K, N) =
+   (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096) at 4 and 64
+   rows, 8 and 4 bits, against its plain version twice, bit-identical,
+   timed against its byte bound and torch.matmul on the dequantized weight
+   (float32 and bfloat16); repro_torch.launch.serve.main at --arch
+   qwen3-8b (the full CONFIG: 36 layers, d_model 4096, vocab 151936)
+   --batch 4 --prompt-len 16 --max-new 16, dense bfloat16 and at
+   --quant-bits 8 and 4, its quant_matmul launches counted from 0 (252 a
+   forward, one prefill and 16 decode steps: 4284); the same build again
+   for the prefill's and each decode step's host time and device time
+   (behind a sleep), tokens/s and peak memory, the 8-bit prefill against
+   the same params on quant_matmul's plain version (LM_PLAIN_RTOL), the
+   packed runs' greedy agreement and logit correlation with the dense
+   run; the reduced qwen3-8b in float32, dense and 8-bit, on the card
+   against the CPU (prefill and decode logits within REDUCED_RTOL, the
+   same greedy tokens from generate and from an Engine burst); the burst
+   demo repro_torch.examples.serve_lm --smoke (70 quant_matmul launches);
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -135,6 +152,25 @@ FLEET_REPS = 4  # fleet runs a path after the counted one: spread, then spans
 FLEET_COUNTS = ("segments_total", "batches_total", "padded_total",
                 "diagnoses_total", "va_diagnoses_total", "urgent_packed_total",
                 "dropped_total", "batches_by_bucket")
+# LM serving: qwen3-8b's full CONFIG through launch.serve, dense bf16 and
+# packed at 8 and 4 bits
+LM_ARGV = ("--arch", "qwen3-8b", "--batch", "4", "--prompt-len", "16",
+           "--max-new", "16")
+LM_BITS = (None, 8, 4)
+LM_PROJECTIONS = 7  # q, k, v, o, gate, up, down: one quant_matmul each
+# qwen3-8b's projections as (K, N) and how many a layer has of each
+LM_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2,
+             (12288, 4096): 1}
+LM_ROWS = (4, 64)  # a decode step's rows (batch 4), a prefill's (4 x 16)
+LM_PROFILE_STEPS = 2  # decode steps a profile covers
+# 8-bit prefill logits, kernel against plain on the card: both compute each
+# projection in float32 (the kernel to about 1e-6) and round it to bfloat16,
+# so they differ only where a rounding falls the other way, by one bfloat16
+# ulp (2^-8 relative) of that output. Such flips move the final logits by a
+# few ulps of max|logit|: allow 8, 2^-5 = 3.1e-2 (tests/test_serve.py:39's
+# bfloat16 tolerance)
+LM_PLAIN_RTOL = 2.0 ** -5
+REDUCED_RTOL = 1e-4  # reduced float32 config, card against CPU, of max|logit|
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
 # on them (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -295,6 +331,313 @@ def layer_problems(cfg, vadetect, bucket: int = BUCKET) -> list[dict]:
         out.append(dict(layer=m["name"], m=bucket * m["t_out"], k=k,
                         kk=k // spe.group_size * spe.keep, n=m["c_out"]))
     return out
+
+
+def lm_profile(torch, fn, steps: int) -> dict:
+    """Device time of `fn` (`steps` forwards) from a profiler trace of the
+    card alone: the kernels' (and copies') device time a forward, the
+    launches a forward and the kernels by device time. The sum is the
+    card's busy time, free of the host's gaps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
+    top = sorted(on_card, key=lambda e: e.device_time_total, reverse=True)
+    return {
+        "device_ms": sum(e.device_time_total for e in on_card) / steps / 1e3,
+        "kernels": sum(e.count for e in on_card) / steps,
+        "top_kernels": [{"name": e.key[:80], "count": e.count / steps,
+                         "device_ms": e.device_time_total / steps / 1e3}
+                        for e in top[:6]],
+    }
+
+
+def lm_kernel_shapes(torch, dev, smi) -> tuple[list[dict], float]:
+    """quant_matmul at qwen3-8b's four projection shapes, at a decode
+    step's and a prefill's rows, 8 and 4 bits: against its plain version
+    at KERNEL_RTOL, twice, bit-identical; timed against its byte bound and
+    against torch.matmul on the pre-dequantized weight in float32 and
+    bfloat16. Returns the rows and the largest error."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels._common import unpack_tile
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows, worst = [], 0.0
+    for bits in (8, 4):
+        for m in LM_ROWS:
+            for k, n in LM_SHAPES:
+                w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+                q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
+                packed = quant.pack_planes(q, bits)
+                x = torch.randn((m, k), generator=gen, device=dev)
+                y = QM.quant_matmul_cuda(x, packed, sc, bits=bits)
+                y_again = QM.quant_matmul_cuda(x, packed, sc, bits=bits)
+                y_p = QM.quant_matmul_plain(x, packed, sc, bits=bits)
+                torch.cuda.synchronize()
+                err, rel = rel_err(y, y_p)
+                worst = max(worst, err)
+                same = torch.equal(y, y_again)
+                check(rel <= KERNEL_RTOL,
+                      f"quant_matmul {bits}b {(m, k, n)}: rel err {rel}")
+                check(same, f"quant_matmul {bits}b {(m, k, n)}: repeat differs")
+                w_deq = unpack_tile(packed, bits).to(torch.float32) * sc
+                w_bf, x_bf = w_deq.to(torch.bfloat16), x.to(torch.bfloat16)
+
+                def kernel():
+                    return QM.quant_matmul_cuda(x, packed, sc, bits=bits)
+
+                def library():
+                    return torch.matmul(x, w_deq)
+
+                t = {"ms": device_ms(torch, kernel),
+                     "plain_ms": device_ms(torch, lambda: QM.quant_matmul_plain(
+                         x, packed, sc, bits=bits)),
+                     "library_ms": device_ms(torch, library),
+                     "library_bf16_ms": device_ms(
+                         torch, lambda: torch.matmul(x_bf, w_bf))}
+                # run_ms's longest enqueue of RUN_LAUNCHES back-to-back calls:
+                # the host's cost of one call
+                for key, fn in (("", kernel), ("library_", library)):
+                    ms, enqueue = run_ms(torch, fn)
+                    t[f"{key}ms_in_run"] = ms
+                    t[f"{key}host_us_per_call"] = enqueue / RUN_LAUNCHES * 1e3
+                b_ms, o_ms = quant_bound(m, k, n, packed.numel())
+                t["bound_ms"] = max(b_ms, o_ms)
+                t["tc_bound_ms"] = tc_bound_ms(m, k, n, packed.numel())
+                nbytes = m * k * 4 + packed.numel() + n * 4 + m * n * 4
+                row = {"bits": bits, "m": m, "k": k, "n": n,
+                       "packed_bytes": packed.numel(), **t,
+                       "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                       "achieved_TB_per_s": nbytes / t["ms_in_run"] / 1e9,
+                       "max_abs_err": err, "rel_err": rel, "tol": KERNEL_RTOL,
+                       "repeat_identical": same,
+                       "geometry": QM.launch_geometry(m, k, n, bits=bits)}
+                emit({"phase": "lm_kernel", "kernel": QM.NAME, "card": smi, **row})
+                rows.append(row)
+    return rows, worst
+
+
+def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """The LM serving phase: launch.serve.main at qwen3-8b's full CONFIG,
+    dense bf16 then packed at 8 and 4 bits, each run's quant_matmul
+    launches counted from 0; the same build again for the prefill's and
+    the decode steps' host and device times, the 8-bit prefill against
+    the plain version, and the agreement with the dense run; the reduced
+    config (float32) on the card against the CPU; the burst demo
+    (examples.serve_lm --smoke). Returns what the kernels line takes."""
+    import argparse
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    shapes, kernel_err = lm_kernel_shapes(torch, dev, smi)
+    emit({"phase": "lm_kernel_seconds", "seconds": time.perf_counter() - t_phase})
+    full = configs.get("qwen3-8b")
+    max_new, batch, prompt_len = 16, 4, 16
+    dense_logits = dense_tokens = None
+    runs = {}
+    for bits in LM_BITS:
+        # the entry point, as a user runs it
+        argv = list(LM_ARGV) + (["--quant-bits", str(bits)] if bits else [])
+        t_run = time.perf_counter()
+        reset_launches()
+        t0 = time.perf_counter()
+        rec = launch_serve.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launched = launches_now()
+        expected = dict.fromkeys(launched, 0)
+        if bits:
+            expected[QM.NAME] = LM_PROJECTIONS * full.n_layers * (1 + max_new)
+        check(launched == expected,
+              f"launch.serve {bits or 'bf16'}: launches {launched}, "
+              f"expected {expected}")
+        check((rec["n_layers"], rec["d_model"], rec["vocab"])
+              == (full.n_layers, full.d_model, full.vocab),
+              f"launch.serve ran {rec['arch']}, not qwen3-8b's full CONFIG")
+        tokens = torch.tensor(rec["tokens"])
+        check(tokens.shape == (batch, max_new), f"tokens {tuple(tokens.shape)}")
+
+        # the same build again (the same seed on the same card), timed
+        args = argparse.Namespace(arch="qwen3-8b", reduced=False, batch=batch,
+                                  prompt_len=prompt_len, max_new=max_new,
+                                  quant_bits=bits, seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, model, params, prompts = launch_serve.build_lm(args, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        param_bytes = sum(v.numel() * v.element_size() for v in leaves(params))
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_wall = (time.perf_counter() - t0) * 1e3
+        prefill_prof = lm_profile(
+            torch, lambda: model.prefill(params, prompts), 1)
+
+        def decode(cache, steps: int, walls=None):
+            """generate's decode steps from the prefill's `cache` (each
+            step's host time through a synchronize into `walls`); the
+            greedy tokens."""
+            tok = torch.argmax(logits, dim=-1)
+            toks = []
+            for t in range(steps):
+                toks.append(tok)
+                pos = torch.full((batch,), prompt_len + t, dtype=torch.long,
+                                 device=dev)
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(params, cache, tok, pos)
+                tok = torch.argmax(lg, dim=-1)
+                if walls is not None:
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            return torch.stack(toks, dim=1)
+
+        walls = []
+        got = decode(cache, max_new, walls)
+        _, fresh = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        decode_prof = lm_profile(
+            torch, lambda: decode(fresh, LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+        wall = statistics.median(walls)
+        run = {
+            "phase": "lm_serve", "entry": "repro_torch.launch.serve.main",
+            "argv": argv, "card": smi, "arch": rec["arch"],
+            "n_layers": rec["n_layers"], "d_model": rec["d_model"],
+            "vocab": rec["vocab"], "quant_bits": bits,
+            "launches": launched, "expected_launches": expected,
+            "main_seconds": main_s, "main_generate_s": rec["generate_s"],
+            "main_tok_per_s_incl_first_use": rec["tok_per_s"],
+            "peak_device_bytes_main": rec["peak_device_bytes"],
+            "param_bytes": param_bytes, "build_s": build_s,
+            "prefill_wall_ms": prefill_wall,
+            "prefill_device_ms": prefill_prof["device_ms"],
+            "prefill_profile": prefill_prof,
+            "decode_wall_ms_median": wall, "decode_wall_ms": walls,
+            "decode_device_ms": decode_prof["device_ms"],
+            "decode_profile": decode_prof,
+            "decode_device_busy_share": decode_prof["device_ms"] / wall,
+            "decode_tok_per_s": batch / wall * 1e3,
+            "tokens_equal_main_run": torch.equal(got.cpu(), tokens),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        }
+        lg = logits.cpu().double()
+        if bits is None:
+            dense_logits, dense_tokens = lg, tokens
+        else:
+            a, b = dense_logits.flatten().numpy(), lg.flatten().numpy()
+            run["logit_corr_vs_dense"] = float(np.corrcoef(a, b)[0, 1])
+            run["greedy_agreement_vs_dense"] = float(
+                (tokens == dense_tokens).double().mean())
+        if bits == 8:
+            # the same prefill with every projection on the plain version
+            reset_launches()
+            with mock.patch.object(
+                    QM, "quant_matmul_cuda",
+                    lambda x, packed, scale, *, bits: QM.quant_matmul_plain(
+                        x, packed, scale, bits=bits)):
+                plain, _ = model.prefill(params, prompts)
+            torch.cuda.synchronize()
+            check(launches_now()[QM.NAME] == 0, "the plain prefill launched")
+            err, rel = rel_err(logits, plain)
+            run.update(max_abs_err_vs_plain=err, rel_err_vs_plain=rel,
+                       tol_vs_plain=LM_PLAIN_RTOL,
+                       argmax_agree_vs_plain=float(
+                           (logits.argmax(-1) == plain.argmax(-1)).float().mean()))
+            check(rel <= LM_PLAIN_RTOL,
+                  f"8-bit prefill, kernel vs plain: rel err {rel}")
+        run["seconds"] = time.perf_counter() - t_run
+        emit(run)
+        runs[bits or "bf16"] = run
+        del params, cache, fresh, logits, model
+        torch.cuda.empty_cache()
+
+    # the reduced config in float32: the card against the CPU
+    t_reduced = time.perf_counter()
+    cfg_r = dataclasses.replace(configs.reduced("qwen3-8b"), dtype="float32")
+    model_r = api.build_model(cfg_r, max_seq=48)
+    p_dense = model_r.init(SEED, device="cpu")
+    prompts_r = torch.randint(0, cfg_r.vocab, (batch, prompt_len),
+                              generator=torch.Generator().manual_seed(SEED))
+    burst = [torch.randint(0, cfg_r.vocab, (n,),
+                           generator=torch.Generator().manual_seed(10 + i))
+             for i, n in enumerate((4, 4, 7, 7, 5, 4))]
+    reduced = {}
+    for name, p_cpu in (("dense", p_dense),
+                        ("int8", engine.quantize_for_serving(p_dense, 8))):
+        p_card = tree_map(lambda v: v.to(dev), p_cpu)
+        l_cpu, c_cpu = model_r.prefill(p_cpu, prompts_r)
+        l_card, c_card = model_r.prefill(p_card, prompts_r.to(dev))
+        tok = torch.argmax(l_cpu, dim=-1)
+        pos = torch.full((batch,), prompt_len, dtype=torch.long)
+        d_cpu, _ = model_r.decode_step(p_cpu, c_cpu, tok, pos)
+        d_card, _ = model_r.decode_step(p_card, c_card, tok.to(dev), pos.to(dev))
+        rel_prefill = rel_err(l_card.cpu(), l_cpu)[1]
+        rel_decode = rel_err(d_card.cpu(), d_cpu)[1]
+        g_cpu = engine.generate(model_r, p_cpu, prompts_r, max_new=max_new,
+                                device="cpu")
+        reset_launches()
+        g_card = engine.generate(model_r, p_card, prompts_r, max_new=max_new)
+        gen_launches = launches_now()[QM.NAME]
+        outs = {}
+        for where, p in (("cpu", p_cpu), ("card", p_card)):
+            eng = engine.Engine(model_r, p, batch_size=3,
+                                device="cpu" if where == "cpu" else dev)
+            reqs = [engine.Request(uid=i, prompt=pr, max_new=6)
+                    for i, pr in enumerate(burst)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run(max_ticks=100)
+            outs[where] = [r.output for r in reqs]
+        reduced[name] = {
+            "rel_err_prefill": rel_prefill, "rel_err_decode": rel_decode,
+            "tol": REDUCED_RTOL,
+            "generate_identical": torch.equal(g_card.cpu(), g_cpu),
+            "engine_identical": outs["cpu"] == outs["card"],
+            "quant_matmul_launches_generate": gen_launches}
+        check(rel_prefill <= REDUCED_RTOL and rel_decode <= REDUCED_RTOL,
+              f"reduced {name}: card vs CPU logits {rel_prefill}, {rel_decode}")
+        check(torch.equal(g_card.cpu(), g_cpu),
+              f"reduced {name}: generate's tokens differ on the card")
+        check(outs["cpu"] == outs["card"],
+              f"reduced {name}: the engine burst differs on the card")
+        check(gen_launches == (LM_PROJECTIONS * cfg_r.n_layers * (1 + max_new)
+                               if name == "int8" else 0),
+              f"reduced {name}: {gen_launches} quant_matmul launches")
+    emit({"phase": "lm_reduced", "config": cfg_r.name, "dtype": "float32",
+          "card": smi, "seconds": time.perf_counter() - t_reduced, **reduced})
+
+    # the burst demo, as a user runs it: its --smoke assertions on the card
+    reset_launches()
+    t0 = time.perf_counter()
+    demo = serve_lm.main(["--smoke"])
+    torch.cuda.synchronize()
+    demo_launches = launches_now()
+    n_layers_r = configs.reduced("qwen3-8b").n_layers
+    expected = dict.fromkeys(demo_launches, 0)
+    expected[QM.NAME] = LM_PROJECTIONS * n_layers_r * (1 + 4)  # one int8 generate
+    emit({"phase": "lm_example", "entry": "repro_torch.examples.serve_lm.main",
+          "argv": ["--smoke"], "card": smi,
+          "seconds": time.perf_counter() - t0, "launches": demo_launches,
+          "expected_launches": expected, "record": demo})
+    check(demo_launches == expected,
+          f"serve_lm --smoke launches {demo_launches}, expected {expected}")
+    return {"runs": runs, "reduced": reduced, "shapes": shapes,
+            "max_abs_err": kernel_err}
 
 
 def main() -> int:
@@ -1171,6 +1514,26 @@ def main() -> int:
     shutil.rmtree(ckpt_root, ignore_errors=True)
     clock("checkpoint")
 
+    # -- LM serving ---------------------------------------------------------
+    def reset_launches() -> None:
+        K.launches = SC.launches = QM.launches = BS.launches = 0
+
+    lm = lm_serve(torch, dev, smi, launches_now, reset_launches)
+    # one qwen3-8b layer's seven 8-bit projections at a decode step's rows
+    lm_layer = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms",
+                              "library_bf16_ms", "ms_in_run",
+                              "library_ms_in_run", "tc_bound_ms"), 0.0)
+    lm_bytes_ms = lm_ops_ms = 0.0
+    for row in lm["shapes"]:
+        count = LM_SHAPES[(row["k"], row["n"])]
+        if row["bits"] != 8 or row["m"] != LM_ROWS[0]:
+            continue
+        for key in lm_layer:
+            lm_layer[key] += count * row[key]
+        b_ms, o_ms = quant_bound(row["m"], row["k"], row["n"], row["packed_bytes"])
+        lm_bytes_ms, lm_ops_ms = lm_bytes_ms + count * b_ms, lm_ops_ms + count * o_ms
+    clock("lm_serve")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -1402,24 +1765,41 @@ def main() -> int:
             "im2col_nm_spmm_ms")},
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the benchmark run",
-    }] + [{
-        "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-        "replaces": replaces, "launches": launches, "max_abs_err": err,
-        **{key: cmul_totals[name][key] for key in
+    }, {
+        "name": BS.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        "replaces": "src/repro/kernels/bitserial.py:67",
+        "launches": sweep_launches[BS.NAME], "max_abs_err": bs_err,
+        **{key: cmul_totals[BS.NAME][key] for key in
            ("ms", "plain_ms", "bound_ms")},
-        "bound_by": ("bytes" if cmul_bound_by[name][0] >= cmul_bound_by[name][1]
+        "bound_by": ("bytes" if cmul_bound_by[BS.NAME][0] >= cmul_bound_by[BS.NAME][1]
                      else "operations"),
-        **{key: cmul_totals[name][key] for key in
+        **{key: cmul_totals[BS.NAME][key] for key in
            ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms")},
         "at": "sum of 8/4/2/1 bits at the benchmark shape (128, 512, 256); "
-              f"launches over {over}",
-    } for name, replaces, launches, err, over in (
-        (QM.NAME, "src/repro/kernels/quant_matmul.py:42",
-         bench_launches[QM.NAME], quant_err, "the benchmark run"),
-        (BS.NAME, "src/repro/kernels/bitserial.py:67",
-         sweep_launches[BS.NAME], bs_err, "the CMUL sweep"),
-    )]})
+              "launches over the CMUL sweep",
+    }, {
+        "name": QM.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:42",
+        "launches": lm["runs"][8]["launches"][QM.NAME],
+        "launches_4bit": lm["runs"][4]["launches"][QM.NAME],
+        "launches_benchmark": bench_launches[QM.NAME],
+        "max_abs_err": max(quant_err, lm["max_abs_err"]),
+        **{key: lm_layer[key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes" if lm_bytes_ms >= lm_ops_ms else "operations",
+        **{key: lm_layer[key] for key in
+           ("library_ms", "library_bf16_ms", "ms_in_run", "library_ms_in_run",
+            "tc_bound_ms")},
+        "at": "sum of one qwen3-8b layer's 7 projections at 8 bits and 4 rows "
+              "(a decode step's); library: torch.matmul on the dequantized "
+              "weight, float32 (library_bf16_ms: bfloat16); launches over "
+              "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit)",
+        "at_benchmark_shape": {
+            key: cmul_totals[QM.NAME][key] for key in
+            ("ms", "plain_ms", "bound_ms", "library_ms", "ms_in_run",
+             "library_ms_in_run", "tc_bound_ms")},
+    }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -61,6 +61,24 @@ def state_from_numpy(tree: Mapping, device: _device.DeviceLike = None) -> dict:
     }
 
 
+def lm_params_from_numpy(tree, device: _device.DeviceLike = None):
+    """An LM param tree as numpy (nested dicts of float32 `w`/`b`/`scale`
+    and norms, uint8 `packed`/`select`, int8 `values_q`, and the `meta`
+    dict of Python ints of a sparse-compiled linear) -> the same tree of
+    tensors on `device`, each array keeping its dtype; Python numbers
+    stay as they are."""
+    dev = _device.resolve(device)
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (int, float)):
+            return x
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    return one(tree)
+
+
 def program_from_numpy(
     layers: Mapping[str, Mapping],
     biases: Mapping[str, np.ndarray],

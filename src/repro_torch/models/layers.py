@@ -1,0 +1,325 @@
+"""Primitive NN layers — init/apply pairs over nested dicts of tensors.
+
+Port of `repro.models.layers`. Conventions (whole substrate):
+  * params are trees of float32 "master" tensors; applies cast to the
+    compute dtype (bfloat16 by default) at use — standard mixed
+    precision;
+  * every init draws from an explicit `torch.Generator`, on the
+    generator's device; `lead` prepends stacking axes (the reference
+    vmaps its inits over a layer-group axis);
+  * 2-D weights are (in_features, out_features), as in the reference;
+  * the paper's technique enters through `linear_apply`: an optional
+    `SPEConfig` applies co-design prune-STE + fake-quant to dense
+    weights, and a *compiled* param dict ({"packed","scale"} or
+    {"values_q","select","meta","scale"}) swaps in compressed storage
+    at serve time. Those two go through the port's hand-written kernels
+    (`kernels.ops.quant_matmul` and `kernels.ops.nm_spmm`): a CUDA
+    tensor launches the kernel, a CPU tensor takes its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant as Q
+from repro_torch.core import sparsity as S
+from repro_torch.core.spe import SPEConfig, spe_train_weight
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Linear (+ the SPE/quant entry point)
+# ---------------------------------------------------------------------------
+
+
+def _randn(gen: torch.Generator, shape: tuple) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def linear_init(
+    gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
+    scale: Optional[float] = None, lead: tuple = (),
+) -> dict:
+    s = scale if scale is not None else d_in ** -0.5
+    p = {"w": _randn(gen, (*lead, d_in, d_out)).mul_(s)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), device=gen.device)
+    return p
+
+
+def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x with its last axis zero-padded to `k` (zeros add nothing)."""
+    return F.pad(x, (0, k - x.shape[-1])) if k > x.shape[-1] else x
+
+
+def linear_apply(
+    params: dict,
+    x: torch.Tensor,
+    *,
+    spe: Optional[SPEConfig] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """y = x @ W (+ b). Dispatches on the param format:
+
+    {"w"}                      dense master weights (training / baseline);
+                               `spe` applies the paper's QAT constraints.
+    {"packed","scale"}         compiled mixed-bit-width storage (CMUL):
+                               `ops.quant_matmul`, the kernel the
+                               reference's XLA unpack + matmul stands in
+                               for. The kernel takes float32 x and
+                               returns float32, so x is cast up and y
+                               down to `dtype`.
+    {"values_q","select","meta","scale"}  compiled sparse+quant storage
+                               (SPE): `ops.nm_spmm`, with x's K padded
+                               with zeros to the group multiple the
+                               compiler padded W to.
+    """
+    if "w" in params:
+        w = params["w"]
+        if spe is not None:
+            w = spe_train_weight(w, spe)
+        y = x.to(dtype) @ w.to(dtype)
+    elif "packed" in params:
+        # bit width is encoded in the packed shape (keeps the param tree
+        # tensor-only, so a stacked group slices cleanly):
+        # rows = ceil(K*b/8)
+        packed = params["packed"]
+        k = x.shape[-1]
+        bits = (8 * packed.shape[-2]) // k
+        xk = _pad_k(x.to(torch.float32), packed.shape[-2] * (8 // bits))
+        y = ops.quant_matmul(xk, packed, params["scale"], bits=bits).to(dtype)
+    elif "values_q" in params:
+        meta = params["meta"]
+        group, keep = int(meta["group"]), int(meta["keep"])
+        k_dense = (params["values_q"].shape[0] // keep) * group
+        xk = _pad_k(x.to(torch.float32), k_dense)
+        y = ops.nm_spmm(
+            xk, params["values_q"], params["select"], params["scale"],
+            group_size=group, keep=keep,
+        ).to(dtype)
+    else:
+        raise ValueError(f"unknown linear param format: {list(params)}")
+    if "b" in params:
+        y = y + params["b"].to(dtype)
+    return y
+
+
+def compile_linear_quant(params: dict, bits: int) -> dict:
+    """Dense {"w"} -> packed mixed-bit-width serving format.
+
+    Handles stacked (n_groups, K, N) block weights one group at a time
+    (the reference vmaps; a loop keeps the quantizer's float32
+    temporaries to one (K, N) slice). The bit width is recoverable from
+    the packed shape, so the output tree stays tensor-only.
+    """
+    w = params["w"]
+
+    def one(w2):
+        q, scale = Q.quantize(w2, Q.QuantConfig(bits=bits))
+        return Q.pack_planes(q, bits), scale.reshape(1, -1)
+
+    if w.ndim == 3:
+        pairs = [one(w[g]) for g in range(w.shape[0])]
+        packed = torch.stack([p for p, _ in pairs])
+        scale = torch.stack([s for _, s in pairs])
+    else:
+        packed, scale = one(w)
+    out = {"packed": packed, "scale": scale}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+def compile_linear_sparse_quant(
+    params: dict, bits: int, group: int = 16, keep: int = 8
+) -> dict:
+    """Dense {"w"} -> SPE compressed (values+select) serving format."""
+    w = params["w"]
+    k = w.shape[0]
+    pad = (-k) % group
+    if pad:
+        w = F.pad(w, (0, 0, 0, pad))
+    scfg = S.SparsityConfig(group, keep)
+    values, select = S.compress(S.apply_prune(w, scfg), scfg)
+    q, scale = Q.quantize(values, Q.QuantConfig(bits=bits))
+    out = {
+        "values_q": q,
+        "select": select,
+        "scale": scale.reshape(1, -1),
+        "meta": {"group": group, "keep": keep, "bits": bits},
+    }
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, *, lead: tuple = (), device=None) -> dict:
+    return {"scale": torch.ones((*lead, d), device=device)}
+
+
+def rmsnorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * params["scale"]
+    return y.to(dt)
+
+
+def layernorm_init(d: int, *, lead: tuple = (), device=None) -> dict:
+    return {"scale": torch.ones((*lead, d), device=device),
+            "bias": torch.zeros((*lead, d), device=device)}
+
+
+def layernorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(dt)
+
+
+def norm_init(kind: str, d: int, *, lead: tuple = (), device=None) -> dict:
+    init = rmsnorm_init if kind == "rmsnorm" else layernorm_init
+    return init(d, lead=lead, device=device)
+
+
+def norm_apply(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm_apply(params, x)
+    return layernorm_apply(params, x)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (RoPE + M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    ar = torch.arange(0, hd, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / hd))
+
+
+def apply_rope(
+    x: torch.Tensor,  # (B, S, H, hd)
+    pos: torch.Tensor,  # (B, S) int — or (B, 3, S) for M-RoPE
+    *,
+    theta: float,
+    sections: Sequence[int] = (),
+) -> torch.Tensor:
+    """Rotate half-pairs. With `sections` (M-RoPE), the hd/2 frequency
+    slots are split into (t, h, w) groups, each indexed by its own
+    position row of `pos` (text positions use identical rows, which
+    reduces exactly to standard RoPE)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    if sections:
+        assert sum(sections) == hd // 2, (sections, hd)
+        assert pos.ndim == 3 and pos.shape[1] == len(sections)
+        parts = []
+        start = 0
+        for i, sec in enumerate(sections):
+            p = pos[:, i, :].to(torch.float32)  # (B, S)
+            parts.append(p[:, :, None] * freqs[start : start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)  # (B, S, hd/2)
+    else:
+        ang = pos.to(torch.float32)[:, :, None] * freqs  # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN (SwiGLU / GeGLU / plain GELU MLP)
+# ---------------------------------------------------------------------------
+
+
+# The activations are written op by op in the working dtype, as
+# `jax.nn.silu` and `jax.nn.gelu` are: XLA rounds a bfloat16 result after
+# every elementwise op (its logistic is 1 / (1 + exp(-x))), where torch's
+# fused F.silu / F.gelu round once; the difference, one bfloat16 ulp on a
+# third of the elements, would compound over the layers.
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
+def ffn_init(
+    gen: torch.Generator, d: int, f: int, *, act: str, bias: bool = False,
+    lead: tuple = (),
+) -> dict:
+    if act in ("swiglu", "geglu"):
+        return {
+            "w_gate": linear_init(gen, d, f, bias=bias, lead=lead),
+            "w_up": linear_init(gen, d, f, bias=bias, lead=lead),
+            "w_down": linear_init(gen, f, d, bias=bias, lead=lead),
+        }
+    return {
+        "w_up": linear_init(gen, d, f, bias=bias, lead=lead),
+        "w_down": linear_init(gen, f, d, bias=bias, lead=lead),
+    }
+
+
+def ffn_apply(
+    params: dict,
+    x: torch.Tensor,
+    *,
+    act: str,
+    spe: Optional[SPEConfig] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    if act in ("swiglu", "geglu"):
+        g = linear_apply(params["w_gate"], x, spe=spe, dtype=dtype)
+        u = linear_apply(params["w_up"], x, spe=spe, dtype=dtype)
+        g = silu(g) if act == "swiglu" else gelu(g)
+        return linear_apply(params["w_down"], g * u, spe=spe, dtype=dtype)
+    h = linear_apply(params["w_up"], x, spe=spe, dtype=dtype)
+    return linear_apply(params["w_down"], gelu(h), spe=spe, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> dict:
+    return {"w": _randn(gen, (vocab, d)).mul_(0.02)}
+
+
+def embed_apply(
+    params: dict, tokens: torch.Tensor, *,
+    dtype: torch.dtype = torch.bfloat16, scale: bool = False,
+) -> torch.Tensor:
+    # gather, then cast: bit-identical to the reference's cast-then-gather
+    # (the cast is elementwise), without casting the whole table per call
+    h = params["w"][tokens].to(dtype)
+    if scale:
+        d = torch.tensor(float(params["w"].shape[1]), dtype=torch.float32)
+        h = h * torch.sqrt(d).to(device=h.device, dtype=dtype)
+    return h
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)

@@ -1,0 +1,590 @@
+"""Decoder-only LM stack: pattern-period groups of heterogeneous blocks.
+
+Port of `repro.models.transformer` for the dense attention families
+(global / local / chunked attention, GQA, qk-norm, qkv bias, softcaps,
+sandwich norms, M-RoPE):
+
+  * layers are grouped by the config's block `pattern`; each pattern
+    position's params are stacked along a leading `n_groups` axis, as in
+    the reference. Where it runs a `lax.scan` over the groups, the port
+    loops in Python and slices group `[g]` (a packed weight's bit width
+    still comes from its `[g]` slice's shape);
+  * a tail of n_layers % period layers is run after the groups with its
+    own params;
+  * decode threads a cache through the same structure — ring buffers for
+    local/chunked attention (capacity = window), full buffers for global
+    attention.
+
+The decode cache is updated **in place**: `decode_step` writes the new
+token's K/V (and `slot_pos`) into the cache it is given and returns that
+same cache, where the reference returns a new one. A caller that needs
+the old cache clones it first. `prefill` builds a fresh cache.
+
+Not ported in this slice, and raising `NotImplementedError` (nothing
+falls back): the `rwkv` and `rglru` block kinds, MoE FFNs (ROADMAP.md
+queue 1 item 6), the paged cache (item 7) and `loss_fn` (item 10). The
+reference's `constrain` layout hints do nothing on one device and are
+dropped (item 8), as is its `remat` (training, item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, pad_up
+from repro_torch.core.spe import SPEConfig
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (
+    apply_rope,
+    embed_apply,
+    embed_init,
+    ffn_apply,
+    ffn_init,
+    linear_apply,
+    linear_init,
+    norm_apply,
+    norm_init,
+    softcap,
+)
+
+FAMILIES_ITEM = "ROADMAP.md queue 1 item 6"
+PAGING_ITEM = "ROADMAP.md queue 1 item 7"
+TRAINING_ITEM = "ROADMAP.md queue 1 item 10"
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for what this slice does not port."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE FFNs (models/moe.py) are not ported yet "
+            f"({FAMILIES_ITEM})"
+        )
+    for kind in tuple(cfg.pattern) + tuple(cfg.tail or ()):
+        if kind in ("rglru", "rwkv"):
+            raise NotImplementedError(
+                f"{cfg.name}: {kind} blocks are not ported yet "
+                f"({FAMILIES_ITEM})"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Mesh-divisibility padding
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Dims:
+    """Physical (padded) dimensions for a given TP degree."""
+
+    tp: int
+    n_heads: int
+    n_kv: int
+    vocab: int
+    d_ff: int
+
+    @staticmethod
+    def create(cfg: ArchConfig, tp: int = 1) -> "Dims":
+        if not cfg.use_tp:
+            tp = 1
+        n_heads = pad_up(cfg.n_heads, tp)
+        if cfg.kv_mode == "pad" and tp > 1:
+            n_kv = pad_up(cfg.n_kv_heads, min(tp, pad_up(cfg.n_heads, tp)))
+        else:
+            n_kv = cfg.n_kv_heads
+        # keep GQA grouping consistent: heads must divide evenly over kv
+        while n_heads % n_kv:
+            n_kv += 1 if cfg.kv_mode == "pad" else -1
+        return Dims(
+            tp=tp,
+            n_heads=n_heads,
+            n_kv=n_kv,
+            vocab=pad_up(cfg.vocab, max(tp, 128)),
+            d_ff=pad_up(cfg.d_ff, tp),
+        )
+
+
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def spe_config(cfg: ArchConfig) -> Optional[SPEConfig]:
+    if cfg.spe_bits is None and not cfg.spe_sparse:
+        return None
+    return SPEConfig(
+        bits=cfg.spe_bits or 8,
+        group_size=cfg.spe_group,
+        keep=cfg.spe_keep,
+        sparse=cfg.spe_sparse,
+        quantized=cfg.spe_bits is not None,
+    )
+
+
+def _group(tree: Any, g: int) -> Any:
+    """Group `g` of a stacked subtree: every tensor leaf sliced on its
+    leading axis (a view, so writes reach the stacked tensor)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g] if isinstance(tree, torch.Tensor) else tree
+
+
+# ---------------------------------------------------------------------------
+# Attention block
+# ---------------------------------------------------------------------------
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims,
+              lead: tuple = ()) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    p = {
+        "wq": linear_init(gen, d, dims.n_heads * hd, bias=cfg.qkv_bias,
+                          lead=lead),
+        "wk": linear_init(gen, d, dims.n_kv * hd, bias=cfg.qkv_bias,
+                          lead=lead),
+        "wv": linear_init(gen, d, dims.n_kv * hd, bias=cfg.qkv_bias,
+                          lead=lead),
+        "wo": linear_init(gen, dims.n_heads * hd, d, lead=lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init("rmsnorm", hd, lead=lead, device=gen.device)
+        p["k_norm"] = norm_init("rmsnorm", hd, lead=lead, device=gen.device)
+    return p
+
+
+def _qkv(p, x, pos, cfg, dims, spe, dtype):
+    b, s = x.shape[:2]
+    hd = cfg.hd
+    q = linear_apply(p["wq"], x, spe=spe, dtype=dtype).reshape(
+        b, s, dims.n_heads, hd
+    )
+    k = linear_apply(p["wk"], x, spe=spe, dtype=dtype).reshape(
+        b, s, dims.n_kv, hd
+    )
+    v = linear_apply(p["wv"], x, spe=spe, dtype=dtype).reshape(
+        b, s, dims.n_kv, hd
+    )
+    if cfg.qk_norm:
+        q = norm_apply("rmsnorm", p["q_norm"], q)
+        k = norm_apply("rmsnorm", p["k_norm"], k)
+    q = apply_rope(q, pos, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+    k = apply_rope(k, pos, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+    return q, k, v
+
+
+def attn_apply_train(
+    p: dict, x: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig,
+    dims: Dims, kind: str, *, spe, dtype,
+) -> torch.Tensor:
+    q, k, v = _qkv(p, x, pos, cfg, dims, spe, dtype)
+    out = A.attention(
+        q, k, v, kind=kind, window=cfg.window, cap=cfg.attn_softcap,
+        causal=True, block_q=cfg.attn_block, block_k=cfg.attn_block,
+    )
+    b, s = x.shape[:2]
+    return linear_apply(
+        p["wo"], out.reshape(b, s, dims.n_heads * cfg.hd), spe=spe,
+        dtype=dtype,
+    )
+
+
+def cache_capacity(cfg: ArchConfig, kind: str, max_seq: int) -> int:
+    if kind in ("local", "chunked") and cfg.window:
+        return min(cfg.window, max_seq)
+    return max_seq
+
+
+def attn_cache_init(
+    cfg: ArchConfig, dims: Dims, kind: str, batch: int, max_seq: int,
+    dtype, *, lead: tuple = (), device=None,
+) -> dict:
+    cap = cache_capacity(cfg, kind, max_seq)
+    shape = (*lead, batch, cap, dims.n_kv, cfg.hd)
+    sp = torch.full((*lead, batch, cap), -1, dtype=torch.int32, device=device)
+    if cfg.kv_quant_bits == 8:
+        # int8 KV (per-slot-per-head symmetric scales)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], device=device),
+            "v_scale": torch.zeros(shape[:-1], device=device),
+            "slot_pos": sp,
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "slot_pos": sp,
+    }
+
+
+def attn_capacities(cfg: ArchConfig, max_seq: int) -> tuple[int, ...]:
+    """Cache capacities of every attention block position (pattern+tail)."""
+    kinds = tuple(cfg.pattern) + tuple(cfg.tail or ())
+    return tuple(
+        cache_capacity(cfg, k, max_seq)
+        for k in kinds
+        if k not in ("rglru", "rwkv")
+    )
+
+
+def paged_layouts(cfg: ArchConfig, page: int, max_seq: int) -> dict:
+    raise NotImplementedError(f"the paged KV cache is not ported yet ({PAGING_ITEM})")
+
+
+def init_cache_paged(cfg: ArchConfig, dims: Dims, batch: int, n_pages: int,
+                     page: int, max_seq: int) -> dict:
+    raise NotImplementedError(f"the paged KV cache is not ported yet ({PAGING_ITEM})")
+
+
+def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, Kv, hd) -> (int8 values, (B, S, Kv) f32 scales)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-20) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def attn_apply_decode(
+    p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
+    cfg: ArchConfig, dims: Dims, kind: str, *, spe, dtype,
+) -> tuple[torch.Tensor, dict]:
+    """x (B,1,D); pos (B,) absolute positions. Writes the token's K/V into
+    its ring slot (`pos % cap`) of `cache` in place, then attends over the
+    cache. Returns (y, cache)."""
+    b = x.shape[0]
+    rope_pos = pos[:, None]  # (B,1)
+    if cfg.mrope_sections:
+        rope_pos = pos[:, None, None].expand(b, len(cfg.mrope_sections), 1)
+    q, k, v = _qkv(p, x, rope_pos, cfg, dims, spe, dtype)
+    cap = cache["slot_pos"].shape[1]
+    slot = (pos % cap).long()  # (B,)
+    bidx = torch.arange(b, device=x.device)
+    cache["slot_pos"][bidx, slot] = pos.to(torch.int32)
+    if cfg.kv_quant_bits == 8:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        cache["k"][bidx, slot] = kq[:, 0]
+        cache["v"][bidx, slot] = vq[:, 0]
+        cache["k_scale"][bidx, slot] = ks[:, 0]
+        cache["v_scale"][bidx, slot] = vs[:, 0]
+        out = A.attention_decode(
+            q[:, 0], cache["k"], cache["v"], cache["slot_pos"], pos,
+            kind=kind, window=cfg.window, cap=cfg.attn_softcap,
+            k_scale=cache["k_scale"], v_scale=cache["v_scale"],
+        )
+    else:
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        out = A.attention_decode(
+            q[:, 0], cache["k"], cache["v"], cache["slot_pos"], pos,
+            kind=kind, window=cfg.window, cap=cfg.attn_softcap,
+        )
+    y = linear_apply(
+        p["wo"], out.reshape(b, 1, dims.n_heads * cfg.hd), spe=spe,
+        dtype=dtype,
+    )
+    return y, cache
+
+
+def attn_cache_from_prefill(
+    k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, kind: str,
+    max_seq: int,
+) -> dict:
+    """Build the ring cache state equivalent to having decoded 0..S-1."""
+    b, s = k.shape[:2]
+    dev = k.device
+    cap = cache_capacity(cfg, kind, max_seq)
+    sp = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
+    n = min(s, cap)
+    tail = torch.arange(s - n, s, device=dev)
+    slots = tail % cap
+    sp[:, slots] = tail.to(torch.int32).expand(b, n)
+    if cfg.kv_quant_bits == 8:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        out = {
+            "k": torch.zeros((b, cap, *k.shape[2:]), dtype=torch.int8, device=dev),
+            "v": torch.zeros((b, cap, *k.shape[2:]), dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros((b, cap, k.shape[2]), device=dev),
+            "v_scale": torch.zeros((b, cap, k.shape[2]), device=dev),
+            "slot_pos": sp,
+        }
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            out[name][:, slots] = val[:, tail]
+        return out
+    kc = torch.zeros((b, cap, *k.shape[2:]), dtype=k.dtype, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, slots] = k[:, tail]
+    vc[:, slots] = v[:, tail]
+    return {"k": kc, "v": vc, "slot_pos": sp}
+
+
+# ---------------------------------------------------------------------------
+# Block = (norms + attention + ffn), dispatched on kind
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims, kind: str,
+               lead: tuple = ()) -> dict:
+    check_supported(cfg)
+    d, dev = cfg.d_model, gen.device
+    p = {"ln1": norm_init(cfg.norm, d, lead=lead, device=dev),
+         "ln2": norm_init(cfg.norm, d, lead=lead, device=dev)}
+    if cfg.sandwich_norm:
+        p["post_ln1"] = norm_init(cfg.norm, d, lead=lead, device=dev)
+        p["post_ln2"] = norm_init(cfg.norm, d, lead=lead, device=dev)
+    p["mix"] = attn_init(gen, cfg, dims, lead)
+    p["ffn"] = ffn_init(gen, d, dims.d_ff, act=cfg.act, lead=lead)
+    return p
+
+
+def block_apply(
+    p: dict,
+    h: torch.Tensor,
+    pos: torch.Tensor,
+    cfg: ArchConfig,
+    dims: Dims,
+    kind: str,
+    *,
+    cache: Optional[dict] = None,
+    spe=None,
+    dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
+    """Returns (h, moe_aux, cache) — the cache updated in place."""
+    check_supported(cfg)
+    a_in = norm_apply(cfg.norm, p["ln1"], h)
+    if cache is not None:
+        mixed, _ = attn_apply_decode(
+            p["mix"], a_in, pos, cache["attn"], cfg, dims, kind,
+            spe=spe, dtype=dtype,
+        )
+    else:
+        mixed = attn_apply_train(
+            p["mix"], a_in, pos, cfg, dims, kind, spe=spe, dtype=dtype
+        )
+    if cfg.sandwich_norm:
+        mixed = norm_apply(cfg.norm, p["post_ln1"], mixed)
+    h = h + mixed
+    f_in = norm_apply(cfg.norm, p["ln2"], h)
+    f_out = ffn_apply(p["ffn"], f_in, act=cfg.act, spe=spe, dtype=dtype)
+    if cfg.sandwich_norm:
+        f_out = norm_apply(cfg.norm, p["post_ln2"], f_out)
+    h = h + f_out
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux, cache
+
+
+def block_cache_init(
+    cfg: ArchConfig, dims: Dims, kind: str, batch: int, max_seq: int, dtype,
+    *, lead: tuple = (), device=None,
+) -> dict:
+    check_supported(cfg)
+    return {"attn": attn_cache_init(cfg, dims, kind, batch, max_seq, dtype,
+                                    lead=lead, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Full stack
+# ---------------------------------------------------------------------------
+
+
+def stack_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims) -> dict:
+    """Random params drawn from `gen` on its device, in a fixed order."""
+    check_supported(cfg)
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, dims.vocab, cfg.d_model),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(gen, cfg.d_model, dims.vocab)
+    params["blocks"] = {
+        f"pos{p_idx}": block_init(gen, cfg, dims, kind, (cfg.n_groups,))
+        for p_idx, kind in enumerate(cfg.pattern)
+    }
+    if cfg.tail:
+        params["tail"] = {
+            f"pos{i}": block_init(gen, cfg, dims, kind)
+            for i, kind in enumerate(cfg.tail)
+        }
+    return params
+
+
+def _positions(cfg: ArchConfig, batch: int, seq: int, device) -> torch.Tensor:
+    pos = torch.arange(seq, device=device).expand(batch, seq)
+    if cfg.mrope_sections:
+        # text-stub M-RoPE: all three rows equal (== standard RoPE)
+        pos = pos[:, None, :].expand(batch, len(cfg.mrope_sections), seq)
+    return pos
+
+
+def _groups(params: dict, cfg: ArchConfig):
+    """(group params, pattern index, kind) in layer order: the stacked
+    groups, then the tail."""
+    for g in range(cfg.n_groups):
+        for p_idx, kind in enumerate(cfg.pattern):
+            yield ("blocks", f"pos{p_idx}", g), kind
+    for i, kind in enumerate(cfg.tail):
+        yield ("tail", f"pos{i}", None), kind
+
+
+def _at(tree: dict, where: tuple) -> Any:
+    top, key, g = where
+    sub = tree[top][key]
+    return sub if g is None else _group(sub, g)
+
+
+def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["w"].to(dtype).T
+    else:
+        logits = linear_apply(params["lm_head"], h, dtype=dtype)
+    return softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+def forward_train(
+    params: dict,
+    tokens: torch.Tensor,  # (B, S)
+    cfg: ArchConfig,
+    dims: Dims,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B,S,V_padded) f32, moe_aux) — or the post-norm
+    hidden states (B,S,D) when return_hidden."""
+    dtype = compute_dtype(cfg)
+    spe = spe_config(cfg)
+    b, s = tokens.shape
+    pos = positions if positions is not None else _positions(
+        cfg, b, s, tokens.device)
+    h = embed_apply(params["embed"], tokens, dtype=dtype,
+                    scale=cfg.scale_embed)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for where, kind in _groups(params, cfg):
+        h, a, _ = block_apply(_at(params, where), h, pos, cfg, dims, kind,
+                              spe=spe, dtype=dtype)
+        aux = aux + a
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    if return_hidden:
+        return h, aux
+    return _logits(params, h, cfg, dtype), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, dims: Dims):
+    raise NotImplementedError(
+        f"LM training (loss_fn, data/lm.py) is not ported yet ({TRAINING_ITEM})"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(
+    cfg: ArchConfig, dims: Dims, batch: int, max_seq: int, device=None
+) -> dict:
+    dtype = compute_dtype(cfg)
+    cache: dict[str, Any] = {"blocks": {
+        f"pos{p_idx}": block_cache_init(cfg, dims, kind, batch, max_seq,
+                                        dtype, lead=(cfg.n_groups,),
+                                        device=device)
+        for p_idx, kind in enumerate(cfg.pattern)
+    }}
+    if cfg.tail:
+        cache["tail"] = {
+            f"pos{i}": block_cache_init(cfg, dims, kind, batch, max_seq,
+                                        dtype, device=device)
+            for i, kind in enumerate(cfg.tail)
+        }
+    return cache
+
+
+def decode_step(
+    params: dict,
+    cache: dict,
+    token: torch.Tensor,  # (B,) int
+    pos: torch.Tensor,  # (B,) int absolute position of `token`
+    cfg: ArchConfig,
+    dims: Dims,
+    page_tbl=None,
+    page: int = 0,
+) -> tuple[torch.Tensor, dict]:
+    """One-token step: returns (logits (B, V_padded) f32, cache), the cache
+    updated in place."""
+    if page_tbl is not None:
+        raise NotImplementedError(
+            f"paged decode is not ported yet ({PAGING_ITEM})")
+    dtype = compute_dtype(cfg)
+    h = embed_apply(params["embed"], token[:, None], dtype=dtype,
+                    scale=cfg.scale_embed)
+    for where, kind in _groups(params, cfg):
+        h, _, _ = block_apply(
+            _at(params, where), h, pos, cfg, dims, kind,
+            cache=_at(cache, where), spe=None, dtype=dtype,
+        )
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _logits(params, h, cfg, dtype)[:, 0], cache
+
+
+def prefill(
+    params: dict,
+    tokens: torch.Tensor,  # (B, S)
+    cfg: ArchConfig,
+    dims: Dims,
+    *,
+    max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Process a prompt, build the decode cache. Returns (last-token
+    logits (B, V_padded), cache).
+
+    Runs each block in train mode while also building its attention
+    layer's ring cache from the (k, v) it computed."""
+    check_supported(cfg)
+    dtype = compute_dtype(cfg)
+    b, s = tokens.shape
+    pos = _positions(cfg, b, s, tokens.device)
+    h = embed_apply(params["embed"], tokens, dtype=dtype,
+                    scale=cfg.scale_embed)
+    caches: dict[str, Any] = {"blocks": {}}
+    for where, kind in _groups(params, cfg):
+        p = _at(params, where)
+        a_in = norm_apply(cfg.norm, p["ln1"], h)
+        q, k, v = _qkv(p["mix"], a_in, pos, cfg, dims, None, dtype)
+        out = A.attention(
+            q, k, v, kind=kind, window=cfg.window, cap=cfg.attn_softcap,
+            causal=True, block_q=cfg.attn_block, block_k=cfg.attn_block,
+        )
+        mixed = linear_apply(
+            p["mix"]["wo"], out.reshape(b, s, dims.n_heads * cfg.hd),
+            dtype=dtype,
+        )
+        top, key, _ = where
+        caches.setdefault(top, {}).setdefault(key, []).append(
+            {"attn": attn_cache_from_prefill(k, v, cfg, kind, max_seq)})
+        if cfg.sandwich_norm:
+            mixed = norm_apply(cfg.norm, p["post_ln1"], mixed)
+        h = h + mixed
+        f_in = norm_apply(cfg.norm, p["ln2"], h)
+        f_out = ffn_apply(p["ffn"], f_in, act=cfg.act, dtype=dtype)
+        if cfg.sandwich_norm:
+            f_out = norm_apply(cfg.norm, p["post_ln2"], f_out)
+        h = h + f_out
+    # stack the groups' caches along the leading group axis; the tail's
+    # positions hold one cache each
+    cache = {
+        top: {key: (_stack(lst) if top == "blocks" else lst[0])
+              for key, lst in sub.items()}
+        for top, sub in caches.items()
+    }
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _logits(params, h[:, -1:], cfg, dtype)[:, 0], cache
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)

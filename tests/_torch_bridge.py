@@ -7,13 +7,21 @@ outputs come back as numpy. JAX stays on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
+
+import jax
 import numpy as np
 import torch
 
+from repro import configs as jconfigs
 from repro.core import spe as jspe
 from repro.core import vadetect as jva
+from repro.models import api as japi
+from repro_torch import configs as tconfigs
+from repro_torch import convert
 from repro_torch.core import spe as tspe
 from repro_torch.core import vadetect as tva
+from repro_torch.models import api as tapi
 
 CPU = torch.device("cpu")
 # a narrow VA stack: two sparse layers and the dense 1x1 head, 512 samples
@@ -69,6 +77,30 @@ def program_arrays(jprog) -> tuple[dict, dict, list]:
     }
     biases = {k: np.asarray(b) for k, b in jprog.biases.items()}
     return layers, biases, [dict(m) for m in jprog.layer_meta]
+
+
+# the dense decoder families the port serves (reduced configs)
+DENSE_LM = ("qwen3_8b", "qwen3_14b", "codeqwen15_7b", "gemma2_9b",
+            "qwen2_vl_72b")
+
+
+def lm_models(name: str, dtype: str = "bfloat16", max_seq: int = 32,
+              seed: int = 0, **overrides):
+    """(jax model, port model, jax params, port params) of a reduced LM
+    config at `dtype`: the JAX package's init from `seed`, carried across
+    as numpy with `convert.lm_params_from_numpy`."""
+    jcfg = dataclasses.replace(jconfigs.reduced(name), dtype=dtype, **overrides)
+    tcfg = dataclasses.replace(tconfigs.reduced(name), dtype=dtype, **overrides)
+    mj = japi.build_model(jcfg, tp=1, max_seq=max_seq)
+    mt = tapi.build_model(tcfg, tp=1, max_seq=max_seq)
+    pj = mj.init(jax.random.PRNGKey(seed))
+    pt = convert.lm_params_from_numpy(jax.tree.map(np.asarray, pj), device=CPU)
+    return mj, mt, pj, pt
+
+
+def np_tokens(shape, vocab: int, seed: int) -> np.ndarray:
+    """Token ids in [0, vocab), int32."""
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
 
 
 def t(a, dtype=None) -> torch.Tensor:

@@ -508,3 +508,129 @@ def test_run_training_waits_for_the_card_inside_the_span(cuda):
     assert hist["count"] == 5
     assert hist["min"] >= min(device_s)
     assert hist["sum"] == pytest.approx(sum(h["wall_s"] for h in history))
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the packed and sparse linear formats, and generate
+# ---------------------------------------------------------------------------
+
+
+def _lm(dtype="float32", max_seq=32):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(configs.reduced("qwen3_8b"), dtype=dtype)
+    return api.build_model(cfg, max_seq=max_seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_packed_linear_on_the_card_matches_the_cpu(cuda, bits, dtype):
+    """`linear_apply`'s packed branch on a stacked group slice at a reduced
+    width: one quant_matmul launch, its result within 1e-4 of max|y| of
+    the CPU's plain version in float32, and within the bfloat16 tolerance
+    (3e-2) once rounded to bfloat16."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(bits)
+    w = torch.randn((3, 64, 96), generator=gen) * 0.125
+    x = torch.randn((2, 5, 64), generator=gen)
+    packed = layers.compile_linear_quant({"w": w, "b": torch.ones(96)}, bits)
+    on_cpu = {"packed": packed["packed"][1], "scale": packed["scale"][1],
+              "b": packed["b"]}
+    on_card = {k: v.to(cuda) for k, v in on_cpu.items()}
+    before = tqm.launches
+    y = layers.linear_apply(on_card, x.to(cuda), dtype=dtype)
+    torch.cuda.synchronize()
+    assert tqm.launches == before + 1
+    want = layers.linear_apply(on_cpu, x, dtype=dtype)
+    assert y.dtype == dtype and y.shape == (2, 5, 96)
+    if dtype == torch.float32:
+        err = float((y.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, err
+    else:
+        torch.testing.assert_close(y.cpu().float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+def test_generate_launches_quant_matmul_once_a_projection(cuda):
+    """A quantized `generate` at the reduced qwen3-8b (float32) on the card:
+    7 quant_matmul launches a layer a forward, one prefill and max_new
+    decode steps, and the CPU's greedy tokens."""
+    from repro_torch.serve import engine
+
+    model = _lm()
+    params = engine.quantize_for_serving(model.init(0, device="cpu"), 8)
+    prompts = torch.randint(0, model.cfg.vocab, (3, 8),
+                            generator=torch.Generator().manual_seed(1))
+    want = engine.generate(model, params, prompts, max_new=4, device="cpu")
+    on_card = tree_map(lambda v: v.to(cuda), params)
+    tqm.launches = 0
+    got = engine.generate(model, on_card, prompts, max_new=4)
+    torch.cuda.synchronize()
+    assert tqm.launches == 7 * model.cfg.n_layers * (1 + 4)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_engine_burst_on_the_card_matches_the_cpu(cuda):
+    """The slot engine's burst (batched admission, recycling, the in-place
+    cache re-fed to idle slots) on the card against the CPU, float32."""
+    from repro_torch.serve import engine
+
+    model = _lm(max_seq=64)
+    params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, model.cfg.vocab, (4 + i % 3,), generator=gen)
+               for i in range(5)]
+    outs = []
+    for dev, p in (("cpu", params), (cuda, tree_map(lambda v: v.to(cuda), params))):
+        eng = engine.Engine(model, p, batch_size=2, device=dev)
+        reqs = [engine.Request(uid=i, prompt=pr, max_new=5)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_ticks=60)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_sparse_linear_at_the_widest_k_the_kernel_takes(cuda):
+    """`linear_apply`'s sparse branch through nm_spmm at the widest K whose
+    dense strip fits a block's shared memory (at N = 1024, qwen3-8b's K/V
+    width), against the CPU; one K past it raises, as qwen3-8b's d_ff
+    (12288) does: no fallback."""
+    from repro_torch.models import layers
+
+    lib = tk._library()
+    n_out = 1024
+    k = 12288
+    while lib.nm_spmm_smem_bytes(k, n_out) > tk._MAX_SMEM_BYTES:
+        k -= 16
+    assert 4096 <= k < 12288
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn((k, n_out), generator=gen) * k ** -0.5
+    x = torch.randn((4, k), generator=gen)
+    sparse = layers.compile_linear_sparse_quant({"w": w}, 8)
+    on_card = {kk: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+               for kk, v in sparse.items()}
+    before = tk.launches
+    y = layers.linear_apply(on_card, x.to(cuda), dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1
+    want = layers.linear_apply(sparse, x, dtype=torch.float32)
+    err = float((y.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+    def on_card_sparse(k_in):
+        tree = layers.compile_linear_sparse_quant(
+            {"w": torch.randn((k_in, n_out), generator=gen)}, 8)
+        return {kk: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+                for kk, v in tree.items()}
+
+    for k_past in (k + 16, 12288):
+        assert lib.nm_spmm_smem_bytes(k_past, n_out) > tk._MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match="shared memory"):
+            layers.linear_apply(on_card_sparse(k_past),
+                                torch.randn((4, k_past), device=cuda),
+                                dtype=torch.float32)

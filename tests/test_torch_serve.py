@@ -30,7 +30,11 @@ from repro_torch.benchmarks import kernels as bench_kernels
 from repro_torch.core import compiler as tc
 from repro_torch.core import vadetect as tva
 from repro_torch.data import iegm as tiegm
-from repro_torch.examples import quickstart
+from repro_torch.configs import reduced as reduced_config
+from repro_torch.examples import quickstart, serve_lm
+from repro_torch.launch import serve as tlaunch
+from repro_torch.models import api as tapi
+from repro_torch.serve import engine as tengine
 from repro_torch.serve import va_service as tsvc
 from repro_torch.stream import runner as trunner
 from repro_torch.train import trainer as ttrainer
@@ -119,8 +123,9 @@ def test_synth_batches_are_seeded():
 
 
 def test_port_imports_no_jax():
-    """The port's serving path, its kernel benchmark, the CMUL and the
-    training path import neither jax nor anything of the JAX package (checked in a fresh interpreter: this
+    """The port's serving path, its kernel benchmark, the CMUL, the
+    training path and the LM substrate and its serving import neither jax
+    nor anything of the JAX package (checked in a fresh interpreter: this
     one has jax)."""
     code = (
         "import sys, repro_torch.serve.va_service, repro_torch.convert, "
@@ -129,7 +134,12 @@ def test_port_imports_no_jax():
         "repro_torch.kernels.quant_matmul, repro_torch.benchmarks.kernels, "
         "repro_torch.kernels.bitserial, repro_torch.optim, "
         "repro_torch.dist.accumulate, repro_torch.train.trainer, "
-        "repro_torch.examples.quickstart\n"
+        "repro_torch.examples.quickstart, repro_torch.configs, "
+        "repro_torch.models.layers, repro_torch.models.attention, "
+        "repro_torch.models.transformer, repro_torch.models.api, "
+        "repro_torch.serve.engine, repro_torch.serve.seating, "
+        "repro_torch.serve.paging, repro_torch.launch.serve, "
+        "repro_torch.examples.serve_lm\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -141,9 +151,15 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def lm_model():
+    return tapi.build_model(reduced_config("qwen3_8b"), max_seq=8)
+
+
 @pytest.mark.parametrize(
     "entry", ["init", "synth", "params", "runner", "service", "benchmark",
-              "stream", "trainer", "state", "quickstart"]
+              "stream", "trainer", "state", "quickstart", "lm_init",
+              "lm_params", "generate", "engine", "launch_serve",
+              "serve_lm_example"]
 )
 def test_default_device_raises_without_a_card(entry):
     """`device=None` means the CUDA card; with none present an entry
@@ -165,6 +181,17 @@ def test_default_device_raises_without_a_card(entry):
         "state": lambda: convert.state_from_numpy(
             {"params": np_params(cfg_t.layers, 0), "opt": {}, "step": 0}),
         "quickstart": lambda: quickstart.run(steps=1),
+        "lm_init": lambda: lm_model().init(0),
+        "lm_params": lambda: convert.lm_params_from_numpy(
+            {"embed": {"w": np.zeros((4, 2), np.float32)}}),
+        "generate": lambda: tengine.generate(
+            lm_model(), lm_model().init(0, device=CPU),
+            torch.zeros((1, 3), dtype=torch.long), max_new=1),
+        "engine": lambda: tengine.Engine(
+            lm_model(), lm_model().init(0, device=CPU), batch_size=1),
+        "launch_serve": lambda: tlaunch.main(
+            ["--arch", "qwen3-8b", "--reduced"]),
+        "serve_lm_example": lambda: serve_lm.main(["--smoke"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

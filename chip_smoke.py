@@ -3,7 +3,9 @@
 CMUL sweep, VA co-design training (the quickstart), the streaming fleet,
 the paper's entry points (the benchmark orchestrator, the ablation, the
 inference demo, train_va with checkpoints and restart) and LM serving
-(launch.serve at qwen3-8b's full width) on one CUDA card.
+(launch.serve at the full widths of qwen3-8b, recurrentgemma-2b,
+olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode) on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -48,7 +50,9 @@ toolkit. Phases, each printing JSON lines:
    vote split from its spans, the others for the spread of the
    wall; and the throughput benchmark,
    repro_torch.benchmarks.stream_throughput.run(smoke=True), with its
-   checks;
+   checks, then its telemetry overhead measurement OVERHEAD_REPEATS more
+   times, recorded only (ratio, A/A spread, and how many runs of each arm
+   its floor stands on);
    paper — the orchestrator repro_torch.benchmarks.run.main (table1,
    kernels, ablation) with its CSV captured: the header, every row, the
    table1 rows equal to table1.run()'s, the kernel launches equal to the
@@ -75,10 +79,22 @@ toolkit. Phases, each printing JSON lines:
    (behind a sleep), tokens/s and peak memory, the 8-bit prefill against
    the same params on quant_matmul's plain version (LM_PLAIN_RTOL), the
    packed runs' greedy agreement and logit correlation with the dense
-   run; the reduced qwen3-8b in float32, dense and 8-bit, on the card
-   against the CPU (prefill and decode logits within REDUCED_RTOL, the
-   same greedy tokens from generate and from an Engine burst); the burst
-   demo repro_torch.examples.serve_lm --smoke (70 quant_matmul launches);
+   run; the burst demo repro_torch.examples.serve_lm --smoke (70
+   quant_matmul launches); then the other families: quant_matmul at
+   recurrentgemma-2b's and rwkv6-3b's shapes (K, N) = (2560, 2560),
+   (2560, 256), (2560, 7680), (7680, 2560), (2560, 8960), (8960, 2560) as
+   at qwen3-8b's; launch.serve at recurrentgemma-2b's full CONFIG (26
+   layers, d_model 2560, vocab 256000) dense bfloat16 and at 8 and 4 bits
+   (164 quant_matmul launches a forward, 2788 a run), at olmoe-1b-7b's and
+   rwkv6-3b's at 8 bits (64 and 256 a forward), each timed as qwen3-8b's;
+   whisper-tiny's full CONFIG (enc_seq 1500) in float32, prefill with
+   frames and 16 decode steps on the card against the CPU, dense and
+   8-bit (576 launches), and its refusal by Engine, generate and
+   launch.serve; the reduced qwen3-8b, olmoe, llama4-scout,
+   recurrentgemma and rwkv6 in float32, dense and 8-bit, on the card
+   against the CPU (prefill and every decode step within REDUCED_RTOL, the
+   same greedy tokens from generate and from an Engine burst at
+   batch_size 3);
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -148,6 +164,7 @@ CONV_REPEATS = 4  # each VA layer's convolution backward, for determinism
 # throughput benchmark's smaller drain bucket (8)
 FLEET_KERNEL_BUCKETS = (8, 32, 128, 512)
 FLEET_REPS = 4  # fleet runs a path after the counted one: spread, then spans
+OVERHEAD_REPEATS = 3  # telemetry overhead measurements after the checked one
 # the counts of a fleet run, equal on the kernel and the twin path
 FLEET_COUNTS = ("segments_total", "batches_total", "padded_total",
                 "diagnoses_total", "va_diagnoses_total", "urgent_packed_total",
@@ -157,10 +174,28 @@ FLEET_COUNTS = ("segments_total", "batches_total", "padded_total",
 LM_ARGV = ("--arch", "qwen3-8b", "--batch", "4", "--prompt-len", "16",
            "--max-new", "16")
 LM_BITS = (None, 8, 4)
-LM_PROJECTIONS = 7  # q, k, v, o, gate, up, down: one quant_matmul each
 # qwen3-8b's projections as (K, N) and how many a layer has of each
 LM_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2,
              (12288, 4096): 1}
+# the other families' full CONFIGs through launch.serve with LM_ARGV's
+# batch and lengths: the bit widths each runs at (None: dense bfloat16)
+FAMILY_BITS = {"recurrentgemma-2b": (None, 8, 4), "olmoe-1b-7b": (8,),
+               "rwkv6-3b": (8,)}
+# recurrentgemma-2b's and rwkv6-3b's packed projections as (K, N), and how
+# many a forward runs of each: 18 RG-LRU layers w_x, w_gate, w_out and 8
+# local attention layers q, o (2560, 2560) and k, v (2560, 256), each of
+# the 26 with a GeGLU FFN; 32 rwkv layers r, k, v, g, o, cm_r (2560, 2560),
+# cm_k (2560, 8960) and cm_v (8960, 2560)
+FAMILY_FORWARD = {
+    "recurrentgemma-2b": {(2560, 2560): 18 * 3 + 8 * 2, (2560, 256): 8 * 2,
+                          (2560, 7680): 26 * 2, (7680, 2560): 26},
+    "rwkv6-3b": {(2560, 2560): 32 * 6, (2560, 8960): 32, (8960, 2560): 32},
+}
+FAMILY_SHAPES = tuple(dict.fromkeys(
+    shape for counts in FAMILY_FORWARD.values() for shape in counts))
+# the reduced configs held on the card against the CPU (float32)
+FAMILY_REDUCED = ("qwen3-8b", "olmoe-1b-7b", "llama4-scout-17b-a16e",
+                  "recurrentgemma-2b", "rwkv6-3b")
 LM_ROWS = (4, 64)  # a decode step's rows (batch 4), a prefill's (4 x 16)
 LM_PROFILE_STEPS = 2  # decode steps a profile covers
 # 8-bit prefill logits, kernel against plain on the card: both compute each
@@ -170,6 +205,17 @@ LM_PROFILE_STEPS = 2  # decode steps a profile covers
 # few ulps of max|logit|: allow 8, 2^-5 = 3.1e-2 (tests/test_serve.py:39's
 # bfloat16 tolerance)
 LM_PLAIN_RTOL = 2.0 ** -5
+# ... a bound that holds where the flips stay few: qwen3-8b's and
+# recurrentgemma-2b's stacks. rwkv6-3b's 32 random-weight layers compound
+# them (0.21 of max|logit| on the card, where the same prefill in float32
+# agrees to 5e-5), so elsewhere the bfloat16 figure is recorded and the
+# kernel is held against the plain version in float32
+PLAIN_BF16 = ("qwen3-8b", "recurrentgemma-2b")
+# the same 8-bit prefill computed in float32 (same packed params), kernel
+# against plain: the kernel is within about 1e-6 a projection (two TF32
+# passes) and the stacks amplify that, rwkv6-3b's 32 layers most (5e-5 on
+# the card); a twentyfold margin
+LM_PLAIN_F32_RTOL = 1e-3
 REDUCED_RTOL = 1e-4  # reduced float32 config, card against CPU, of max|logit|
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
 # on them (dense)
@@ -333,6 +379,22 @@ def layer_problems(cfg, vadetect, bucket: int = BUCKET) -> list[dict]:
     return out
 
 
+def overhead_footing(o: dict) -> dict:
+    """One `measure_overhead` record without its walls: the ratio, the A/A
+    spread, the floors, the fastest run of any arm, and how many runs of
+    each arm fall within 10% of it (a floor is the mean of an arm's
+    fastest sixth)."""
+    walls = {arm: o[f"{arm}_walls_s"]
+             for arm in ("disabled", "enabled", "disabled_again")}
+    fastest = min(min(w) for w in walls.values())
+    return {**{k: o[k] for k in ("reps", "overhead_ratio", "noise_spread",
+                                 "resolvable", "disabled_wall_s",
+                                 "enabled_wall_s")},
+            "fastest_wall_s": fastest,
+            "runs_within_10pct": {arm: sum(x < 1.1 * fastest for x in w)
+                                  for arm, w in walls.items()}}
+
+
 def lm_profile(torch, fn, steps: int) -> dict:
     """Device time of `fn` (`steps` forwards) from a profiler trace of the
     card alone: the kernels' (and copies') device time a forward, the
@@ -356,8 +418,21 @@ def lm_profile(torch, fn, steps: int) -> dict:
     }
 
 
-def lm_kernel_shapes(torch, dev, smi) -> tuple[list[dict], float]:
-    """quant_matmul at qwen3-8b's four projection shapes, at a decode
+def packed_per_forward(cfg) -> int:
+    """quant_matmul launches of one packed decoder-only forward (a prefill
+    or a decode step): the stack applies each packed linear once — an
+    attention layer q, k, v, o; an RG-LRU layer w_x, w_gate, w_out; an
+    rwkv layer r, k, v, g, o and its channel mix k, v, r; then the FFN (3
+    gated, 2 plain), or for MoE only the shared expert (the routed experts
+    and the lm_head stay dense)."""
+    ffn = 0 if cfg.moe and not cfg.moe.shared_expert_ff else (
+        2 if cfg.act == "gelu" else 3)
+    mixer = {"rwkv": 8 - ffn, "rglru": 3}
+    return sum(mixer.get(kind, 4) + ffn for kind in cfg.layer_kinds())
+
+
+def lm_kernel_shapes(torch, dev, smi, shapes, model: str) -> tuple[list[dict], float]:
+    """quant_matmul at `model`'s projection shapes (K, N), at a decode
     step's and a prefill's rows, 8 and 4 bits: against its plain version
     at KERNEL_RTOL, twice, bit-identical; timed against its byte bound and
     against torch.matmul on the pre-dequantized weight in float32 and
@@ -370,7 +445,7 @@ def lm_kernel_shapes(torch, dev, smi) -> tuple[list[dict], float]:
     rows, worst = [], 0.0
     for bits in (8, 4):
         for m in LM_ROWS:
-            for k, n in LM_SHAPES:
+            for k, n in shapes:
                 w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
                 q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
                 packed = quant.pack_planes(q, bits)
@@ -410,7 +485,7 @@ def lm_kernel_shapes(torch, dev, smi) -> tuple[list[dict], float]:
                 t["bound_ms"] = max(b_ms, o_ms)
                 t["tc_bound_ms"] = tc_bound_ms(m, k, n, packed.numel())
                 nbytes = m * k * 4 + packed.numel() + n * 4 + m * n * 4
-                row = {"bits": bits, "m": m, "k": k, "n": n,
+                row = {"model": model, "bits": bits, "m": m, "k": k, "n": n,
                        "packed_bytes": packed.numel(), **t,
                        "bound_by": "bytes" if b_ms >= o_ms else "operations",
                        "achieved_TB_per_s": nbytes / t["ms_in_run"] / 1e9,
@@ -422,38 +497,49 @@ def lm_kernel_shapes(torch, dev, smi) -> tuple[list[dict], float]:
     return rows, worst
 
 
-def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
-    """The LM serving phase: launch.serve.main at qwen3-8b's full CONFIG,
-    dense bf16 then packed at 8 and 4 bits, each run's quant_matmul
-    launches counted from 0; the same build again for the prefill's and
-    the decode steps' host and device times, the 8-bit prefill against
-    the plain version, and the agreement with the dense run; the reduced
-    config (float32) on the card against the CPU; the burst demo
-    (examples.serve_lm --smoke). Returns what the kernels line takes."""
+def free_card(torch, dev) -> None:
+    """After a full model is dropped: its memory back to the card, and the
+    peak counter reset for the next one."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def serve_runs(torch, dev, smi, arch: str, bit_widths, launches_now,
+               reset_launches) -> dict:
+    """`arch`'s full CONFIG through launch.serve.main at each of
+    `bit_widths` (None: dense bfloat16), each run's quant_matmul launches
+    counted from 0 and pinned (packed_per_forward a forward, one prefill and
+    max_new decode steps; none dense); then the same build again for the
+    prefill's and the decode steps' host and device times, tokens/s and
+    peak memory; at 8 bits the prefill against the same params on
+    quant_matmul's plain version (LM_PLAIN_RTOL); the packed runs'
+    agreement with the dense run. Frees the card after each run."""
     import argparse
     import dataclasses
 
     import numpy as np
 
     from repro_torch import configs
-    from repro_torch._tree import leaves, tree_map
-    from repro_torch.examples import serve_lm
+    from repro_torch._tree import leaves
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import api
-    from repro_torch.serve import engine
 
-    t_phase = time.perf_counter()
-    shapes, kernel_err = lm_kernel_shapes(torch, dev, smi)
-    emit({"phase": "lm_kernel_seconds", "seconds": time.perf_counter() - t_phase})
-    full = configs.get("qwen3-8b")
-    max_new, batch, prompt_len = 16, 4, 16
+    full = configs.get(arch)
+    argv0 = ["--arch", arch] + list(LM_ARGV[2:])
+    batch = int(LM_ARGV[LM_ARGV.index("--batch") + 1])
+    prompt_len = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    max_new = int(LM_ARGV[LM_ARGV.index("--max-new") + 1])
     dense_logits = dense_tokens = None
     runs = {}
-    for bits in LM_BITS:
+    for bits in bit_widths:
         # the entry point, as a user runs it
-        argv = list(LM_ARGV) + (["--quant-bits", str(bits)] if bits else [])
+        argv = argv0 + (["--quant-bits", str(bits)] if bits else [])
         t_run = time.perf_counter()
+        free_card(torch, dev)
         reset_launches()
         t0 = time.perf_counter()
         rec = launch_serve.main(argv, device="cuda")
@@ -462,21 +548,21 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
         launched = launches_now()
         expected = dict.fromkeys(launched, 0)
         if bits:
-            expected[QM.NAME] = LM_PROJECTIONS * full.n_layers * (1 + max_new)
+            expected[QM.NAME] = packed_per_forward(full) * (1 + max_new)
         check(launched == expected,
-              f"launch.serve {bits or 'bf16'}: launches {launched}, "
+              f"launch.serve {arch} {bits or 'bf16'}: launches {launched}, "
               f"expected {expected}")
         check((rec["n_layers"], rec["d_model"], rec["vocab"])
               == (full.n_layers, full.d_model, full.vocab),
-              f"launch.serve ran {rec['arch']}, not qwen3-8b's full CONFIG")
+              f"launch.serve ran {rec['arch']}, not {arch}'s full CONFIG")
         tokens = torch.tensor(rec["tokens"])
         check(tokens.shape == (batch, max_new), f"tokens {tuple(tokens.shape)}")
+        free_card(torch, dev)
 
         # the same build again (the same seed on the same card), timed
-        args = argparse.Namespace(arch="qwen3-8b", reduced=False, batch=batch,
+        args = argparse.Namespace(arch=arch, reduced=False, batch=batch,
                                   prompt_len=prompt_len, max_new=max_new,
                                   quant_bits=bits, seed=0)
-        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         cfg, model, params, prompts = launch_serve.build_lm(args, dev)
         torch.cuda.synchronize()
@@ -520,6 +606,7 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
             "n_layers": rec["n_layers"], "d_model": rec["d_model"],
             "vocab": rec["vocab"], "quant_bits": bits,
             "launches": launched, "expected_launches": expected,
+            "packed_per_forward": packed_per_forward(full),
             "main_seconds": main_s, "main_generate_s": rec["generate_s"],
             "main_tok_per_s_incl_first_use": rec["tok_per_s"],
             "peak_device_bytes_main": rec["peak_device_bytes"],
@@ -538,37 +625,77 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
         lg = logits.cpu().double()
         if bits is None:
             dense_logits, dense_tokens = lg, tokens
-        else:
+        elif dense_logits is not None:
             a, b = dense_logits.flatten().numpy(), lg.flatten().numpy()
             run["logit_corr_vs_dense"] = float(np.corrcoef(a, b)[0, 1])
             run["greedy_agreement_vs_dense"] = float(
                 (tokens == dense_tokens).double().mean())
         if bits == 8:
-            # the same prefill with every projection on the plain version
+            # the same prefill with every projection on the plain version,
+            # in the config's bfloat16 (held to LM_PLAIN_RTOL where
+            # PLAIN_BF16 says so) and in float32 (the same packed params,
+            # computed in float32; held everywhere)
+            def plain_prefill(m):
+                with mock.patch.object(
+                        QM, "quant_matmul_cuda",
+                        lambda x, packed, scale, *, bits: QM.quant_matmul_plain(
+                            x, packed, scale, bits=bits)):
+                    out, _ = m.prefill(params, prompts)
+                return out
+
             reset_launches()
-            with mock.patch.object(
-                    QM, "quant_matmul_cuda",
-                    lambda x, packed, scale, *, bits: QM.quant_matmul_plain(
-                        x, packed, scale, bits=bits)):
-                plain, _ = model.prefill(params, prompts)
+            plain = plain_prefill(model)
             torch.cuda.synchronize()
-            check(launches_now()[QM.NAME] == 0, "the plain prefill launched")
             err, rel = rel_err(logits, plain)
             run.update(max_abs_err_vs_plain=err, rel_err_vs_plain=rel,
-                       tol_vs_plain=LM_PLAIN_RTOL,
+                       tol_vs_plain=LM_PLAIN_RTOL if arch in PLAIN_BF16 else None,
                        argmax_agree_vs_plain=float(
-                           (logits.argmax(-1) == plain.argmax(-1)).float().mean()))
-            check(rel <= LM_PLAIN_RTOL,
-                  f"8-bit prefill, kernel vs plain: rel err {rel}")
+                           (logits.argmax(-1) == plain.argmax(-1))
+                           .float().mean()))
+            if arch in PLAIN_BF16:
+                check(rel <= LM_PLAIN_RTOL,
+                      f"{arch} 8-bit prefill, kernel vs plain: rel err {rel}")
+            del plain
+            model32 = api.build_model(
+                dataclasses.replace(cfg, dtype="float32"), max_seq=model.max_seq)
+            plain = plain_prefill(model32)
+            torch.cuda.synchronize()
+            check(launches_now()[QM.NAME] == 0, "the plain prefill launched")
+            kernel32, _ = model32.prefill(params, prompts)
+            err, rel = rel_err(kernel32, plain)
+            run.update(rel_err_vs_plain_f32=rel, tol_vs_plain_f32=LM_PLAIN_F32_RTOL)
+            check(rel <= LM_PLAIN_F32_RTOL,
+                  f"{arch} 8-bit float32 prefill, kernel vs plain: rel err {rel}")
+            del plain, kernel32
         run["seconds"] = time.perf_counter() - t_run
         emit(run)
         runs[bits or "bf16"] = run
         del params, cache, fresh, logits, model
-        torch.cuda.empty_cache()
+        free_card(torch, dev)
+    return runs
 
-    # the reduced config in float32: the card against the CPU
-    t_reduced = time.perf_counter()
-    cfg_r = dataclasses.replace(configs.reduced("qwen3-8b"), dtype="float32")
+
+def reduced_card_vs_cpu(torch, dev, smi, arch: str, launches_now,
+                        reset_launches) -> dict:
+    """`arch`'s reduced config in float32, dense and packed at 8 bits, on
+    the card against the CPU from the same params: the prefill and every
+    decode step (both fed the CPU's greedy tokens) within REDUCED_RTOL of
+    max|logit|; the same greedy tokens from generate and from an Engine
+    burst at batch_size 3 with co-seated tenants; generate's quant_matmul
+    launches pinned."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    t0 = time.perf_counter()
+    batch = int(LM_ARGV[LM_ARGV.index("--batch") + 1])
+    prompt_len = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    max_new = int(LM_ARGV[LM_ARGV.index("--max-new") + 1])
+    cfg_r = dataclasses.replace(configs.reduced(arch), dtype="float32")
     model_r = api.build_model(cfg_r, max_seq=48)
     p_dense = model_r.init(SEED, device="cpu")
     prompts_r = torch.randint(0, cfg_r.vocab, (batch, prompt_len),
@@ -582,16 +709,21 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
         p_card = tree_map(lambda v: v.to(dev), p_cpu)
         l_cpu, c_cpu = model_r.prefill(p_cpu, prompts_r)
         l_card, c_card = model_r.prefill(p_card, prompts_r.to(dev))
-        tok = torch.argmax(l_cpu, dim=-1)
-        pos = torch.full((batch,), prompt_len, dtype=torch.long)
-        d_cpu, _ = model_r.decode_step(p_cpu, c_cpu, tok, pos)
-        d_card, _ = model_r.decode_step(p_card, c_card, tok.to(dev), pos.to(dev))
         rel_prefill = rel_err(l_card.cpu(), l_cpu)[1]
-        rel_decode = rel_err(d_card.cpu(), d_cpu)[1]
+        rel_decode = []
+        tok = torch.argmax(l_cpu, dim=-1)
+        for step in range(max_new):
+            pos = torch.full((batch,), prompt_len + step, dtype=torch.long)
+            d_cpu, c_cpu = model_r.decode_step(p_cpu, c_cpu, tok, pos)
+            d_card, c_card = model_r.decode_step(p_card, c_card, tok.to(dev),
+                                                 pos.to(dev))
+            rel_decode.append(rel_err(d_card.cpu(), d_cpu)[1])
+            tok = torch.argmax(d_cpu, dim=-1)
         g_cpu = engine.generate(model_r, p_cpu, prompts_r, max_new=max_new,
                                 device="cpu")
         reset_launches()
         g_card = engine.generate(model_r, p_card, prompts_r, max_new=max_new)
+        torch.cuda.synchronize()
         gen_launches = launches_now()[QM.NAME]
         outs = {}
         for where, p in (("cpu", p_cpu), ("card", p_card)):
@@ -603,23 +735,140 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
                 eng.submit(r)
             eng.run(max_ticks=100)
             outs[where] = [r.output for r in reqs]
+        expected = (packed_per_forward(cfg_r) * (1 + max_new)
+                    if name == "int8" else 0)
         reduced[name] = {
             "rel_err_prefill": rel_prefill, "rel_err_decode": rel_decode,
             "tol": REDUCED_RTOL,
             "generate_identical": torch.equal(g_card.cpu(), g_cpu),
             "engine_identical": outs["cpu"] == outs["card"],
-            "quant_matmul_launches_generate": gen_launches}
-        check(rel_prefill <= REDUCED_RTOL and rel_decode <= REDUCED_RTOL,
-              f"reduced {name}: card vs CPU logits {rel_prefill}, {rel_decode}")
+            "quant_matmul_launches_generate": gen_launches,
+            "expected_launches_generate": expected}
+        check(rel_prefill <= REDUCED_RTOL and max(rel_decode) <= REDUCED_RTOL,
+              f"reduced {arch} {name}: card vs CPU logits {rel_prefill}, "
+              f"{max(rel_decode)}")
         check(torch.equal(g_card.cpu(), g_cpu),
-              f"reduced {name}: generate's tokens differ on the card")
+              f"reduced {arch} {name}: generate's tokens differ on the card")
         check(outs["cpu"] == outs["card"],
-              f"reduced {name}: the engine burst differs on the card")
-        check(gen_launches == (LM_PROJECTIONS * cfg_r.n_layers * (1 + max_new)
-                               if name == "int8" else 0),
-              f"reduced {name}: {gen_launches} quant_matmul launches")
-    emit({"phase": "lm_reduced", "config": cfg_r.name, "dtype": "float32",
-          "card": smi, "seconds": time.perf_counter() - t_reduced, **reduced})
+              f"reduced {arch} {name}: the engine burst differs on the card")
+        check(gen_launches == expected,
+              f"reduced {arch} {name}: {gen_launches} quant_matmul launches, "
+              f"expected {expected}")
+    rec = {"phase": "lm_reduced", "arch": arch, "config": cfg_r.name,
+           "dtype": "float32", "card": smi,
+           "seconds": time.perf_counter() - t0, **reduced}
+    emit(rec)
+    return rec
+
+
+def whisper_phase(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """whisper-tiny's full CONFIG (enc_seq 1500, d_model 384) in float32:
+    model.prefill(params, tokens, frames) and max_new decode steps (both fed
+    the CPU's greedy tokens) on the card against the CPU from the same
+    params and frames, within REDUCED_RTOL of max|logit|, dense and packed
+    at 8 bits (quant_matmul launches pinned: 6 an encoder layer, 10 a
+    decoder layer in the prefill — its cross K/V once —, 8 a decoder layer
+    a step); then Engine, generate and launch.serve --arch whisper-tiny
+    raise EncDecUnsupportedError."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    batch = int(LM_ARGV[LM_ARGV.index("--batch") + 1])
+    prompt_len = int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    max_new = int(LM_ARGV[LM_ARGV.index("--max-new") + 1])
+    cfg = dataclasses.replace(configs.get("whisper-tiny"), dtype="float32")
+    model = api.build_model(cfg, max_seq=prompt_len + max_new + 1)
+    p_dense = model.init(SEED, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    frames = torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen)
+    out = {"phase": "lm_whisper", "config": cfg.name, "dtype": "float32",
+           "enc_seq": cfg.enc_seq, "d_model": cfg.d_model, "card": smi}
+    for name, p_cpu in (("dense", p_dense),
+                        ("int8", engine.quantize_for_serving(p_dense, 8))):
+        # the CPU first: its logits, and its greedy tokens fed to both
+        l_cpu, c_cpu = model.prefill(p_cpu, prompts, frames)
+        want, toks = [l_cpu], [torch.argmax(l_cpu, dim=-1)]
+        for step in range(max_new):
+            pos = torch.full((batch,), prompt_len + step, dtype=torch.long)
+            d_cpu, c_cpu = model.decode_step(p_cpu, c_cpu, toks[-1], pos)
+            want.append(d_cpu)
+            toks.append(torch.argmax(d_cpu, dim=-1))
+        p_card = tree_map(lambda v: v.to(dev), p_cpu)
+        reset_launches()
+        t0 = time.perf_counter()
+        l_card, c_card = model.prefill(p_card, prompts.to(dev), frames.to(dev))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        got = [l_card]
+        for step in range(max_new):
+            pos = torch.full((batch,), prompt_len + step, dtype=torch.long,
+                             device=dev)
+            d_card, c_card = model.decode_step(p_card, c_card,
+                                               toks[step].to(dev), pos)
+            got.append(d_card)
+        rel_prefill = rel_err(got[0].cpu(), want[0])[1]
+        rel_decode = [rel_err(g.cpu(), w)[1] for g, w in zip(got[1:], want[1:])]
+        launched = launches_now()[QM.NAME]
+        expected = (cfg.enc_layers * 6 + cfg.n_layers * 10
+                    + max_new * cfg.n_layers * 8) if name == "int8" else 0
+        out[name] = {"rel_err_prefill": rel_prefill,
+                     "rel_err_decode": rel_decode, "tol": REDUCED_RTOL,
+                     "prefill_wall_ms_first": prefill_ms,
+                     "quant_matmul_launches": launched,
+                     "expected_launches": expected}
+        check(rel_prefill <= REDUCED_RTOL and max(rel_decode) <= REDUCED_RTOL,
+              f"whisper-tiny {name}: card vs CPU logits {rel_prefill}, "
+              f"{max(rel_decode)}")
+        check(launched == expected,
+              f"whisper-tiny {name}: {launched} quant_matmul launches, "
+              f"expected {expected}")
+    refused = {}
+    for entry, call in (
+            ("Engine", lambda: engine.Engine(model, p_card, batch_size=2)),
+            ("generate", lambda: engine.generate(model, p_card, prompts,
+                                                 max_new=2)),
+            ("launch.serve", lambda: launch_serve.main(
+                ["--arch", "whisper-tiny"] + list(LM_ARGV[2:]),
+                device="cuda"))):
+        try:
+            call()
+        except engine.EncDecUnsupportedError as e:
+            refused[entry] = str(e)[:80]
+    out["refused"] = refused
+    check(len(refused) == 3, f"whisper-tiny: only {sorted(refused)} refused")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    del p_card, c_card
+    free_card(torch, dev)
+    return out
+
+
+def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """The LM serving phase: quant_matmul at qwen3-8b's projection shapes;
+    launch.serve.main at qwen3-8b's full CONFIG, dense bf16 then packed at
+    8 and 4 bits (serve_runs); the burst demo (examples.serve_lm --smoke);
+    then the other families: quant_matmul at recurrentgemma-2b's and
+    rwkv6-3b's shapes, their and olmoe-1b-7b's full CONFIGs through
+    launch.serve (FAMILY_BITS), whisper-tiny's full CONFIG (whisper_phase),
+    and every FAMILY_REDUCED config on the card against the CPU. Returns
+    what the kernels line takes."""
+    from repro_torch import configs
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import quant_matmul as QM
+
+    t_phase = time.perf_counter()
+    shapes, kernel_err = lm_kernel_shapes(torch, dev, smi, LM_SHAPES, "qwen3-8b")
+    emit({"phase": "lm_kernel_seconds", "seconds": time.perf_counter() - t_phase})
+    runs = serve_runs(torch, dev, smi, "qwen3-8b", LM_BITS, launches_now,
+                      reset_launches)
 
     # the burst demo, as a user runs it: its --smoke assertions on the card
     reset_launches()
@@ -627,17 +876,50 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
     demo = serve_lm.main(["--smoke"])
     torch.cuda.synchronize()
     demo_launches = launches_now()
-    n_layers_r = configs.reduced("qwen3-8b").n_layers
     expected = dict.fromkeys(demo_launches, 0)
-    expected[QM.NAME] = LM_PROJECTIONS * n_layers_r * (1 + 4)  # one int8 generate
+    expected[QM.NAME] = packed_per_forward(configs.reduced("qwen3-8b")) * (
+        1 + 4)  # one int8 generate
     emit({"phase": "lm_example", "entry": "repro_torch.examples.serve_lm.main",
           "argv": ["--smoke"], "card": smi,
           "seconds": time.perf_counter() - t0, "launches": demo_launches,
           "expected_launches": expected, "record": demo})
     check(demo_launches == expected,
           f"serve_lm --smoke launches {demo_launches}, expected {expected}")
-    return {"runs": runs, "reduced": reduced, "shapes": shapes,
-            "max_abs_err": kernel_err}
+
+    # the other families
+    t0 = time.perf_counter()
+    family_shapes, err = lm_kernel_shapes(torch, dev, smi, FAMILY_SHAPES,
+                                          "recurrentgemma-2b / rwkv6-3b")
+    kernel_err = max(kernel_err, err)
+    forward = {}
+    for arch, counts in FAMILY_FORWARD.items():
+        # a packed forward's quant_matmul time at a decode step's rows,
+        # summed over its projections
+        check(sum(counts.values()) == packed_per_forward(configs.get(arch)),
+              f"{arch}: FAMILY_FORWARD disagrees with packed_per_forward")
+        forward[arch] = {
+            bits: {key: sum(counts.get((r["k"], r["n"]), 0) * r[key]
+                            for r in family_shapes
+                            if r["bits"] == bits and r["m"] == LM_ROWS[0])
+                   for key in ("ms", "ms_in_run", "bound_ms", "library_ms",
+                               "library_bf16_ms")}
+            for bits in (8, 4)}
+    emit({"phase": "lm_kernel_forward", "card": smi, "rows": LM_ROWS[0],
+          "forward": forward, "seconds": time.perf_counter() - t0})
+    family_runs = {}
+    for arch, bit_widths in FAMILY_BITS.items():
+        t0 = time.perf_counter()
+        family_runs[arch] = serve_runs(torch, dev, smi, arch, bit_widths,
+                                       launches_now, reset_launches)
+        emit({"phase": "lm_serve_seconds", "arch": arch,
+              "seconds": time.perf_counter() - t0})
+    whisper = whisper_phase(torch, dev, smi, launches_now, reset_launches)
+    reduced = {arch: reduced_card_vs_cpu(torch, dev, smi, arch, launches_now,
+                                         reset_launches)
+               for arch in FAMILY_REDUCED}
+    return {"runs": runs, "family_runs": family_runs, "whisper": whisper,
+            "reduced": reduced, "shapes": shapes,
+            "family_shapes": family_shapes, "max_abs_err": kernel_err}
 
 
 def main() -> int:
@@ -1284,6 +1566,17 @@ def main() -> int:
           "overhead": rec["telemetry"]["overhead"],
           "recompiles": rec["telemetry"]["recompiles"],
           "peak_device_memory_bytes": rec["telemetry"]["peak_device_memory_bytes"]})
+    # the overhead measurement again, OVERHEAD_REPEATS times in this
+    # process, recorded only (the < 3% check is stream_throughput's own, on
+    # its measurement above): how far the ratio moves between calls, and
+    # on how many of each arm's runs its floor stands
+    ovh_program = compiler.compile_model(
+        vadetect.init(torch.Generator().manual_seed(SEED), device=dev))
+    repeats = [overhead_footing(rec["telemetry"]["overhead"])]
+    for _ in range(OVERHEAD_REPEATS):
+        repeats.append(overhead_footing(
+            stream_throughput.measure_overhead(ovh_program, device=dev)))
+    emit({"phase": "overhead_repeat", "card": smi, "runs": repeats})
 
     clock("fleet")
 
@@ -1784,6 +2077,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/quant_matmul.py:42",
         "launches": lm["runs"][8]["launches"][QM.NAME],
         "launches_4bit": lm["runs"][4]["launches"][QM.NAME],
+        "launches_families": {
+            **{f"{arch} {bits}b": run["launches"][QM.NAME]
+               for arch, runs in lm["family_runs"].items()
+               for bits, run in runs.items() if bits != "bf16"},
+            "whisper-tiny 8b": lm["whisper"]["int8"]["quant_matmul_launches"]},
         "launches_benchmark": bench_launches[QM.NAME],
         "max_abs_err": max(quant_err, lm["max_abs_err"]),
         **{key: lm_layer[key] for key in ("ms", "plain_ms", "bound_ms")},
@@ -1794,7 +2092,8 @@ def main() -> int:
         "at": "sum of one qwen3-8b layer's 7 projections at 8 bits and 4 rows "
               "(a decode step's); library: torch.matmul on the dequantized "
               "weight, float32 (library_bf16_ms: bfloat16); launches over "
-              "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit)",
+              "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit; the "
+              "other families' full CONFIGs: launches_families)",
         "at_benchmark_shape": {
             key: cmul_totals[QM.NAME][key] for key in
             ("ms", "plain_ms", "bound_ms", "library_ms", "ms_in_run",

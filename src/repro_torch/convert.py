@@ -64,9 +64,11 @@ def state_from_numpy(tree: Mapping, device: _device.DeviceLike = None) -> dict:
 def lm_params_from_numpy(tree, device: _device.DeviceLike = None):
     """An LM param tree as numpy (nested dicts of float32 `w`/`b`/`scale`
     and norms, uint8 `packed`/`select`, int8 `values_q`, and the `meta`
-    dict of Python ints of a sparse-compiled linear) -> the same tree of
-    tensors on `device`, each array keeping its dtype; Python numbers
-    stay as they are."""
+    dict of Python ints of a sparse-compiled linear; bare arrays too: the
+    MoE experts (E, d, f), RG-LRU's `lam`/`conv_w`/`conv_b`, rwkv's `mu`,
+    `lora_*`, `w0` and `u`, whisper's `pos_emb` and stacked encoder and
+    decoder blocks) -> the same tree of tensors on `device`, each array
+    keeping its dtype; Python numbers stay as they are."""
     dev = _device.resolve(device)
 
     def one(x):

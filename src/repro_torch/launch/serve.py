@@ -7,12 +7,17 @@ the card (port of `repro.launch.serve`).
     python -m repro_torch.launch.serve --arch va-cnn --patients 8
 
 Without `--reduced` the LM runs the architecture's full `CONFIG` (for
-qwen3-8b: 36 layers, d_model 4096, vocab 151936) from random weights
-drawn on the card from `--seed`. `--quant-bits` packs every projection
-(`serve.engine.quantize_for_serving`) and drops the float32 master
-weights; the packed projections then run the hand-written
+qwen3-8b: 36 layers, d_model 4096, vocab 151936; every decoder-only
+config in `configs/`, the MoE, RG-LRU and RWKV-6 families included) from
+random weights drawn on the card from `--seed`. `--quant-bits` packs
+every projection (`serve.engine.quantize_for_serving`: the routed MoE
+experts, the router and RG-LRU's gates stay dense) and drops the float32
+master weights; the packed projections then run the hand-written
 `quant_matmul` kernel. Greedy by default; `--temperature` enables
-per-request keyed sampling (reproducible for a fixed `--seed`).
+per-request keyed sampling (reproducible for a fixed `--seed`). An
+encoder-decoder config (whisper-tiny) raises
+`serve.engine.EncDecUnsupportedError` from `generate`, as in the
+reference.
 
 `main(argv, device="cpu")` runs the same path on the CPU; with no
 `device` it needs a card. The reference's mesh, frontend, load-sweep,

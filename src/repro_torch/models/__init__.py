@@ -1,7 +1,17 @@
-"""LM substrate: attention, layers, the decoder stack and its API (the
-dense attention families; MoE, RG-LRU, RWKV-6 and whisper are ROADMAP.md
-queue 1 item 6)."""
+"""LM substrate: attention, layers, the decoder stack with its MoE and
+recurrent (RG-LRU, RWKV-6) blocks, the whisper encoder-decoder, and the
+API over them."""
 
-from repro_torch.models import api, attention, layers, transformer
+from repro_torch.models import (
+    api,
+    attention,
+    layers,
+    moe,
+    rglru,
+    rwkv6,
+    transformer,
+    whisper,
+)
 
-__all__ = ["api", "attention", "layers", "transformer"]
+__all__ = ["api", "attention", "layers", "moe", "rglru", "rwkv6",
+           "transformer", "whisper"]

@@ -253,14 +253,22 @@ def apply_rope(
 # third of the elements, would compound over the layers.
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` as XLA expands it: 1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.gelu`'s default, the tanh approximation."""
+    """`jax.nn.gelu`'s default, the tanh approximation. Both constants
+    are rounded to x's dtype first, as XLA rounds a weakly typed constant
+    (torch would multiply by the Python float at float32)."""
     c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x ** 3))))
     return x * cdf
 
 

@@ -1,8 +1,9 @@
 """Decoder-only LM stack: pattern-period groups of heterogeneous blocks.
 
-Port of `repro.models.transformer` for the dense attention families
-(global / local / chunked attention, GQA, qk-norm, qkv bias, softcaps,
-sandwich norms, M-RoPE):
+Port of `repro.models.transformer`. One orchestrator serves the dense
+attention families (global / local / chunked attention, GQA, qk-norm, qkv
+bias, softcaps, sandwich norms, M-RoPE), MoE FFNs (`models.moe`), and the
+recurrent blocks `rglru` (`models.rglru`) and `rwkv` (`models.rwkv6`):
 
   * layers are grouped by the config's block `pattern`; each pattern
     position's params are stacked along a leading `n_groups` axis, as in
@@ -13,16 +14,20 @@ sandwich norms, M-RoPE):
     own params;
   * decode threads a cache through the same structure — ring buffers for
     local/chunked attention (capacity = window), full buffers for global
-    attention.
+    attention, O(1) states for rwkv/rglru blocks (`h` and `state` in
+    float32, the rest in the compute dtype), leaf for leaf the
+    reference's layout.
 
 The decode cache is updated **in place**: `decode_step` writes the new
-token's K/V (and `slot_pos`) into the cache it is given and returns that
-same cache, where the reference returns a new one. A caller that needs
-the old cache clones it first. `prefill` builds a fresh cache.
+token's K/V (and `slot_pos`), and every recurrent block's new state, into
+the cache it is given and returns that same cache, where the reference
+returns a new one. A recurrent state advances on every row, idle rows
+included, as in the reference (seating overwrites a row when it is
+reused). A caller that needs the old cache clones it first. `prefill`
+builds a fresh cache.
 
-Not ported in this slice, and raising `NotImplementedError` (nothing
-falls back): the `rwkv` and `rglru` block kinds, MoE FFNs (ROADMAP.md
-queue 1 item 6), the paged cache (item 7) and `loss_fn` (item 10). The
+Not ported yet, and raising `NotImplementedError` (nothing falls back):
+the paged cache (ROADMAP.md queue 1 item 7) and `loss_fn` (item 10). The
 reference's `constrain` layout hints do nothing on one device and are
 dropped (item 8), as is its `remat` (training, item 10).
 """
@@ -37,6 +42,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, pad_up
 from repro_torch.core.spe import SPEConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models.layers import (
     apply_rope,
     embed_apply,
@@ -50,24 +58,8 @@ from repro_torch.models.layers import (
     softcap,
 )
 
-FAMILIES_ITEM = "ROADMAP.md queue 1 item 6"
 PAGING_ITEM = "ROADMAP.md queue 1 item 7"
 TRAINING_ITEM = "ROADMAP.md queue 1 item 10"
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs (models/moe.py) are not ported yet "
-            f"({FAMILIES_ITEM})"
-        )
-    for kind in tuple(cfg.pattern) + tuple(cfg.tail or ()):
-        if kind in ("rglru", "rwkv"):
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} blocks are not ported yet "
-                f"({FAMILIES_ITEM})"
-            )
 
 
 # ---------------------------------------------------------------------------
@@ -323,22 +315,54 @@ def attn_cache_from_prefill(
 
 
 # ---------------------------------------------------------------------------
-# Block = (norms + attention + ffn), dispatched on kind
+# Block = (norms + mixer + ffn/moe), dispatched on kind
 # ---------------------------------------------------------------------------
 
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims, kind: str,
                lead: tuple = ()) -> dict:
-    check_supported(cfg)
     d, dev = cfg.d_model, gen.device
+    if kind == "rwkv":
+        return {"rwkv": RWKV.rwkv_init(gen, d, dims.d_ff, cfg.rwkv_head_dim,
+                                       lead)}
     p = {"ln1": norm_init(cfg.norm, d, lead=lead, device=dev),
          "ln2": norm_init(cfg.norm, d, lead=lead, device=dev)}
     if cfg.sandwich_norm:
         p["post_ln1"] = norm_init(cfg.norm, d, lead=lead, device=dev)
         p["post_ln2"] = norm_init(cfg.norm, d, lead=lead, device=dev)
-    p["mix"] = attn_init(gen, cfg, dims, lead)
-    p["ffn"] = ffn_init(gen, d, dims.d_ff, act=cfg.act, lead=lead)
+    if kind == "rglru":
+        p["mix"] = RG.rglru_init(gen, d, cfg.lru_dim, cfg.conv_width, lead)
+    else:
+        p["mix"] = attn_init(gen, cfg, dims, lead)
+    if cfg.moe is not None:
+        p["moe"] = MOE.moe_init(gen, d, cfg.moe, lead)
+    else:
+        p["ffn"] = ffn_init(gen, d, dims.d_ff, act=cfg.act, lead=lead)
     return p
+
+
+def _write(cache: dict, new: dict) -> None:
+    """A recurrent block's new state into its cache, in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
+def _ffn_half(p: dict, h: torch.Tensor, mixed: torch.Tensor,
+              cfg: ArchConfig, *, spe, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mixer's residual add, then the FFN (or MoE) half of a block.
+    Returns (h, moe_aux)."""
+    if cfg.sandwich_norm:
+        mixed = norm_apply(cfg.norm, p["post_ln1"], mixed)
+    h = h + mixed
+    f_in = norm_apply(cfg.norm, p["ln2"], h)
+    if cfg.moe is not None:
+        f_out, aux = MOE.moe_apply(p["moe"], f_in, cfg.moe, dtype=dtype)
+    else:
+        f_out = ffn_apply(p["ffn"], f_in, act=cfg.act, spe=spe, dtype=dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.sandwich_norm:
+        f_out = norm_apply(cfg.norm, p["post_ln2"], f_out)
+    return h + f_out, aux
 
 
 def block_apply(
@@ -354,9 +378,21 @@ def block_apply(
     dtype=torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (h, moe_aux, cache) — the cache updated in place."""
-    check_supported(cfg)
+    if kind == "rwkv":
+        rc = cache["rwkv"] if cache is not None else None
+        h, nc = RWKV.block_apply(p["rwkv"], h, cfg.rwkv_head_dim, cache=rc,
+                                 spe=spe, dtype=dtype)
+        if rc is not None:
+            _write(rc, nc)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device), cache
     a_in = norm_apply(cfg.norm, p["ln1"], h)
-    if cache is not None:
+    if kind == "rglru":
+        rc = cache["rglru"] if cache is not None else None
+        mixed, nc = RG.rglru_apply(p["mix"], a_in, cache=rc, spe=spe,
+                                   dtype=dtype)
+        if rc is not None:
+            _write(rc, nc)
+    elif cache is not None:
         mixed, _ = attn_apply_decode(
             p["mix"], a_in, pos, cache["attn"], cfg, dims, kind,
             spe=spe, dtype=dtype,
@@ -365,15 +401,7 @@ def block_apply(
         mixed = attn_apply_train(
             p["mix"], a_in, pos, cfg, dims, kind, spe=spe, dtype=dtype
         )
-    if cfg.sandwich_norm:
-        mixed = norm_apply(cfg.norm, p["post_ln1"], mixed)
-    h = h + mixed
-    f_in = norm_apply(cfg.norm, p["ln2"], h)
-    f_out = ffn_apply(p["ffn"], f_in, act=cfg.act, spe=spe, dtype=dtype)
-    if cfg.sandwich_norm:
-        f_out = norm_apply(cfg.norm, p["post_ln2"], f_out)
-    h = h + f_out
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _ffn_half(p, h, mixed, cfg, spe=spe, dtype=dtype)
     return h, aux, cache
 
 
@@ -381,7 +409,22 @@ def block_cache_init(
     cfg: ArchConfig, dims: Dims, kind: str, batch: int, max_seq: int, dtype,
     *, lead: tuple = (), device=None,
 ) -> dict:
-    check_supported(cfg)
+    def zeros(shape, dt):
+        return torch.zeros((*lead, *shape), dtype=dt, device=device)
+
+    d = cfg.d_model
+    if kind == "rwkv":
+        h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+        return {"rwkv": {
+            "tm_shift": zeros((batch, 1, d), dtype),
+            "cm_shift": zeros((batch, 1, d), dtype),
+            "state": zeros((batch, h, hd, hd), torch.float32),
+        }}
+    if kind == "rglru":
+        return {"rglru": {
+            "h": zeros((batch, cfg.lru_dim), torch.float32),
+            "conv": zeros((batch, cfg.conv_width - 1, cfg.lru_dim), dtype),
+        }}
     return {"attn": attn_cache_init(cfg, dims, kind, batch, max_seq, dtype,
                                     lead=lead, device=device)}
 
@@ -393,7 +436,6 @@ def block_cache_init(
 
 def stack_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims) -> dict:
     """Random params drawn from `gen` on its device, in a fixed order."""
-    check_supported(cfg)
     params: dict[str, Any] = {
         "embed": embed_init(gen, dims.vocab, cfg.d_model),
         "final_norm": norm_init(cfg.norm, cfg.d_model, device=gen.device),
@@ -541,9 +583,9 @@ def prefill(
     """Process a prompt, build the decode cache. Returns (last-token
     logits (B, V_padded), cache).
 
-    Runs each block in train mode while also building its attention
-    layer's ring cache from the (k, v) it computed."""
-    check_supported(cfg)
+    Runs each block in train mode while also building its decode cache:
+    an attention layer's ring cache from the (k, v) it computed, a
+    recurrent layer's final state."""
     dtype = compute_dtype(cfg)
     b, s = tokens.shape
     pos = _positions(cfg, b, s, tokens.device)
@@ -551,8 +593,34 @@ def prefill(
                     scale=cfg.scale_embed)
     caches: dict[str, Any] = {"blocks": {}}
     for where, kind in _groups(params, cfg):
-        p = _at(params, where)
-        a_in = norm_apply(cfg.norm, p["ln1"], h)
+        h, c = _prefill_block(_at(params, where), h, pos, cfg, dims, kind,
+                              max_seq=max_seq, dtype=dtype)
+        top, key, _ = where
+        caches.setdefault(top, {}).setdefault(key, []).append(c)
+    # stack the groups' caches along the leading group axis; the tail's
+    # positions hold one cache each
+    cache = {
+        top: {key: _stack(lst) if top == "blocks" else _fresh(lst[0])
+              for key, lst in sub.items()}
+        for top, sub in caches.items()
+    }
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _logits(params, h[:, -1:], cfg, dtype)[:, 0], cache
+
+
+def _prefill_block(p: dict, h: torch.Tensor, pos: torch.Tensor,
+                   cfg: ArchConfig, dims: Dims, kind: str, *, max_seq: int,
+                   dtype) -> tuple[torch.Tensor, dict]:
+    """A train-mode block that also returns its decode cache."""
+    if kind == "rwkv":
+        h, nc = RWKV.block_apply(p["rwkv"], h, cfg.rwkv_head_dim, dtype=dtype)
+        return h, {"rwkv": nc}
+    b, s = h.shape[:2]
+    a_in = norm_apply(cfg.norm, p["ln1"], h)
+    if kind == "rglru":
+        mixed, nc = RG.rglru_apply(p["mix"], a_in, dtype=dtype)
+        cache = {"rglru": nc}
+    else:
         q, k, v = _qkv(p["mix"], a_in, pos, cfg, dims, None, dtype)
         out = A.attention(
             q, k, v, kind=kind, window=cfg.window, cap=cfg.attn_softcap,
@@ -562,26 +630,17 @@ def prefill(
             p["mix"]["wo"], out.reshape(b, s, dims.n_heads * cfg.hd),
             dtype=dtype,
         )
-        top, key, _ = where
-        caches.setdefault(top, {}).setdefault(key, []).append(
-            {"attn": attn_cache_from_prefill(k, v, cfg, kind, max_seq)})
-        if cfg.sandwich_norm:
-            mixed = norm_apply(cfg.norm, p["post_ln1"], mixed)
-        h = h + mixed
-        f_in = norm_apply(cfg.norm, p["ln2"], h)
-        f_out = ffn_apply(p["ffn"], f_in, act=cfg.act, dtype=dtype)
-        if cfg.sandwich_norm:
-            f_out = norm_apply(cfg.norm, p["post_ln2"], f_out)
-        h = h + f_out
-    # stack the groups' caches along the leading group axis; the tail's
-    # positions hold one cache each
-    cache = {
-        top: {key: (_stack(lst) if top == "blocks" else lst[0])
-              for key, lst in sub.items()}
-        for top, sub in caches.items()
-    }
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    return _logits(params, h[:, -1:], cfg, dtype)[:, 0], cache
+        cache = {"attn": attn_cache_from_prefill(k, v, cfg, kind, max_seq)}
+    h, _ = _ffn_half(p, h, mixed, cfg, spe=None, dtype=dtype)
+    return h, cache
+
+
+def _fresh(tree: Any) -> Any:
+    """`tree` with every leaf in its own contiguous storage (a recurrent
+    state can be a slice of a prompt-long activation)."""
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    return tree.contiguous()
 
 
 def _stack(trees: list) -> Any:

@@ -28,8 +28,15 @@ The decode cache is updated in place (`models.transformer`): the pool
 re-feeds an inactive slot its last-fed (token, pos), which rewrites the
 same K/V into the same ring slot, as in the reference.
 
-Not ported in this slice: `paging=` and `chunk_tokens=` (ROADMAP.md
-queue 1 item 7) raise NotImplementedError.
+Recurrent tenants (rg-lru, rwkv) are co-seated like attention ones:
+seating overwrites a slot's whole cache row, and the idle-slot re-feed
+advances a recurrent row that the next seating overwrites. An
+encoder-decoder model (whisper) is refused by `Engine` and `generate` with
+`EncDecUnsupportedError`, as in the reference: drive it through
+`model.prefill(params, tokens, frames)` and `model.decode_step`.
+
+Not ported yet: `paging=` and `chunk_tokens=` (ROADMAP.md queue 1 item 7)
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,19 +51,37 @@ import torch
 from repro_torch import _device, obs
 from repro_torch._tree import leaves
 from repro_torch.concurrency import driver_thread_only
-from repro_torch.models.api import EncDecUnsupportedError, Model  # noqa: F401 (re-exported)
+from repro_torch.models.api import Model
 from repro_torch.models.layers import compile_linear_quant
 from repro_torch.serve import seating
 from repro_torch.serve.paging import PagingConfig
 
 
-# param-path leaf dirs that stay dense at serve time (numerically
-# sensitive or tiny): embeddings, router, norms, rwkv adapters
+# the names of the {"w"} linears packed at serve time. Everything else
+# stays dense (numerically sensitive or tiny): embeddings and the lm_head,
+# norms, the MoE router and its bare (E, d, f) expert arrays, rwkv's LoRA
+# adapters and decay, RG-LRU's w_a / w_i gates
 _QUANT_TARGETS = (
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "w_r", "w_k", "w_v", "w_g", "w_o", "cm_k", "cm_v", "cm_r",
     "w_x", "w_out",
 )
+
+
+class EncDecUnsupportedError(TypeError):
+    """An encoder-decoder (whisper-family) model hit a decoder-only serving
+    path. Drive it through `model.prefill(params, tokens, frames)` and
+    `model.decode_step` instead."""
+
+
+def _reject_enc_dec(cfg, where: str) -> None:
+    if cfg.is_enc_dec:
+        raise EncDecUnsupportedError(
+            f"{where} drives the decoder-only path, but {cfg.name!r} is an "
+            f"encoder-decoder model: its prefill needs audio frames. Run it "
+            f"through model.prefill(params, tokens, frames) + "
+            f"model.decode_step directly instead."
+        )
 
 
 def quantize_for_serving(params: Any, bits: int = 8) -> Any:
@@ -168,6 +193,7 @@ class Engine:
                 "the paged cache and chunked prefill are not ported yet "
                 "(ROADMAP.md queue 1 item 7)"
             )
+        _reject_enc_dec(model.cfg, "the slot engine")
         self.device = _device.resolve(device)
         self.model = model
         self.params = params
@@ -452,6 +478,7 @@ def generate(
     `fold_in(request_key(key, b), t)` — the engine's per-request schedule
     with the row index as uid, so a request submitted to an `Engine`
     built on the same key (uid == row) produces the same stream."""
+    _reject_enc_dec(model.cfg, "generate")
     dev = _device.resolve(device)
     prompts = torch.as_tensor(prompts, dtype=torch.long).to(dev)
     b, s = prompts.shape

@@ -8,6 +8,7 @@ outputs come back as numpy. JAX stays on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -96,6 +97,25 @@ def lm_models(name: str, dtype: str = "bfloat16", max_seq: int = 32,
     pj = mj.init(jax.random.PRNGKey(seed))
     pt = convert.lm_params_from_numpy(jax.tree.map(np.asarray, pj), device=CPU)
     return mj, mt, pj, pt
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_weights(name: str, max_seq: int):
+    _, _, pj, pt = lm_models(name, "float32", max_seq=max_seq)
+    return pj, pt
+
+
+@functools.lru_cache(maxsize=None)
+def shared_lm_models(name: str, dtype: str = "float32", max_seq: int = 40):
+    """`lm_models` with the weights drawn once a process (they do not
+    depend on the compute dtype) and each model built once: every caller
+    gets the same objects, so the reference's jit caches hit across
+    tests. Callers must not write the params."""
+    pj, pt = _lm_weights(name, max_seq)
+    jcfg = dataclasses.replace(jconfigs.reduced(name), dtype=dtype)
+    tcfg = dataclasses.replace(tconfigs.reduced(name), dtype=dtype)
+    return (japi.build_model(jcfg, tp=1, max_seq=max_seq),
+            tapi.build_model(tcfg, tp=1, max_seq=max_seq), pj, pt)
 
 
 def np_tokens(shape, vocab: int, seed: int) -> np.ndarray:

@@ -634,3 +634,120 @@ def test_sparse_linear_at_the_widest_k_the_kernel_takes(cuda):
             layers.linear_apply(on_card_sparse(k_past),
                                 torch.randn((4, k_past), device=cuda),
                                 dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The MoE, RG-LRU, RWKV-6 and whisper families
+# ---------------------------------------------------------------------------
+
+
+# recurrentgemma-2b's and rwkv6-3b's packed projection widths (K, N)
+FAMILY_SHAPES = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
+                 (2560, 8960), (8960, 2560)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,nn", FAMILY_SHAPES)
+def test_quant_matmul_at_the_new_families_widths(cuda, k, nn, bits):
+    """The kernel at a decode step's and a prefill's rows (4 and 64) of
+    the new families' projections: within 1e-4 of max|y| of its plain
+    version, a repeat bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(k + nn + bits)
+    w = torch.randn((k, nn), generator=gen, device=cuda) * k ** -0.5
+    q, scale = quant.quantize(w, quant.QuantConfig(bits=bits))
+    packed = quant.pack_planes(q, bits)
+    for m in (4, 64):
+        x = torch.randn((m, k), generator=gen, device=cuda)
+        y = tqm.quant_matmul_cuda(x, packed, scale, bits=bits)
+        again = tqm.quant_matmul_cuda(x, packed, scale, bits=bits)
+        assert torch.equal(y, again)
+        assert _rel_err(y, tqm.quant_matmul_plain(x, packed, scale,
+                                                  bits=bits)) <= 1e-4
+
+
+def _family(name, max_seq=40):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+    return api.build_model(cfg, max_seq=max_seq)
+
+
+def _packed_linears(tree) -> int:
+    """Packed linears a forward applies: a stacked one once a group."""
+    if not isinstance(tree, dict):
+        return 0
+    if "packed" in tree:
+        return tree["packed"].shape[0] if tree["packed"].ndim == 3 else 1
+    return sum(_packed_linears(v) for v in tree.values())
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "llama4_scout_17b_a16e",
+                                  "recurrentgemma_2b", "rwkv6_3b"])
+def test_reduced_family_on_the_card_matches_the_cpu(cuda, name):
+    """A reduced config in float32, dense and packed at 8 bits: the
+    prefill and 4 decode steps (the recurrent states and MoE dispatch on
+    the card) within 1e-4 of max|logit| of the CPU, generate's greedy
+    tokens equal, and one quant_matmul launch a packed linear a forward."""
+    from repro_torch.serve import engine
+
+    model = _family(name)
+    dense = model.init(0, device="cpu")
+    prompts = torch.randint(0, model.cfg.vocab, (3, 16),
+                            generator=torch.Generator().manual_seed(1))
+    for params in (dense, engine.quantize_for_serving(dense, 8)):
+        on_card = tree_map(lambda v: v.to(cuda), params)
+        l_cpu, c_cpu = model.prefill(params, prompts)
+        l_card, c_card = model.prefill(on_card, prompts.to(cuda))
+        assert _rel_err(l_card.cpu(), l_cpu) <= 1e-4
+        tok = l_cpu.argmax(-1)
+        for step in range(4):
+            pos = torch.full((3,), 16 + step, dtype=torch.long)
+            l_cpu, c_cpu = model.decode_step(params, c_cpu, tok, pos)
+            l_card, c_card = model.decode_step(on_card, c_card, tok.to(cuda),
+                                               pos.to(cuda))
+            assert _rel_err(l_card.cpu(), l_cpu) <= 1e-4
+            tok = l_cpu.argmax(-1)
+        want = engine.generate(model, params, prompts, max_new=4, device="cpu")
+        tqm.launches = 0
+        got = engine.generate(model, on_card, prompts, max_new=4)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert tqm.launches == _packed_linears(on_card) * (1 + 4)
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """The reduced whisper in float32: prefill with frames and 4 decode
+    steps on the card within 1e-4 of max|logit| of the CPU, dense and
+    packed at 8 bits (6 launches an encoder layer, 10 a decoder layer in
+    the prefill, 8 a decoder layer a step)."""
+    from repro_torch.serve import engine
+
+    model = _family("whisper_tiny", max_seq=24)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(2)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    dense = model.init(0, device="cpu")
+    for bits, params in ((None, dense),
+                         (8, engine.quantize_for_serving(dense, 8))):
+        on_card = tree_map(lambda v: v.to(cuda), params)
+        tqm.launches = 0
+        l_card, c_card = model.prefill(on_card, prompts.to(cuda),
+                                       frames.to(cuda))
+        l_cpu, c_cpu = model.prefill(params, prompts, frames)
+        assert _rel_err(l_card.cpu(), l_cpu) <= 1e-4
+        tok = l_cpu.argmax(-1)
+        for step in range(4):
+            pos = torch.full((2,), 8 + step, dtype=torch.long)
+            l_card, c_card = model.decode_step(on_card, c_card, tok.to(cuda),
+                                               pos.to(cuda))
+            l_cpu, c_cpu = model.decode_step(params, c_cpu, tok, pos)
+            assert _rel_err(l_card.cpu(), l_cpu) <= 1e-4
+            tok = l_cpu.argmax(-1)
+        torch.cuda.synchronize()
+        want = (cfg.enc_layers * 6 + cfg.n_layers * 10
+                + 4 * cfg.n_layers * 8) if bits else 0
+        assert tqm.launches == want

@@ -413,18 +413,6 @@ def _leaves(tree):
     return leaves(tree)
 
 
-@pytest.mark.parametrize("name", ["rwkv6_3b", "recurrentgemma_2b",
-                                  "olmoe_1b_7b", "llama4_scout_17b_a16e",
-                                  "whisper_tiny"])
-def test_families_not_ported_raise(name):
-    """MoE, RG-LRU, RWKV-6 and the whisper encoder-decoder raise, naming
-    the ROADMAP item that ports them; nothing falls back."""
-    cfg = tconfigs.reduced(name)
-    err = tapi.EncDecUnsupportedError if cfg.is_enc_dec else NotImplementedError
-    with pytest.raises(err, match="ROADMAP.md queue 1 item 6"):
-        tapi.build_model(cfg)
-
-
 def test_paging_and_training_raise():
     _, mt, _, pt = lm_models("qwen3_8b", "float32", max_seq=16)
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -2,10 +2,11 @@
 """Drive the PyTorch port's VA diagnosis path, its kernel benchmark, the
 CMUL sweep, VA co-design training (the quickstart), the streaming fleet,
 the paper's entry points (the benchmark orchestrator, the ablation, the
-inference demo, train_va with checkpoints and restart) and LM serving
+inference demo, train_va with checkpoints and restart), LM serving
 (launch.serve at the full widths of qwen3-8b, recurrentgemma-2b,
-olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode) on one
-CUDA card.
+olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode), and
+the paged cache, chunked prefill and the serving frontend
+(launch.serve and launch.stream --listen / --connect) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -51,8 +52,9 @@ toolkit. Phases, each printing JSON lines:
    wall; and the throughput benchmark,
    repro_torch.benchmarks.stream_throughput.run(smoke=True), with its
    checks, then its telemetry overhead measurement OVERHEAD_REPEATS more
-   times, recorded only (ratio, A/A spread, and how many runs of each arm
-   its floor stands on);
+   times, recorded only (the paired ratio and its interval, the A/A
+   control, the floors' ratio, and how many runs of each arm a floor
+   stands on);
    paper — the orchestrator repro_torch.benchmarks.run.main (table1,
    kernels, ablation) with its CSV captured: the header, every row, the
    table1 rows equal to table1.run()'s, the kernel launches equal to the
@@ -67,8 +69,8 @@ toolkit. Phases, each printing JSON lines:
    params within STEP_RTOL); a card state's checkpoint restored onto the
    card bit for bit, its save timed;
    lm_serve — quant_matmul at qwen3-8b's four projection shapes (K, N) =
-   (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096) at 4 and 64
-   rows, 8 and 4 bits, against its plain version twice, bit-identical,
+   (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096) at 4, 64 and
+   1 rows (a decode step's, a prefill's, a chunk-cell step's), 8 and 4 bits, against its plain version twice, bit-identical,
    timed against its byte bound and torch.matmul on the dequantized weight
    (float32 and bfloat16); repro_torch.launch.serve.main at --arch
    qwen3-8b (the full CONFIG: 36 layers, d_model 4096, vocab 151936)
@@ -95,6 +97,27 @@ toolkit. Phases, each printing JSON lines:
    against the CPU (prefill and every decode step within REDUCED_RTOL, the
    same greedy tokens from generate and from an Engine burst at
    batch_size 3);
+   frontend — launch.serve --listen at qwen3-8b's full CONFIG (dense
+   bfloat16, --page-size 16 --chunk-tokens 16) in a server process and
+   launch.serve --connect offering 12 requests at 4 req/s from this one
+   (12 completed, 16 tokens each, SIGINT stops the server with exit
+   status 0; latency per request and tokens/s recorded); lm_paged —
+   qwen3-8b's full CONFIG at 8 bits, a dense and a paged Engine (both
+   chunked) on the same 8 requests, prompts either side of the page
+   boundaries: identical tokens and schedules, every decode call's
+   logits equal bit for bit on the occupied slots, each engine's
+   quant_matmul launches equal to 252 x (prefill cells + chunk steps +
+   decode calls), the paged cache_bytes_in_use below the dense one while
+   running and 0 after, each engine's decode step replayed under the
+   profiler (the gather's device cost); lm_paged_reduced — the reduced
+   qwen3-8b (dense and packed at 8 bits: the chunk cell's one-row
+   quant_matmul launches on the card against its plain version on the
+   CPU) and recurrentgemma-2b in float32, both engines on the card
+   against the CPU (REDUCED_RTOL, identical tokens); stream_frontend —
+   launch.stream --listen on the kernel path in a server process and
+   --connect offering 256 x 8 segments at 2000/s (every segment acked,
+   enqueued == packed), then the same frontend in process through an
+   InProcClient, its nm_spmm launches 7 a flushed bucket;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -197,6 +220,9 @@ FAMILY_SHAPES = tuple(dict.fromkeys(
 FAMILY_REDUCED = ("qwen3-8b", "olmoe-1b-7b", "llama4-scout-17b-a16e",
                   "recurrentgemma-2b", "rwkv6-3b")
 LM_ROWS = (4, 64)  # a decode step's rows (batch 4), a prefill's (4 x 16)
+# a chunk-cell step's rows: one prompt's token (lm_paged's chunked engines
+# run most of their quant_matmul launches at it)
+CHUNK_ROWS = 1
 LM_PROFILE_STEPS = 2  # decode steps a profile covers
 # 8-bit prefill logits, kernel against plain on the card: both compute each
 # projection in float32 (the kernel to about 1e-6) and round it to bfloat16,
@@ -217,6 +243,30 @@ PLAIN_BF16 = ("qwen3-8b", "recurrentgemma-2b")
 # the card); a twentyfold margin
 LM_PLAIN_F32_RTOL = 1e-3
 REDUCED_RTOL = 1e-4  # reduced float32 config, card against CPU, of max|logit|
+# the serving frontend: launch.serve --listen at qwen3-8b's full CONFIG
+# (dense bfloat16, as the reference's --listen serves it; max_seq 66
+# rounded up to 80: 5 pages a slot, 21 in the pool), and the client
+LM_FRONTEND_SERVER = ("--arch", "qwen3-8b", "--listen", "127.0.0.1:0",
+                      "--batch", "4", "--prompt-len", "48", "--max-new", "16",
+                      "--page-size", "16", "--chunk-tokens", "16")
+LM_FRONTEND_CLIENT = ("--arch", "qwen3-8b", "--load-requests", "12",
+                      "--offered-rate", "4", "--prompt-len", "48",
+                      "--max-new", "16")
+# dense against paged Engine at qwen3-8b's full CONFIG, 8 bits: prompt
+# lengths either side of the page boundaries, the frontend's max_seq (span
+# 5, 21 pages); at 8 new tokens every reservation fits at once, so the two
+# engines keep one schedule and their decode calls pair up
+PAGED_PROMPTS = (5, 15, 16, 17, 31, 32, 33, 48)
+PAGED_BATCH, PAGED_PAGE, PAGED_CHUNK = 4, 16, 16
+PAGED_MAX_NEW, PAGED_MAX_SEQ = 8, 80
+# the stream side of the frontend: launch.stream --listen on the kernel
+# path, and the client
+STREAM_FRONTEND_SERVER = ("--listen", "127.0.0.1:0", "--path", "kernel",
+                          "--patients", "256")
+STREAM_FRONTEND_CLIENT = ("--patients", "256", "--segments", "8",
+                          "--offered-rate", "2000")
+SERVER_START_S = 600  # a server's build and warm-up, to its address line
+SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
 # on them (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -380,15 +430,17 @@ def layer_problems(cfg, vadetect, bucket: int = BUCKET) -> list[dict]:
 
 
 def overhead_footing(o: dict) -> dict:
-    """One `measure_overhead` record without its walls: the ratio, the A/A
-    spread, the floors, the fastest run of any arm, and how many runs of
-    each arm fall within 10% of it (a floor is the mean of an arm's
-    fastest sixth)."""
+    """One `measure_overhead` record without its walls: the paired ratio
+    and its interval, the A/A control, the floors and their ratio (the
+    estimator the paired ratio replaced), the fastest run of any arm, and
+    how many runs of each arm fall within 10% of it (a floor is the mean
+    of an arm's fastest sixth)."""
     walls = {arm: o[f"{arm}_walls_s"]
              for arm in ("disabled", "enabled", "disabled_again")}
     fastest = min(min(w) for w in walls.values())
-    return {**{k: o[k] for k in ("reps", "overhead_ratio", "noise_spread",
-                                 "resolvable", "disabled_wall_s",
+    return {**{k: o[k] for k in ("reps", "overhead_ratio", "ratio_bounds",
+                                 "noise_spread", "resolvable",
+                                 "floor_ratio", "disabled_wall_s",
                                  "enabled_wall_s")},
             "fastest_wall_s": fastest,
             "runs_within_10pct": {arm: sum(x < 1.1 * fastest for x in w)
@@ -431,12 +483,14 @@ def packed_per_forward(cfg) -> int:
     return sum(mixer.get(kind, 4) + ffn for kind in cfg.layer_kinds())
 
 
-def lm_kernel_shapes(torch, dev, smi, shapes, model: str) -> tuple[list[dict], float]:
-    """quant_matmul at `model`'s projection shapes (K, N), at a decode
-    step's and a prefill's rows, 8 and 4 bits: against its plain version
-    at KERNEL_RTOL, twice, bit-identical; timed against its byte bound and
-    against torch.matmul on the pre-dequantized weight in float32 and
-    bfloat16. Returns the rows and the largest error."""
+def lm_kernel_shapes(torch, dev, smi, shapes, model: str,
+                     row_counts=LM_ROWS) -> tuple[list[dict], float]:
+    """quant_matmul at `model`'s projection shapes (K, N), at each of
+    `row_counts` (a decode step's and a prefill's by default), 8 and 4
+    bits: against its plain version at KERNEL_RTOL, twice, bit-identical;
+    timed against its byte bound and against torch.matmul on the
+    pre-dequantized weight in float32 and bfloat16. Returns the rows and
+    the largest error."""
     from repro_torch.core import quant
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels._common import unpack_tile
@@ -444,7 +498,7 @@ def lm_kernel_shapes(torch, dev, smi, shapes, model: str) -> tuple[list[dict], f
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows, worst = [], 0.0
     for bits in (8, 4):
-        for m in LM_ROWS:
+        for m in row_counts:
             for k, n in shapes:
                 w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
                 q, sc = quant.quantize(w, quant.QuantConfig(bits=bits))
@@ -494,6 +548,8 @@ def lm_kernel_shapes(torch, dev, smi, shapes, model: str) -> tuple[list[dict], f
                        "geometry": QM.launch_geometry(m, k, n, bits=bits)}
                 emit({"phase": "lm_kernel", "kernel": QM.NAME, "card": smi, **row})
                 rows.append(row)
+    check(len(rows) == 2 * len(row_counts) * len(shapes),
+          f"quant_matmul at {model}'s shapes: {len(rows)} cases ran")
     return rows, worst
 
 
@@ -865,7 +921,9 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
     from repro_torch.kernels import quant_matmul as QM
 
     t_phase = time.perf_counter()
-    shapes, kernel_err = lm_kernel_shapes(torch, dev, smi, LM_SHAPES, "qwen3-8b")
+    shapes, kernel_err = lm_kernel_shapes(
+        torch, dev, smi, LM_SHAPES, "qwen3-8b",
+        row_counts=LM_ROWS + (CHUNK_ROWS,))
     emit({"phase": "lm_kernel_seconds", "seconds": time.perf_counter() - t_phase})
     runs = serve_runs(torch, dev, smi, "qwen3-8b", LM_BITS, launches_now,
                       reset_launches)
@@ -920,6 +978,441 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
     return {"runs": runs, "family_runs": family_runs, "whisper": whisper,
             "reduced": reduced, "shapes": shapes,
             "family_shapes": family_shapes, "max_abs_err": kernel_err}
+
+
+def start_server(module: str, argv, what: str):
+    """`python -m module argv` from the repository's root, its output read
+    by a thread; waits (at most SERVER_START_S) for the line with its bound
+    address. Returns (process, "host:port", its output lines so far, the
+    queue of later ones, seconds to the line). Kills it on failure."""
+    import os
+    import queue
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    seen = []
+    while True:
+        left = SERVER_START_S - (time.perf_counter() - t0)
+        try:
+            ln = lines.get(timeout=max(left, 0.01))
+        except queue.Empty:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise SystemExit(f"chip_smoke: FAILED: {what} printed no address "
+                             f"in {SERVER_START_S} s: {seen[-20:]}")
+        seen.append(ln.rstrip())
+        if "listening on" in ln:
+            return (proc, ln.split("listening on ")[1].split()[0], seen, lines,
+                    time.perf_counter() - t0)
+        if proc.poll() is not None and lines.empty():
+            raise SystemExit(f"chip_smoke: FAILED: {what} exited "
+                             f"{proc.returncode}: {seen[-20:]}")
+
+
+def stop_server(proc, seen, lines, what: str) -> dict:
+    """SIGINT, as a user stops it; its exit status must be 0 and its last
+    line the frontend's stats, which are returned."""
+    import queue
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=SERVER_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise SystemExit(f"chip_smoke: FAILED: {what} did not stop in "
+                         f"{SERVER_STOP_S} s")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 10:  # the reader's last lines
+        try:
+            seen.append(lines.get(timeout=0.5).rstrip())
+        except queue.Empty:
+            break
+    stopped = [ln for ln in seen if "frontend stopped: " in ln]
+    check(rc == 0 and stopped,
+          f"{what} exited {rc} on SIGINT: {seen[-20:]}")
+    return json.loads(stopped[-1].split("frontend stopped: ", 1)[1])
+
+
+def lm_frontend(torch, dev, smi) -> dict:
+    """launch.serve --listen at qwen3-8b's full CONFIG (dense bfloat16, the
+    paged pool and chunked prefill) in a server process; launch.serve
+    --connect from this one offers LM_FRONTEND_REQUESTS requests over the
+    socket. Every request completes with its max_new tokens; the server
+    stops cleanly on SIGINT."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+
+    free_card(torch, dev)
+    t0 = time.perf_counter()
+    proc, addr, seen, lines, start_s = start_server(
+        "repro_torch.launch.serve", LM_FRONTEND_SERVER, "launch.serve --listen")
+    try:
+        t1 = time.perf_counter()
+        rec = launch_serve.main(["--connect", addr, *LM_FRONTEND_CLIENT])
+        client_s = time.perf_counter() - t1
+    finally:
+        stats = stop_server(proc, seen, lines, "launch.serve --listen")
+    n_req = int(LM_FRONTEND_CLIENT[LM_FRONTEND_CLIENT.index("--load-requests") + 1])
+    max_new = int(LM_FRONTEND_CLIENT[LM_FRONTEND_CLIENT.index("--max-new") + 1])
+    full = configs.get("qwen3-8b")
+    lat = sorted(r["latency_s"] for r in rec["results"])
+    out = {"phase": "lm_frontend", "entry": "repro_torch.launch.serve",
+           "server_argv": list(LM_FRONTEND_SERVER),
+           "client_argv": ["--connect", addr, *LM_FRONTEND_CLIENT], "card": smi,
+           "n_layers": full.n_layers, "d_model": full.d_model,
+           "server_start_s": start_s, "client_s": client_s,
+           "completed": rec["completed"], "rejected": rec["rejected"],
+           "reasons": rec["reasons"], "wall_s": rec["wall_s"],
+           "tok_per_s": rec["tok_per_s"],
+           "latency_s_per_request": [r["latency_s"] for r in rec["results"]],
+           "latency_s_median": statistics.median(lat), "latency_s_max": lat[-1],
+           "server_stats": stats, "server_tail": seen[-4:],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(rec["completed"] == n_req and rec["rejected"] == 0,
+          f"lm_frontend: {rec['completed']} of {n_req} completed, "
+          f"rejected {rec['reasons']}")
+    check(all(len(r["tokens"]) == max_new for r in rec["results"]),
+          "lm_frontend: a request came back short")
+    check(stats.get("lm_completed") == n_req and stats.get("lm_pending") == 0,
+          f"lm_frontend: the server's stats {stats}")
+    return out
+
+
+def paged_pair(torch, dev, model, params, prompts, *, batch, page, chunk,
+               max_new, n_pages=None, launches=None):
+    """The same requests through a dense and a paged Engine (both with
+    chunked prefill; `n_pages` pages, by default the dense pool's worth,
+    batch·span + 1), ticked in turns. Per engine: its tokens, every
+    decode call's logits (on the device) and occupied slots, the wall of
+    each decode call through a synchronize, `cache_bytes_in_use` after
+    every tick, and (with `launches`, a function reading quant_matmul's
+    counter) the launches of its own ticks."""
+    from repro_torch import obs
+    from repro_torch.serve import engine
+    from repro_torch.serve.paging import PagingConfig, validate_page_size
+
+    span = validate_page_size(page, model.attn_capacities())
+    runs = {}
+    for label, paging in (("dense", None),
+                          ("paged", PagingConfig(page, n_pages
+                                                 or batch * span + 1))):
+        eng = engine.Engine(model, params, batch_size=batch, paging=paging,
+                            chunk_tokens=chunk, device=dev)
+        run = {"eng": eng, "logits": [], "occupied": [], "walls_ms": [],
+               "bytes": [], "launches": 0, "decode_calls": 0,
+               "reqs": [engine.Request(uid=i, prompt=p, max_new=max_new)
+                        for i, p in enumerate(prompts)]}
+        inner = eng._decode
+
+        def step(p, cache, tok, pos, inner=inner, run=run, eng=eng):
+            obs.synchronize(tok)
+            t0 = time.perf_counter()
+            logits, cache = inner(p, cache, tok, pos)
+            obs.synchronize(logits)
+            run["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["logits"].append(logits.clone())
+            run["occupied"].append([s is not None for s in eng._slots])
+            run["decode_calls"] += 1
+            return logits, cache
+
+        eng._decode = step
+        run["inner"] = inner
+        for r in run["reqs"]:
+            eng.submit(r)
+        runs[label] = run
+    busy = dict.fromkeys(runs, True)
+    for _ in range(1000):
+        if not any(busy.values()):
+            break
+        for label, run in runs.items():
+            if not busy[label]:
+                continue
+            eng = run["eng"]
+            before = launches() if launches else 0
+            n = eng.tick()
+            run["launches"] += (launches() - before) if launches else 0
+            run["bytes"].append(eng.cache_bytes_in_use())
+            busy[label] = n > 0 or bool(eng._queue)
+    check(not any(busy.values()), "paged_pair: the engines did not drain")
+    return runs
+
+
+def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """qwen3-8b's full CONFIG packed at 8 bits, one build; a dense and a
+    paged Engine (PagingConfig(page, batch·span + 1), both chunk_tokens
+    PAGED_CHUNK) on the same params take the same PAGED_PROMPTS, whose
+    lengths straddle the page boundaries. Identical tokens and schedules;
+    every decode call's logits equal bit for bit on the occupied slots;
+    each engine's quant_matmul launches equal to packed_per_forward × (its
+    prefill cells + chunk steps + decode calls); the paged
+    cache_bytes_in_use below the dense one whenever a slot is occupied,
+    both 0 after. Then each engine's decode step replayed (its last-fed
+    tokens: the cache is rewritten in place with what it holds) under the
+    profiler: the gather's cost on the card."""
+    from repro_torch import configs
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    cfg = configs.get("qwen3-8b")
+    model = api.build_model(cfg, max_seq=PAGED_MAX_SEQ)
+    t0 = time.perf_counter()
+    params = engine.quantize_for_serving(model.init(SEED, device=dev), 8)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    free_card(torch, dev)
+    prompts = [torch.randint(0, cfg.vocab, (s,),
+                             generator=torch.Generator().manual_seed(SEED + i))
+               for i, s in enumerate(PAGED_PROMPTS)]
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = paged_pair(torch, dev, model, params, prompts, batch=PAGED_BATCH,
+                      page=PAGED_PAGE, chunk=PAGED_CHUNK,
+                      max_new=PAGED_MAX_NEW, launches=lambda: QM.launches)
+    run_s = time.perf_counter() - t0
+    ppf = packed_per_forward(cfg)
+    chunk_steps = sum(s for s in PAGED_PROMPTS if s > PAGED_CHUNK)
+    dense, paged = runs["dense"], runs["paged"]
+    tokens = {k: [r.output for r in v["reqs"]] for k, v in runs.items()}
+    same_schedule = dense["occupied"] == paged["occupied"]
+    bitwise = same_schedule and all(
+        torch.equal(a[torch.tensor(o)], b[torch.tensor(o)])
+        for a, b, o in zip(dense["logits"], paged["logits"], dense["occupied"]))
+    last = torch.tensor(dense["occupied"][-1])
+    bitwise_last = torch.equal(dense["logits"][-1][last],
+                               paged["logits"][-1][last])
+    below = all(p < d for p, d in zip(paged["bytes"], dense["bytes"]) if d)
+    out = {"phase": "lm_paged", "card": smi, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "quant_bits": 8,
+           "batch": PAGED_BATCH, "page": PAGED_PAGE, "chunk_tokens": PAGED_CHUNK,
+           "max_seq": PAGED_MAX_SEQ, "prompts": list(PAGED_PROMPTS),
+           "max_new": PAGED_MAX_NEW, "build_s": build_s, "run_s": run_s,
+           "tokens_identical": tokens["dense"] == tokens["paged"],
+           "same_schedule": same_schedule, "logits_bitwise_every_step": bitwise,
+           "logits_bitwise_last_step": bitwise_last,
+           "cache_bytes_below_dense": below,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    for label, run in runs.items():
+        eng = run["eng"]
+        want = ppf * (eng.admission_prefills + chunk_steps + run["decode_calls"])
+        cache_bytes = sum(x.numel() * x.element_size() for x in leaves(eng.cache))
+        out[label] = {
+            "launches": run["launches"], "expected_launches": want,
+            "prefill_cells": eng.admission_prefills, "chunk_steps": chunk_steps,
+            "decode_calls": run["decode_calls"],
+            "admission_rowsteps": eng.admission_rowsteps,
+            "decode_wall_ms_median": statistics.median(run["walls_ms"]),
+            "decode_wall_ms": run["walls_ms"],
+            "cache_tensor_bytes": cache_bytes,
+            "cache_bytes_in_use_peak": max(run["bytes"]),
+            "cache_bytes_in_use_drained": eng.cache_bytes_in_use()}
+        check(run["launches"] == want,
+              f"lm_paged {label}: {run['launches']} quant_matmul launches, "
+              f"expected {want}")
+        check(eng.admission_rowsteps == sum(PAGED_PROMPTS),
+              f"lm_paged {label}: rowsteps {eng.admission_rowsteps}")
+        check(eng.cache_bytes_in_use() == 0,
+              f"lm_paged {label}: {eng.cache_bytes_in_use()} bytes after drain")
+    check(out["tokens_identical"], "lm_paged: paged tokens differ from dense")
+    check(same_schedule, "lm_paged: the engines' schedules differ")
+    check(bitwise, "lm_paged: paged decode logits differ from dense")
+    check(below, "lm_paged: paged cache bytes not below dense")
+    check(all(len(t) == PAGED_MAX_NEW for t in tokens["paged"]),
+          "lm_paged: a request came back short")
+    # the decode step replayed: last-fed tokens and positions, in place
+    for label, run in runs.items():
+        eng = run["eng"]
+
+        def replay(eng=eng, inner=run["inner"]):
+            inner(eng.params, eng.cache, eng._ctok, eng._cpos)
+
+        replay()
+        torch.cuda.synchronize()
+        prof = lm_profile(torch, replay, 1)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            replay()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[label].update(decode_device_ms=prof["device_ms"],
+                          decode_kernels=prof["kernels"],
+                          decode_top_kernels=prof["top_kernels"],
+                          replay_wall_ms_median=statistics.median(walls))
+    out["gather_device_ms"] = (out["paged"]["decode_device_ms"]
+                               - out["dense"]["decode_device_ms"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    del runs, dense, paged, params
+    free_card(torch, dev)
+    return out
+
+
+def lm_paged_reduced(torch, dev, smi) -> dict:
+    """The reduced qwen3-8b (dense, and packed at 8 bits: its chunk cells
+    and decode calls on quant_matmul's kernel on the card, on the plain
+    version on the CPU) and recurrentgemma-2b (paged local attention
+    beside dense RG-LRU state) in float32: the dense and paged chunked
+    engines on the card against the same on the CPU — every decode call's
+    occupied logits within REDUCED_RTOL of max|logit|, identical tokens,
+    and paged equal to dense bit for bit on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    t0 = time.perf_counter()
+    out = {"phase": "lm_paged_reduced", "card": smi, "dtype": "float32",
+           "tol": REDUCED_RTOL}
+    for arch, bits in (("qwen3-8b", None), ("qwen3-8b", 8),
+                       ("recurrentgemma-2b", None)):
+        cfg = dataclasses.replace(configs.reduced(arch), dtype="float32")
+        model = api.build_model(cfg, max_seq=24)
+        p_cpu = model.init(SEED, device="cpu")
+        if bits:
+            p_cpu = engine.quantize_for_serving(p_cpu, bits)
+        prompts = [torch.randint(0, cfg.vocab, (s,),
+                                 generator=torch.Generator().manual_seed(SEED + i))
+                   for i, s in enumerate((2, 5, 9, 13, 3, 7))]
+        # a pool that never defers (recurrentgemma's 2-page window would
+        # at batch·span + 1): dense and paged keep one schedule
+        kw = dict(batch=2, page=4, chunk=4, max_new=5, prompts=prompts,
+                  n_pages=64)
+        cpu = paged_pair(torch, torch.device("cpu"), model, p_cpu, **kw)
+        before = QM.launches
+        card = paged_pair(torch, dev, model,
+                          tree_map(lambda v: v.to(dev), p_cpu), **kw)
+        launched = QM.launches - before
+        rel, tokens_same, bitwise = [], True, True
+        for label in ("dense", "paged"):
+            a, b = card[label], cpu[label]
+            tokens_same &= ([r.output for r in a["reqs"]]
+                            == [r.output for r in b["reqs"]])
+            check(a["occupied"] == b["occupied"],
+                  f"lm_paged_reduced {arch} {label}: schedules differ")
+            for la, lb, o in zip(a["logits"], b["logits"], b["occupied"]):
+                keep = torch.tensor(o)
+                rel.append(rel_err(la.cpu()[keep], lb[keep])[1])
+        check(card["paged"]["occupied"] == card["dense"]["occupied"],
+              f"lm_paged_reduced {arch}: paged and dense schedules differ")
+        for la, lb, o in zip(card["paged"]["logits"], card["dense"]["logits"],
+                             card["dense"]["occupied"]):
+            keep = torch.tensor(o, device=dev)
+            bitwise &= torch.equal(la[keep], lb[keep])
+        label = f"{arch} {bits}b" if bits else arch
+        out[label] = {"rel_err_max": max(rel), "decode_calls": len(rel) // 2,
+                      "tokens_identical": tokens_same,
+                      "paged_bitwise_dense_on_card": bitwise,
+                      "quant_matmul_launches": launched}
+        check(max(rel) <= REDUCED_RTOL,
+              f"lm_paged_reduced {label}: card vs CPU logits {max(rel)}")
+        check(tokens_same, f"lm_paged_reduced {label}: tokens differ")
+        check(bitwise, f"lm_paged_reduced {label}: paged differs from dense")
+        check((launched > 0) == bool(bits),
+              f"lm_paged_reduced {label}: {launched} quant_matmul launches")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    free_card(torch, dev)
+    return out
+
+
+def stream_frontend(torch, dev, smi) -> dict:
+    """launch.stream --listen on the kernel path in a server process and
+    launch.stream --connect from this one: every segment acked, the drained
+    scheduler packed all it enqueued. Then the same frontend in this
+    process (an InProcClient; a kernel-path FleetRunner built as the
+    launcher builds it), its nm_spmm launches counted from 0 after warm():
+    one a sparse layer (7) a flushed bucket."""
+    import asyncio
+
+    from repro_torch.core import compiler, vadetect
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import stream as launch_stream
+    from repro_torch.serve import frontend
+    from repro_torch.stream import FleetRunner
+
+    t_phase = time.perf_counter()
+    proc, addr, seen, lines, start_s = start_server(
+        "repro_torch.launch.stream", STREAM_FRONTEND_SERVER,
+        "launch.stream --listen")
+    try:
+        rec = launch_stream.main(["--connect", addr, *STREAM_FRONTEND_CLIENT])
+    finally:
+        stats = stop_server(proc, seen, lines, "launch.stream --listen")
+    n_pat = int(STREAM_FRONTEND_CLIENT[STREAM_FRONTEND_CLIENT.index("--patients") + 1])
+    n_seg = int(STREAM_FRONTEND_CLIENT[STREAM_FRONTEND_CLIENT.index("--segments") + 1])
+    total = n_pat * n_seg
+    out = {"phase": "stream_frontend", "card": smi,
+           "server_argv": list(STREAM_FRONTEND_SERVER),
+           "client_argv": ["--connect", addr, *STREAM_FRONTEND_CLIENT],
+           "server_start_s": start_s, "acks": rec["acks"], "acked": rec["acked"],
+           "client_wall_s": rec["wall_s"], "drained_stats": rec["stats"],
+           "server_stats": stats}
+    check(rec["acked"] == total and sum(rec["acks"].values()) == total,
+          f"stream_frontend: {rec['acked']} of {total} segments acked")
+    check(rec["stats"].get("sched_enqueued_total")
+          == rec["stats"].get("sched_packed_total") == total,
+          f"stream_frontend: drained stats {rec['stats']}")
+
+    # in process: the kernel path's launches, derived from the flushes
+    program = compiler.compile_model(
+        vadetect.init(torch.Generator().manual_seed(SEED), device=dev))
+    runner = FleetRunner(program, path="kernel", device=dev)
+    buckets = (8, 32, 128, 256)  # launch.stream's default --buckets
+    fe = frontend.Frontend(n_patients=n_pat, runner=runner,
+                           cfg=frontend.FrontendConfig(
+                               stream_buckets=buckets, stream_max_wait_s=0.256))
+    fe.warm()
+    torch.cuda.synchronize()
+    K.launches = 0
+
+    async def go():
+        await fe.start(host=None)
+        client = frontend.InProcClient(fe)
+        futs = [await client.send_segment(patient=p, seq=s,
+                                          urgent=p < n_pat // 8)
+                for s in range(n_seg) for p in range(n_pat)]
+        acks = [await asyncio.wait_for(f, 60.0) for f in futs]
+        drained = (await client.drain(timeout=300.0))["stats"]
+        await fe.stop()
+        return acks, drained
+
+    t0 = time.perf_counter()
+    acks, drained = asyncio.run(go())
+    inproc_s = time.perf_counter() - t0
+    launched = K.launches
+    sparse = sum(program.layers[m["name"]].sparse for m in program.layer_meta)
+    expected = sparse * drained["batches"]  # one nm_spmm a sparse layer
+    out["inproc"] = {"acked": len(acks), "stats": drained, "seconds": inproc_s,
+                     "nm_spmm_launches": launched,
+                     "expected_launches": expected,
+                     "segments_per_s": total / inproc_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(all(a["status"] == "enqueued" for a in acks)
+          and drained["sched_enqueued_total"] == drained["sched_packed_total"]
+          == total, f"stream_frontend in process: {drained}")
+    check(launched == expected and launched > 0,
+          f"stream_frontend in process: {launched} nm_spmm launches, "
+          f"expected {expected}")
+    return out
 
 
 def main() -> int:
@@ -1568,8 +2061,8 @@ def main() -> int:
           "peak_device_memory_bytes": rec["telemetry"]["peak_device_memory_bytes"]})
     # the overhead measurement again, OVERHEAD_REPEATS times in this
     # process, recorded only (the < 3% check is stream_throughput's own, on
-    # its measurement above): how far the ratio moves between calls, and
-    # on how many of each arm's runs its floor stands
+    # its measurement above): how far the paired ratio and the floors'
+    # ratio move between calls
     ovh_program = compiler.compile_model(
         vadetect.init(torch.Generator().manual_seed(SEED), device=dev))
     repeats = [overhead_footing(rec["telemetry"]["overhead"])]
@@ -1827,6 +2320,16 @@ def main() -> int:
         lm_bytes_ms, lm_ops_ms = lm_bytes_ms + count * b_ms, lm_ops_ms + count * o_ms
     clock("lm_serve")
 
+    # -- the paged cache, chunked prefill and the serving frontend ----------
+    lm_frontend(torch, dev, smi)
+    clock("lm_frontend")
+    paged = lm_paged(torch, dev, smi, launches_now, reset_launches)
+    clock("lm_paged")
+    lm_paged_reduced(torch, dev, smi)
+    clock("lm_paged_reduced")
+    stream_front = stream_frontend(torch, dev, smi)
+    clock("stream_frontend")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -2038,6 +2541,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/nm_spmm.cu",
         "replaces": "src/repro/kernels/nm_spmm.py:68",
         "launches": fleet_launches, "launches_service": main_launches,
+        "launches_frontend": stream_front["inproc"]["nm_spmm_launches"],
         "max_abs_err": max(max_abs_err, fleet_err),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2045,7 +2549,8 @@ def main() -> int:
            ("library_ms", "ms_in_run", "library_ms_in_run", "tc_bound_ms")},
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the 1000-patient fleet's kernel-path run (launches_service: "
-              "over the service run)",
+              "over the service run; launches_frontend: the stream "
+              "frontend's in-process run)",
     }, {
         "name": SC.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",
@@ -2083,6 +2588,7 @@ def main() -> int:
                for bits, run in runs.items() if bits != "bf16"},
             "whisper-tiny 8b": lm["whisper"]["int8"]["quant_matmul_launches"]},
         "launches_benchmark": bench_launches[QM.NAME],
+        "launches_paged": {k: paged[k]["launches"] for k in ("dense", "paged")},
         "max_abs_err": max(quant_err, lm["max_abs_err"]),
         **{key: lm_layer[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if lm_bytes_ms >= lm_ops_ms else "operations",
@@ -2093,7 +2599,8 @@ def main() -> int:
               "(a decode step's); library: torch.matmul on the dequantized "
               "weight, float32 (library_bf16_ms: bfloat16); launches over "
               "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit; the "
-              "other families' full CONFIGs: launches_families)",
+              "other families' full CONFIGs: launches_families; the dense "
+              "and paged chunked Engines of lm_paged: launches_paged)",
         "at_benchmark_shape": {
             key: cmul_totals[QM.NAME][key] for key in
             ("ms", "plain_ms", "bound_ms", "library_ms", "ms_in_run",

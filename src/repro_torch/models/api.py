@@ -11,6 +11,17 @@ whose entry points are what the server drives:
     loss(params, batch)            -> raises: LM training is ROADMAP.md
                                       queue 1 item 10
 
+and, for the decoder-only stack, the paged serving cache (None for the
+encoder-decoder model, as in the reference):
+
+    init_cache_paged(batch, n_pages, page, device=None) -> cache with
+                                      K/V page pools
+    decode_step_paged(params, cache, token, pos, page_tbl, page)
+                                   -> (logits, cache)
+    page_layouts(page)             -> {attn cache path prefix:
+                                      (pages_per_slot, page)}
+    attn_capacities()              -> per-attention-block capacities
+
 `device=None` means the CUDA card, as everywhere in the port. The
 decode step updates the cache in place (`models.transformer`,
 `models.whisper`). The dry-run's `input_specs` is not ported (ROADMAP.md
@@ -20,7 +31,7 @@ queue 1 item 9).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -56,6 +67,10 @@ class Model:
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode_step: Callable[..., tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]
+    init_cache_paged: Optional[Callable[..., Any]] = None
+    decode_step_paged: Optional[Callable[..., tuple[torch.Tensor, Any]]] = None
+    page_layouts: Optional[Callable[[int], dict]] = None
+    attn_capacities: Optional[Callable[[], tuple[int, ...]]] = None
 
 
 def build_model(cfg: ArchConfig, *, tp: int = 1, max_seq: int = 4096) -> Model:
@@ -100,4 +115,14 @@ def build_model(cfg: ArchConfig, *, tp: int = 1, max_seq: int = 4096) -> Model:
         init_cache=lambda batch, device=None: T.init_cache(
             cfg, dims, batch, max_seq, _device.resolve(device)
         ),
+        init_cache_paged=lambda batch, n_pages, page, device=None: (
+            T.init_cache_paged(cfg, dims, batch, n_pages, page, max_seq,
+                               _device.resolve(device))
+        ),
+        decode_step_paged=lambda p, cache, token, pos, tbl, page: (
+            T.decode_step(p, cache, token, pos, cfg, dims, page_tbl=tbl,
+                          page=page)
+        ),
+        page_layouts=lambda page: T.paged_layouts(cfg, page, max_seq),
+        attn_capacities=lambda: T.attn_capacities(cfg, max_seq),
     )

@@ -26,10 +26,18 @@ included, as in the reference (seating overwrites a row when it is
 reused). A caller that needs the old cache clones it first. `prefill`
 builds a fresh cache.
 
+The paged cache (`init_cache_paged`, `decode_step(page_tbl=, page=)`)
+keeps every attention block's K/V in a shared `(n_pages, page, ...)` pool
+behind a slot->page table the engine passes in per step; `slot_pos` and
+recurrent state stay dense per slot. A paged step gathers the slot's
+pages into the dense ring view, writes the new K/V into that view and
+into its physical page, and attends over the view: bit for bit the dense
+step (masked scores weigh exactly 0).
+
 Not ported yet, and raising `NotImplementedError` (nothing falls back):
-the paged cache (ROADMAP.md queue 1 item 7) and `loss_fn` (item 10). The
-reference's `constrain` layout hints do nothing on one device and are
-dropped (item 8), as is its `remat` (training, item 10).
+`loss_fn` (ROADMAP.md queue 1 item 10). The reference's `constrain`
+layout hints do nothing on one device and are dropped (item 8), as is its
+`remat` (training, item 10).
 """
 
 from __future__ import annotations
@@ -58,7 +66,6 @@ from repro_torch.models.layers import (
     softcap,
 )
 
-PAGING_ITEM = "ROADMAP.md queue 1 item 7"
 TRAINING_ITEM = "ROADMAP.md queue 1 item 10"
 
 
@@ -220,13 +227,58 @@ def attn_capacities(cfg: ArchConfig, max_seq: int) -> tuple[int, ...]:
     )
 
 
+def _check_page(kind: str, cap: int, page: int) -> None:
+    if cap % page != 0:
+        raise ValueError(
+            f"page={page} does not divide {kind} cache capacity {cap}"
+        )
+
+
+def attn_cache_init_paged(
+    cfg: ArchConfig, dims: Dims, kind: str, batch: int, n_pages: int,
+    page: int, max_seq: int, dtype, *, lead: tuple = (), device=None,
+) -> dict:
+    """Paged twin of `attn_cache_init`: K/V (and int8 scales) become
+    `(n_pages, page, ...)` physical pages; which pages belong to which
+    slot is the engine's table, passed into `decode_step` each step and
+    never stored in the cache. `slot_pos` stays a dense per-slot
+    `(batch, cap)`: it is the validity mask that keeps garbage in unmapped
+    and scratch pages unread, so it is always slot-addressed."""
+    cap = cache_capacity(cfg, kind, max_seq)
+    _check_page(kind, cap, page)
+    shape = (*lead, n_pages, page, dims.n_kv, cfg.hd)
+    sp = torch.full((*lead, batch, cap), -1, dtype=torch.int32, device=device)
+    if cfg.kv_quant_bits == 8:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], device=device),
+            "v_scale": torch.zeros(shape[:-1], device=device),
+            "slot_pos": sp,
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "slot_pos": sp,
+    }
+
+
 def paged_layouts(cfg: ArchConfig, page: int, max_seq: int) -> dict:
-    raise NotImplementedError(f"the paged KV cache is not ported yet ({PAGING_ITEM})")
+    """attn cache path prefix -> (logical pages per slot, page size).
 
-
-def init_cache_paged(cfg: ArchConfig, dims: Dims, batch: int, n_pages: int,
-                     page: int, max_seq: int) -> dict:
-    raise NotImplementedError(f"the paged KV cache is not ported yet ({PAGING_ITEM})")
+    Keys are the '/'-joined tree paths of the paged K/V leaves' parents
+    (e.g. "blocks/pos0/attn"); `serve.seating` uses them to tell page-pool
+    leaves from dense per-slot leaves, and the engine to size a block's
+    view of the table."""
+    out: dict[str, tuple[int, int]] = {}
+    for top, kinds in (("blocks", cfg.pattern), ("tail", cfg.tail or ())):
+        for i, kind in enumerate(kinds):
+            if kind in ("rglru", "rwkv"):
+                continue
+            cap = cache_capacity(cfg, kind, max_seq)
+            _check_page(kind, cap, page)
+            out[f"{top}/pos{i}/attn"] = (cap // page, page)
+    return out
 
 
 def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -240,11 +292,26 @@ def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def attn_apply_decode(
     p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
-    cfg: ArchConfig, dims: Dims, kind: str, *, spe, dtype,
+    cfg: ArchConfig, dims: Dims, kind: str, *, spe, dtype, page_tbl=None,
+    page: int = 0,
 ) -> tuple[torch.Tensor, dict]:
     """x (B,1,D); pos (B,) absolute positions. Writes the token's K/V into
     its ring slot (`pos % cap`) of `cache` in place, then attends over the
-    cache. Returns (y, cache)."""
+    cache. Returns (y, cache).
+
+    With `page_tbl` (B, span) set, K/V live in a `(n_pages, page, ...)`
+    pool. In the reference's order: the slot's pages are gathered into the
+    dense (B, cap) ring view, the new token is written into that view at
+    its slot and, separately, into its physical page, and attention runs
+    on the view. (Writing the pool first and gathering after would not be
+    the reference's step: every idle row's table points at the shared
+    scratch page, so an idle row would read another row's K/V at its own
+    position. Idle rows' logits are discarded either way.)
+    Unmapped logical pages point at scratch, whose garbage never survives
+    the `slot_pos` mask (masked scores weigh exp(-1e30 - ...) == 0.0
+    exactly), so paged and dense decode are bitwise identical. Idle rows
+    all write the scratch page, in an unspecified order on the card;
+    scratch is never read unmasked."""
     b = x.shape[0]
     rope_pos = pos[:, None]  # (B,1)
     if cfg.mrope_sections:
@@ -254,25 +321,30 @@ def attn_apply_decode(
     slot = (pos % cap).long()  # (B,)
     bidx = torch.arange(b, device=x.device)
     cache["slot_pos"][bidx, slot] = pos.to(torch.int32)
+    new = {"k": k[:, 0], "v": v[:, 0]}
     if cfg.kv_quant_bits == 8:
-        kq, ks = _kv_quant(k)
-        vq, vs = _kv_quant(v)
-        cache["k"][bidx, slot] = kq[:, 0]
-        cache["v"][bidx, slot] = vq[:, 0]
-        cache["k_scale"][bidx, slot] = ks[:, 0]
-        cache["v_scale"][bidx, slot] = vs[:, 0]
-        out = A.attention_decode(
-            q[:, 0], cache["k"], cache["v"], cache["slot_pos"], pos,
-            kind=kind, window=cfg.window, cap=cfg.attn_softcap,
-            k_scale=cache["k_scale"], v_scale=cache["v_scale"],
-        )
+        (new["k"], new["k_scale"]), (new["v"], new["v_scale"]) = (
+            _kv_quant(k[:, 0]), _kv_quant(v[:, 0]))
+    if page_tbl is None:
+        view = cache
+        for name, val in new.items():
+            cache[name][bidx, slot] = val.to(cache[name].dtype)
     else:
-        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-        out = A.attention_decode(
-            q[:, 0], cache["k"], cache["v"], cache["slot_pos"], pos,
-            kind=kind, window=cfg.window, cap=cfg.attn_softcap,
-        )
+        tblb = page_tbl[:, : cap // page].long()  # (B, maxp) this block's
+        phys = tblb[bidx, slot // page]
+        off = slot % page
+        view = {}
+        for name, val in new.items():
+            pool = cache[name]
+            # gather first: the dense ring view (B, cap, ...)
+            view[name] = pool[tblb].reshape(b, cap, *pool.shape[2:])
+            view[name][bidx, slot] = val.to(pool.dtype)
+            pool[phys, off] = val.to(pool.dtype)
+    out = A.attention_decode(
+        q[:, 0], view["k"], view["v"], cache["slot_pos"], pos,
+        kind=kind, window=cfg.window, cap=cfg.attn_softcap,
+        k_scale=view.get("k_scale"), v_scale=view.get("v_scale"),
+    )
     y = linear_apply(
         p["wo"], out.reshape(b, 1, dims.n_heads * cfg.hd), spe=spe,
         dtype=dtype,
@@ -376,6 +448,8 @@ def block_apply(
     cache: Optional[dict] = None,
     spe=None,
     dtype=torch.bfloat16,
+    page_tbl=None,
+    page: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (h, moe_aux, cache) — the cache updated in place."""
     if kind == "rwkv":
@@ -395,7 +469,7 @@ def block_apply(
     elif cache is not None:
         mixed, _ = attn_apply_decode(
             p["mix"], a_in, pos, cache["attn"], cfg, dims, kind,
-            spe=spe, dtype=dtype,
+            spe=spe, dtype=dtype, page_tbl=page_tbl, page=page,
         )
     else:
         mixed = attn_apply_train(
@@ -427,6 +501,19 @@ def block_cache_init(
         }}
     return {"attn": attn_cache_init(cfg, dims, kind, batch, max_seq, dtype,
                                     lead=lead, device=device)}
+
+
+def block_cache_init_paged(
+    cfg: ArchConfig, dims: Dims, kind: str, batch: int, n_pages: int,
+    page: int, max_seq: int, dtype, *, lead: tuple = (), device=None,
+) -> dict:
+    if kind in ("rwkv", "rglru"):
+        # recurrent state is O(1) per slot: nothing to page
+        return block_cache_init(cfg, dims, kind, batch, max_seq, dtype,
+                                lead=lead, device=device)
+    return {"attn": attn_cache_init_paged(
+        cfg, dims, kind, batch, n_pages, page, max_seq, dtype, lead=lead,
+        device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +632,31 @@ def init_cache(
     return cache
 
 
+def init_cache_paged(
+    cfg: ArchConfig, dims: Dims, batch: int, n_pages: int, page: int,
+    max_seq: int, device=None,
+) -> dict:
+    """Paged twin of `init_cache`: every attention block position gets its
+    own `(n_pages, page, ...)` K/V pool; recurrent and `slot_pos` state
+    stays dense per slot. With no attention blocks this is exactly
+    `init_cache` (paging degenerates to the dense pool)."""
+    dtype = compute_dtype(cfg)
+    cache: dict[str, Any] = {"blocks": {
+        f"pos{p_idx}": block_cache_init_paged(
+            cfg, dims, kind, batch, n_pages, page, max_seq, dtype,
+            lead=(cfg.n_groups,), device=device)
+        for p_idx, kind in enumerate(cfg.pattern)
+    }}
+    if cfg.tail:
+        cache["tail"] = {
+            f"pos{i}": block_cache_init_paged(
+                cfg, dims, kind, batch, n_pages, page, max_seq, dtype,
+                device=device)
+            for i, kind in enumerate(cfg.tail)
+        }
+    return cache
+
+
 def decode_step(
     params: dict,
     cache: dict,
@@ -552,14 +664,11 @@ def decode_step(
     pos: torch.Tensor,  # (B,) int absolute position of `token`
     cfg: ArchConfig,
     dims: Dims,
-    page_tbl=None,
+    page_tbl=None,  # (B, span) int slot->page table; None = dense pool
     page: int = 0,
 ) -> tuple[torch.Tensor, dict]:
     """One-token step: returns (logits (B, V_padded) f32, cache), the cache
     updated in place."""
-    if page_tbl is not None:
-        raise NotImplementedError(
-            f"paged decode is not ported yet ({PAGING_ITEM})")
     dtype = compute_dtype(cfg)
     h = embed_apply(params["embed"], token[:, None], dtype=dtype,
                     scale=cfg.scale_embed)
@@ -567,6 +676,7 @@ def decode_step(
         h, _, _ = block_apply(
             _at(params, where), h, pos, cfg, dims, kind,
             cache=_at(cache, where), spe=None, dtype=dtype,
+            page_tbl=page_tbl, page=page,
         )
     h = norm_apply(cfg.norm, params["final_norm"], h)
     return _logits(params, h, cfg, dtype)[:, 0], cache

@@ -35,13 +35,21 @@ encoder-decoder model (whisper) is refused by `Engine` and `generate` with
 `EncDecUnsupportedError`, as in the reference: drive it through
 `model.prefill(params, tokens, frames)` and `model.decode_step`.
 
-Not ported yet: `paging=` and `chunk_tokens=` (ROADMAP.md queue 1 item 7)
-raise NotImplementedError.
+Paging (`paging=PagingConfig(...)`): attention K/V live in a page pool
+behind a host-side slot->page table (`serve.paging`); admission reserves
+a request's worst-case pages, decode maps a new page at each page
+boundary, and finishing returns them, so resident cache bytes follow the
+positions actually written (`cache_bytes_in_use`). Chunked prefill
+(`chunk_tokens=`): prompts longer than the chunk prefill in a standalone
+rows-cache, one chunk a tick, so short requests admit and the pool
+decodes in between; a chunked request takes a slot only when its prompt
+is done.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Optional, Sequence
 
@@ -54,7 +62,13 @@ from repro_torch.concurrency import driver_thread_only
 from repro_torch.models.api import Model
 from repro_torch.models.layers import compile_linear_quant
 from repro_torch.serve import seating
-from repro_torch.serve.paging import PagingConfig
+from repro_torch.serve.paging import (
+    PageAllocator,
+    PagesExhaustedError,
+    PagingConfig,
+    pages_for_position,
+    validate_page_size,
+)
 
 
 # the names of the {"w"} linears packed at serve time. Everything else
@@ -170,6 +184,44 @@ class Request:
     done: bool = False
 
 
+@dataclasses.dataclass
+class _ChunkState:
+    """One long prompt mid chunked-prefill: a standalone rows-cache the
+    chunk cell advances `chunk_tokens` prompt tokens per tick, so the
+    pool's decode ticks (and other admissions) interleave instead of
+    stalling behind one O(prompt) prefill. Takes a pool slot only at
+    completion."""
+
+    req: Request
+    cache: Any  # rows-format cache being built
+    done: int  # prompt tokens already fed
+    logits: Any = None  # (rows, V) last real step's logits once ready
+    ready: bool = False
+
+
+def _chunk_prefill_fn(model: Model):
+    """Chunked-prefill cell body: `decode_step` over the `n` real tokens
+    of one chunk; returns the last step's logits and the rows-cache.
+
+    The reference scans a chunk padded to its full width and masks the
+    pad steps' cache writes (`jnp.where(act, new, old)`). The port's
+    decode step writes the cache in place, so a mask applied afterwards
+    would restore nothing: the pad steps are not run at all, which leaves
+    the same cache and the same last-real-step logits. (A recurrent block
+    would advance its state on a pad step; running none keeps it
+    exact.)"""
+
+    def fn(params, cache, toks, poss, n: int):
+        # toks / poss (rows, c) int64; the first n columns are real
+        logits = None
+        for t in range(n):
+            logits, cache = model.decode_step(params, cache, toks[:, t],
+                                              poss[:, t])
+        return logits, cache
+
+    return fn
+
+
 class Engine:
     """Slot-based batched decoder around a Model, on one device (`None`
     means the CUDA card; `params` must be there).
@@ -177,9 +229,11 @@ class Engine:
     Admission is batched: each round takes up to |free slots| queued
     requests, groups them by prompt length, runs one `model.prefill` per
     group, and scatter-seats the resulting cache rows into the pool
-    (`serve.seating.scatter_slots`). `admission_rowsteps` counts the
-    (row x token) units actually spent, `admission_prefills` the prefill
-    cells run.
+    (`serve.seating.scatter_slots`, or `scatter_pages` when paged).
+    `admission_rowsteps` counts the (row x token) units actually spent,
+    `admission_prefills` the prefill cells run. With `paging`, K/V live
+    in a page pool (see the module docstring); with `chunk_tokens`, longer
+    prompts prefill in chunks between decode ticks.
     """
 
     def __init__(self, model: Model, params: Any, *, batch_size: int,
@@ -188,11 +242,6 @@ class Engine:
                  paging: Optional[PagingConfig] = None,
                  chunk_tokens: Optional[int] = None,
                  device: _device.DeviceLike = None):
-        if paging is not None or chunk_tokens is not None:
-            raise NotImplementedError(
-                "the paged cache and chunked prefill are not ported yet "
-                "(ROADMAP.md queue 1 item 7)"
-            )
         _reject_enc_dec(model.cfg, "the slot engine")
         self.device = _device.resolve(device)
         self.model = model
@@ -202,13 +251,53 @@ class Engine:
         self.temperature = temperature
         self.top_k = top_k
         self.key = key if key is not None else prng_key(0)
+        if chunk_tokens is not None and chunk_tokens < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
+        self.chunk_tokens = chunk_tokens
+        self.paging = paging
+        self._pg: Optional[PageAllocator] = None
+        self._page = 0
+        self._span = 0
+        self._layouts: dict = {}
+        if paging is not None:
+            if model.init_cache_paged is None:
+                raise TypeError(
+                    f"model {model.cfg.name!r} has no paged cache support"
+                )
+            self._page = paging.page_size
+            self._span = validate_page_size(
+                paging.page_size, model.attn_capacities()
+            )
+            if self._span:
+                # pure-recurrent models have nothing to page: the paged
+                # cache degenerates to the dense pool and no allocator is
+                # needed (span == 0 keeps _pg None)
+                self._layouts = model.page_layouts(paging.page_size)
+                # one pool shard on one device (a sharded engine's pool
+                # has one a data-axis device, ROADMAP.md queue 1 item 8)
+                self._pg = PageAllocator(paging.n_pages)
+        if self._pg is not None:
+            # host-authoritative slot->page table + per-slot mirrors (page
+            # count, last written position). The device sees a copy of
+            # _tbl each decode step, never stored in the cache tree
+            self._tbl = np.full((batch_size, self._span),
+                                self._pg.scratch(), np.int64)
+            self._npages = [0] * batch_size
+            self._hpos = [0] * batch_size
         probe = obs.get().probe
-        self._decode = probe.track("serve.decode_step", model.decode_step)
+        self._decode = self._compile_decode()
         self._prefill = probe.track("serve.prefill", model.prefill)
-        self._seat = probe.track("serve.seat", seating.scatter_slots)
+        self._seat = probe.track(
+            "serve.seat",
+            functools.partial(seating.scatter_pages, layouts=self._layouts)
+            if self._pg is not None else seating.scatter_slots,
+        )
+        self._chunk = probe.track("serve.chunk", _chunk_prefill_fn(model))
         self._queue: list[Request] = []
         self._slots: list[Optional[Request]] = [None] * batch_size
-        self.cache = model.init_cache(batch_size, device=self.device)
+        self._chunks: list[_ChunkState] = []
+        self._chunk_wait: list[Request] = []
+        self.cache = self._init_cache()
 
         def zi():
             return torch.zeros((batch_size,), dtype=torch.long,
@@ -229,7 +318,7 @@ class Engine:
         self._slot_keys: list[tuple[int, ...]] = [self.key] * batch_size
         self._nout = [0] * batch_size
         # admission accounting: (rows x tokens) pushed through prefill
-        # cells, and how many cells ran
+        # and chunk cells, and how many prefill cells ran
         self.admission_rowsteps = 0
         self.admission_prefills = 0
         # request latency tracking (wall), populated only when telemetry
@@ -240,6 +329,34 @@ class Engine:
         # clobber the live request's TTFT accounting and collide its
         # sampling stream; reuse after finish is legal
         self._inflight: set[int] = set()
+
+    # -- the cache and the page pool -----------------------------------------
+
+    def _init_cache(self) -> Any:
+        if self.paging is not None:
+            return self.model.init_cache_paged(
+                self.batch, self.paging.n_pages, self._page,
+                device=self.device)
+        return self.model.init_cache(self.batch, device=self.device)
+
+    def _tbl_device(self, rows=slice(None)) -> torch.Tensor:
+        return torch.as_tensor(self._tbl[rows]).to(self.device)
+
+    def _compile_decode(self):
+        probe = obs.get().probe
+        if self._pg is None:
+            return probe.track("serve.decode_step", self.model.decode_step)
+        model, page = self.model, self._page
+        cell = probe.track(
+            "serve.decode_step",
+            lambda p, c, t, pos, tbl: model.decode_step_paged(
+                p, c, t, pos, tbl, page),
+        )
+
+        def step(params, cache, tok, pos):
+            return cell(params, cache, tok, pos, self._tbl_device())
+
+        return step
 
     # -- queue / admission --------------------------------------------------
 
@@ -261,6 +378,28 @@ class Engine:
                 f"accounting and collide its sampling stream; wait for "
                 f"it to finish or submit under a fresh uid"
             )
+        prompt = torch.as_tensor(req.prompt)
+        if prompt.device.type == "cpu":
+            # jnp clamps an out-of-range embedding index; torch raises (on
+            # the card, a device-side assert that ends the process). Read
+            # on the host only: a prompt already on the card is not waited
+            # for here (the frontend's prompts arrive on the host)
+            lo, hi = int(prompt.min()), int(prompt.max())
+            if lo < 0 or hi >= self.model.dims.vocab:
+                raise ValueError(
+                    f"request {req.uid}: prompt token ids span [{lo}, {hi}],"
+                    f" outside the vocabulary [0, {self.model.dims.vocab})"
+                )
+        s_len = int(req.prompt.shape[0])
+        if not self.admissible(s_len, req.max_new):
+            # never satisfiable: its worst-case page need exceeds the
+            # whole usable pool, so no amount of waiting can ever seat it
+            raise PagesExhaustedError(
+                f"request {req.uid}: prompt {s_len} + max_new "
+                f"{req.max_new} needs {self._worst_pages(s_len, req.max_new)}"
+                f" pages, but the pool has only "
+                f"{self._pg.usable_per_shard} usable"
+            )
         self._inflight.add(req.uid)
         tel = obs.get()
         if tel.enabled:
@@ -268,22 +407,58 @@ class Engine:
             tel.tracer.instant(
                 "serve/submit", cat="serve",
                 request_id=f"serve:{req.uid}",
-                prompt_len=int(req.prompt.shape[0]),
+                prompt_len=s_len,
             )
         self._queue.append(req)
         tel.registry.counter("serve.submitted_total").inc()
+
+    def _worst_pages(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case pages a request can ever hold: prompt + max_new
+        tokens write positions 0..prompt_len+max_new-2 (the last generated
+        token is never fed back)."""
+        return pages_for_position(
+            prompt_len + max_new - 2, self._page, self._span
+        )
+
+    def admissible(self, prompt_len: int, max_new: int) -> bool:
+        """False when the request can NEVER be seated (worst-case page need
+        exceeds the whole usable pool). Host arithmetic only — safe
+        to call from the frontend's event loop."""
+        if self._pg is None:
+            return True
+        return (self._worst_pages(prompt_len, max_new)
+                <= self._pg.usable_per_shard)
+
+    def _pick_seat(self, req: Request, free: list) -> Optional[int]:
+        """Claim a free slot (and, paged, reserve the request's worst-case
+        pages). None when the pool cannot cover the reservation now:
+        admission defers until running tenants free pages."""
+        if self._pg is not None and not self._reserve(req):
+            return None
+        return free.pop(0)
 
     def _admit(self) -> None:
         # admission rounds: requests finishing at admission (EOS on
         # their first token) never occupy a slot, so their freed seats
         # go back into the next round on the same tick
+        if self.chunk_tokens is not None:
+            self._start_chunks()
         while self._queue:
             free = [i for i in range(self.batch) if self._slots[i] is None]
             if not free:
                 return
             pairs = []
+            blocked = False
             while self._queue and free:
-                pairs.append((free.pop(0), self._queue.pop(0)))
+                slot = self._pick_seat(self._queue[0], free)
+                if slot is None:
+                    # the page pool cannot cover the FIFO head yet: hold it
+                    # (and everything behind it) until pages free up
+                    blocked = True
+                    break
+                pairs.append((slot, self._queue.pop(0)))
+            if not pairs:
+                return
             groups: dict[int, list] = {}
             for slot, req in pairs:
                 groups.setdefault(int(req.prompt.shape[0]), []).append(
@@ -291,6 +466,8 @@ class Engine:
                 )
             for s_len, grp in groups.items():
                 self._admit_group(s_len, grp)
+            if blocked:
+                return
 
     def _admit_group(self, s_len: int, pairs: list) -> None:
         """One batched prefill + scatter-seat for same-length prompts."""
@@ -303,6 +480,54 @@ class Engine:
         with tel.span("serve/admit", cat="serve", s_len=s_len,
                       n=len(pairs), **tagged):
             self._admit_group_inner(tel, s_len, pairs, tagged)
+
+    def _first_tokens(self, logits: torch.Tensor, reqs: list) -> list:
+        """Each admitted request's first token from its prefill logits —
+        the same source `generate` uses, which is what makes the two paths
+        token-identical."""
+        if self.greedy:
+            return torch.argmax(logits, dim=-1).tolist()
+        return sample_tokens(
+            logits,
+            [fold_in(request_key(self.key, r.uid), 0) for r in reqs],
+            temperature=self.temperature, top_k=self.top_k,
+        ).tolist()
+
+    def _take_first(self, tel, req: Request, slot: int, first: int) -> bool:
+        """Record a request's first token; True when that finishes it (EOS
+        on the first token, or max_new 1): it must then never occupy the
+        slot, and its page reservation is released."""
+        req.output.append(first)
+        if tel.enabled:
+            t_now = time.perf_counter()
+            t0 = self._t_submit.pop(req.uid, None)
+            if t0 is not None:
+                tel.registry.histogram("serve.ttft_s").observe(t_now - t0)
+            self._t_last_tok[slot] = t_now
+        if not ((req.eos is not None and first == req.eos)
+                or len(req.output) >= req.max_new):
+            return False
+        req.done = True
+        self._inflight.discard(req.uid)
+        if self._pg is not None:
+            self._pg.free(req.uid)  # releases the reservation
+        self.active[slot] = False
+        self._t_last_tok.pop(slot, None)
+        if tel.enabled:
+            tel.tracer.instant(
+                "serve/finish", cat="serve",
+                request_id=f"serve:{req.uid}",
+                n_tokens=len(req.output),
+                at_admission=True,
+            )
+        return True
+
+    def _seat_rows(self, rows: Any, src: list, dst: list) -> None:
+        if self._pg is not None:
+            self.cache = self._seat(self.cache, rows, src, dst,
+                                    self._tbl_device(dst))
+        else:
+            self.cache = self._seat(self.cache, rows, src, dst)
 
     def _admit_group_inner(self, tel, s_len: int, pairs: list,
                            tagged: dict) -> None:
@@ -319,42 +544,10 @@ class Engine:
         self.admission_prefills += 1
         tel.registry.counter("serve.admission_rowsteps").add(n * s_len)
         tel.registry.counter("serve.admission_prefills").inc()
-        # the first generated token comes from the prefill's final
-        # logits — the same source `generate` uses, which is what makes
-        # the two paths token-identical
-        if self.greedy:
-            firsts = torch.argmax(logits, dim=-1)
-        else:
-            firsts = sample_tokens(
-                logits,
-                [fold_in(request_key(self.key, r.uid), 0) for r in reqs],
-                temperature=self.temperature, top_k=self.top_k,
-            )
         src, dst = [], []
-        for j, ((slot, req), first) in enumerate(zip(pairs, firsts.tolist())):
-            req.output.append(first)
-            if tel.enabled:
-                t_now = time.perf_counter()
-                t0 = self._t_submit.pop(req.uid, None)
-                if t0 is not None:
-                    tel.registry.histogram("serve.ttft_s").observe(t_now - t0)
-                self._t_last_tok[slot] = t_now
-            if (
-                req.eos is not None and first == req.eos
-            ) or len(req.output) >= req.max_new:
-                # EOS-on-first-token guard: the request finishes at
-                # admission and must never occupy the slot
-                req.done = True
-                self._inflight.discard(req.uid)
-                self.active[slot] = False
-                self._t_last_tok.pop(slot, None)
-                if tel.enabled:
-                    tel.tracer.instant(
-                        "serve/finish", cat="serve",
-                        request_id=f"serve:{req.uid}",
-                        n_tokens=len(req.output),
-                        at_admission=True,
-                    )
+        for j, ((slot, req), first) in enumerate(
+                zip(pairs, self._first_tokens(logits, reqs))):
+            if self._take_first(tel, req, slot, first):
                 continue
             src.append(j)
             dst.append(slot)
@@ -362,12 +555,21 @@ class Engine:
             self._seat_slot_state(req, slot, s_len, first)
         if src:
             with tel.span("serve/seat", cat="serve", n=len(src), **tagged):
-                self.cache = self._seat(self.cache, cache_rows, src, dst)
+                self._seat_rows(cache_rows, src, dst)
                 tel.block(leaves(self.cache))
 
     def _seat_slot_state(self, req: Request, slot: int, s_len: int,
                          first: int) -> None:
-        """Per-slot engine state for a freshly seated request."""
+        """Per-slot engine state for a freshly seated request (batched
+        admission and chunked-prefill completion). Paged: the prompt's
+        pages are drawn from the request's reservation into the table
+        before its cache rows are scattered."""
+        if self._pg is not None:
+            p0 = pages_for_position(s_len - 1, self._page, self._span)
+            for j in range(p0):
+                self._tbl[slot, j] = self._pg.alloc(req.uid)
+            self._npages[slot] = p0
+            self._hpos[slot] = s_len - 1
         self.pos[slot] = s_len - 1
         self.tokens[slot] = first
         self.active[slot] = True
@@ -376,19 +578,151 @@ class Engine:
         self._slot_keys[slot] = request_key(self.key, req.uid)
         self._nout[slot] = 1
 
+    # -- chunked prefill ----------------------------------------------------
+
+    def _reserve(self, req: Request) -> bool:
+        """Reserve the request's worst-case pages; False (nothing
+        reserved) when the pool cannot cover them now."""
+        worst = self._worst_pages(int(req.prompt.shape[0]), req.max_new)
+        try:
+            self._pg.reserve(req.uid, worst)
+        except PagesExhaustedError:
+            return False
+        return True
+
+    def _start_chunks(self) -> None:
+        """Move long prompts off the admission queue into chunked prefill.
+        Short prompts behind a long one admit normally — the starvation
+        the chunk interleave exists to prevent. Requests whose page
+        reservation cannot be covered yet park in `_chunk_wait` and retry
+        each tick."""
+        c = self.chunk_tokens
+        longs = [r for r in self._queue if int(r.prompt.shape[0]) > c]
+        if longs:
+            self._queue = [r for r in self._queue
+                           if int(r.prompt.shape[0]) <= c]
+        tel = obs.get()
+        for req in self._chunk_wait + longs:
+            if self._pg is not None and not self._reserve(req):
+                if req not in self._chunk_wait:
+                    self._chunk_wait.append(req)
+                continue
+            if req in self._chunk_wait:
+                self._chunk_wait.remove(req)
+            # a fresh dense one-row cache for the chunk cell
+            self._chunks.append(_ChunkState(
+                req=req, cache=self.model.init_cache(1, device=self.device),
+                done=0))
+            if tel.enabled:
+                tel.tracer.instant(
+                    "serve/chunk_start", cat="serve",
+                    request_id=f"serve:{req.uid}",
+                    prompt_len=int(req.prompt.shape[0]),
+                )
+
+    def _chunk_tick(self, tel) -> int:
+        """Advance every chunking request by one chunk; seat the ones that
+        completed (free pool slot permitting). Returns the number of
+        requests still mid-chunk or waiting — they count as engine
+        activity, so `run()` and frontend drains do not stop early."""
+        if self._chunk_wait:
+            self._start_chunks()
+        for st in list(self._chunks):
+            if not st.ready:
+                self._chunk_advance(tel, st)
+            if st.ready and self._chunk_seat(tel, st):
+                self._chunks.remove(st)
+        return len(self._chunks) + len(self._chunk_wait)
+
+    def _chunk_advance(self, tel, st: _ChunkState) -> None:
+        prompt = torch.as_tensor(st.req.prompt, dtype=torch.long)
+        lo = st.done
+        hi = min(lo + self.chunk_tokens, prompt.shape[0])
+        toks = prompt[lo:hi][None].to(self.device)
+        poss = torch.arange(lo, hi, device=self.device)[None]
+        with tel.span(
+            "serve/chunk", cat="serve", lo=lo, hi=hi,
+            **({"request_ids": [f"serve:{st.req.uid}"]}
+               if tel.enabled else {}),
+        ):
+            st.logits, st.cache = self._chunk(self.params, st.cache, toks,
+                                              poss, hi - lo)
+            tel.block(st.logits)
+        self.admission_rowsteps += hi - lo
+        tel.registry.counter("serve.admission_rowsteps").add(hi - lo)
+        tel.registry.counter("serve.chunk_steps").inc()
+        st.done = hi
+        st.ready = st.done >= prompt.shape[0]
+
+    def _chunk_seat(self, tel, st: _ChunkState) -> bool:
+        """Seat a completed chunked prefill into a free pool slot. First
+        token, TTFT and the EOS-on-first-token guard mirror batched
+        admission exactly."""
+        req = st.req
+        free = [i for i in range(self.batch) if self._slots[i] is None]
+        if not free:
+            return False
+        slot = free[0]
+        first = self._first_tokens(st.logits, [req])[0]
+        if self._take_first(tel, req, slot, first):
+            return True
+        self._slots[slot] = req
+        self._seat_slot_state(req, slot, int(req.prompt.shape[0]), first)
+        with tel.span(
+            "serve/seat", cat="serve", n=1, chunked=True,
+            **({"request_ids": [f"serve:{req.uid}"]}
+               if tel.enabled else {}),
+        ):
+            self._seat_rows(st.cache, [0], [slot])
+            tel.block(leaves(self.cache))
+        return True
+
+    def _step_single(self, slot: int, token: int, pos: int) -> torch.Tensor:
+        """Compatibility shim (the reference's replay admission ran prompts
+        through this): feed one slot (token, pos) while every other slot
+        re-feeds its last-fed state. Retransmitting a slot's last-fed
+        (token, pos) is a bitwise no-op for attention caches — K/V writes
+        depend only on (token, pos), not on the cache's contents."""
+        self._ctok[slot] = token
+        self._cpos[slot] = pos
+        logits, self.cache = self._decode(self.params, self.cache,
+                                          self._ctok, self._cpos)
+        return logits
+
     @driver_thread_only
     def tick(self) -> int:
-        """One decode tick for the whole pool; returns #active slots."""
+        """One decode tick for the whole pool; returns #active slots (plus
+        requests mid chunked-prefill)."""
         tel = obs.get()
         with tel.span("serve/tick", cat="serve"):
             n_active = self._tick_inner(tel)
         tel.registry.gauge("serve.active_slots").set(n_active)
         return n_active
 
+    def _map_pages(self) -> None:
+        """Page-boundary crossings: every occupied slot writes position
+        _hpos + 1 this tick, so any newly needed logical page is mapped
+        before the decode cell sees the table (the seated reservation
+        guarantees the alloc)."""
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            nw = self._hpos[slot] + 1
+            need = pages_for_position(nw, self._page, self._span)
+            while self._npages[slot] < need:
+                self._tbl[slot, self._npages[slot]] = self._pg.alloc(req.uid)
+                self._npages[slot] += 1
+            self._hpos[slot] = nw
+
     def _tick_inner(self, tel) -> int:
         self._admit()
+        n_chunk = (
+            self._chunk_tick(tel) if self.chunk_tokens is not None else 0
+        )
         if not any(r is not None for r in self._slots):
-            return 0
+            return n_chunk
+        if self._pg is not None:
+            self._map_pages()
         # active slots advance with their pending token; inactive slots
         # re-feed their last-fed state
         pos = torch.where(self.active, self.pos + 1, self._cpos)
@@ -440,6 +774,14 @@ class Engine:
                 self._slots[slot] = None
                 self.active[slot] = False
                 self._t_last_tok.pop(slot, None)
+                if self._pg is not None:
+                    # return the slot's pages and point its table row back
+                    # at scratch: the pool decode re-feeds inactive slots
+                    # every tick, and scratch is the only page those
+                    # writes may scribble on
+                    self._pg.free(req.uid)
+                    self._tbl[slot, :] = self._pg.scratch()
+                    self._npages[slot] = 0
                 tel.registry.counter("serve.completed_total").inc()
                 if tel.enabled:
                     tel.tracer.instant(
@@ -449,7 +791,36 @@ class Engine:
                     )
             else:
                 n_active += 1
-        return n_active
+        return n_active + n_chunk
+
+    def cache_bytes_in_use(self) -> int:
+        """Logically resident cache bytes: occupied slots' dense per-slot
+        state plus (paged) allocated pages. Drains back to the
+        post-construction value (0) when every request finishes. The dense
+        pool counts full `max_seq` rows per tenant; the paged pool counts
+        only mapped pages."""
+        slot_b, page_b = self._cache_byte_model()
+        used = sum(r is not None for r in self._slots) * slot_b
+        if self._pg is not None:
+            used += self._pg.allocated_pages() * page_b
+        return used
+
+    def _cache_byte_model(self) -> tuple[int, int]:
+        """(bytes per occupied slot over dense leaves, bytes per page over
+        paged pool leaves), from the live cache tree."""
+        if getattr(self, "_byte_model", None) is None:
+            slot_b = page_b = 0
+            for parts, leaf in seating._leaf_paths(self.cache):
+                nbytes = leaf.numel() * leaf.element_size()
+                if (self._pg is not None
+                        and seating._leaf_layout(parts, self._layouts)
+                        is not None):
+                    page_b += nbytes // self.paging.n_pages
+                else:
+                    slot_b += nbytes // leaf.shape[
+                        seating.cache_batch_axis(parts)]
+            self._byte_model = (slot_b, page_b)
+        return self._byte_model
 
     @driver_thread_only
     def run(self, max_ticks: int = 10_000) -> None:

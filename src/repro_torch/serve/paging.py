@@ -1,8 +1,6 @@
 """Fixed-size page pool for the serving cache: config + free-list allocator.
 
-A copy of `repro.serve.paging` (pure Python, no jax) for the port. The
-port's engine has only the dense slot pool so far: the paged cache and
-its seating are ROADMAP.md queue 1 item 7.
+A copy of `repro.serve.paging` (pure Python, no jax) for the port.
 
 The dense slot pool gives every tenant a full `max_len` cache row, so
 resident bytes are `max_len x pool_size` regardless of actual prompt

@@ -1,8 +1,10 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
 versions, nm_spmm through the service path and the streaming fleet,
 the training step on the card against the same step on the CPU, a
-checkpoint of a card state restored bit for bit, and the training loop's
-wait for the card inside its step span.
+checkpoint of a card state restored bit for bit, the training loop's
+wait for the card inside its step span, LM serving, and the paged cache,
+chunked prefill and serving frontend (paged decode equal to dense bit for
+bit).
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -751,3 +753,127 @@ def test_whisper_on_the_card_matches_the_cpu(cuda):
         want = (cfg.enc_layers * 6 + cfg.n_layers * 10
                 + 4 * cfg.n_layers * 8) if bits else 0
         assert tqm.launches == want
+
+
+# ---------------------------------------------------------------------------
+# The paged KV cache, chunked prefill and the serving frontend
+# ---------------------------------------------------------------------------
+
+
+def _paged_runs(model, params, dev, prompts, **kw):
+    """The same requests through a dense and a paged chunked engine on
+    `dev`: ({label: tokens}, {label: [(logits, occupied)] a decode step})."""
+    from repro_torch.serve import engine
+    from repro_torch.serve.paging import PagingConfig
+
+    outs, logs = {}, {}
+    # a pool that never defers these requests: both engines keep one
+    # schedule, so their decode steps pair up
+    for label, paging in (("dense", None), ("paged", PagingConfig(4, 32))):
+        eng = engine.Engine(model, params, batch_size=2, paging=paging,
+                            chunk_tokens=4, device=dev, **kw)
+        log, inner = [], eng._decode
+
+        def step(p, cache, tok, pos, inner=inner, log=log, eng=eng):
+            logits, cache = inner(p, cache, tok, pos)
+            log.append((logits.cpu(), [s is not None for s in eng._slots]))
+            return logits, cache
+
+        eng._decode = step
+        reqs = [engine.Request(uid=i, prompt=pr, max_new=5)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_ticks=80)
+        assert all(r.done for r in reqs) and eng.cache_bytes_in_use() == 0
+        outs[label], logs[label] = [r.output for r in reqs], log
+    return outs, logs
+
+
+@pytest.mark.parametrize("name", ["qwen3_8b", "recurrentgemma_2b"])
+def test_paged_decode_equals_dense_bitwise_on_the_card(cuda, name):
+    """Reduced qwen3-8b and recurrentgemma-2b in float32 through a dense
+    and a paged engine (both with chunked prefill) on the card: the same
+    tokens, the occupied slots' decode logits equal bit for bit, and the
+    tokens those of the same engines on the CPU."""
+    model = _family(name, max_seq=24)
+    params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, model.cfg.vocab, (s,), generator=gen)
+               for s in (2, 5, 9, 13, 3)]
+    card, logs = _paged_runs(model, tree_map(lambda v: v.to(cuda), params),
+                             cuda, prompts)
+    assert card["dense"] == card["paged"]
+    assert len(logs["dense"]) == len(logs["paged"]) > 0
+    for (lp, occ_p), (ld, occ) in zip(logs["paged"], logs["dense"]):
+        assert occ_p == occ
+        keep = torch.tensor(occ)
+        assert torch.equal(lp[keep], ld[keep])
+    cpu, _ = _paged_runs(model, params, "cpu", prompts)
+    assert cpu == card
+
+
+def test_scatter_gather_pages_roundtrip_on_the_card(cuda):
+    """`scatter_pages` then `gather_pages` on the card recovers the seated
+    rows bit for bit and equals the same seating on the CPU."""
+    from repro_torch.serve import seating
+
+    model = _lm(max_seq=24)
+    gen = torch.Generator().manual_seed(4)
+    rows = tree_map(lambda v: (torch.randint(-1, 20, v.shape, generator=gen,
+                                             dtype=v.dtype)
+                               if v.dtype == torch.int32
+                               else torch.randn(v.shape, generator=gen)),
+                    model.init_cache(2, device="cpu"))
+    layouts = model.page_layouts(4)
+    phys = [list(range(6)), list(range(6, 12))]
+    pools = {}
+    for dev in ("cpu", cuda):
+        pool = model.init_cache_paged(4, 16, 4, device=dev)
+        seating.scatter_pages(pool, tree_map(lambda v: v.to(dev), rows),
+                              [0, 1], [1, 3], phys, layouts=layouts)
+        back = seating.gather_pages(pool, [1, 3], phys, layouts=layouts)
+        for a, b in zip(leaves(back), leaves(rows)):
+            assert torch.equal(a.cpu(), b)
+        pools[str(dev)] = pool
+    for a, b in zip(leaves(pools["cpu"]), leaves(pools["cuda"])):
+        assert torch.equal(a, b.cpu())
+
+
+def test_frontend_lm_roundtrip_on_the_card(cuda):
+    """An InProcClient sends LM requests through a Frontend whose paged
+    chunked engine runs on the card (8-bit packed params, so the driver
+    thread launches quant_matmul): every request completes with the
+    tokens the same engine gives on the CPU."""
+    import asyncio
+
+    from repro_torch.serve import engine, frontend
+    from repro_torch.serve.paging import PagingConfig
+
+    model = _lm(max_seq=24)
+    params = engine.quantize_for_serving(model.init(0, device="cpu"), 8)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, model.cfg.vocab, (s,), generator=gen).tolist()
+               for s in (3, 9, 6)]
+
+    def replies(dev, p):
+        fe = frontend.Frontend(engine=engine.Engine(
+            model, p, batch_size=2, paging=PagingConfig(4, 13),
+            chunk_tokens=4, device=dev), cfg=frontend.FrontendConfig())
+
+        async def go():
+            await fe.start(host=None)
+            client = frontend.InProcClient(fe)
+            futs = [await client.send_lm(uid=i, prompt=pr, max_new=4)
+                    for i, pr in enumerate(prompts)]
+            out = [await asyncio.wait_for(f, 120.0) for f in futs]
+            await fe.stop()
+            return [(r["status"], r.get("tokens")) for r in out]
+
+        return asyncio.run(go())
+
+    want = replies("cpu", params)
+    tqm.launches = 0
+    got = replies(cuda, tree_map(lambda v: v.to(cuda), params))
+    assert tqm.launches > 0
+    assert got == want and all(s == "completed" for s, _ in got)

@@ -414,14 +414,15 @@ def _leaves(tree):
 
 
 def test_paging_and_training_raise():
+    """The paged cache raises where the page does not divide an attention
+    capacity, as the reference's does (the paged cache itself is held in
+    tests/test_torch_paged.py); training raises, naming its ROADMAP
+    item."""
     _, mt, _, pt = lm_models("qwen3_8b", "float32", max_seq=16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tT.init_cache_paged(mt.cfg, mt.dims, 2, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tT.paged_layouts(mt.cfg, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tT.decode_step(pt, mt.init_cache(1, device=CPU), torch.zeros(1).long(),
-                       torch.zeros(1).long(), mt.cfg, mt.dims,
-                       page_tbl=torch.zeros((1, 4)))
+    with pytest.raises(ValueError, match="does not divide"):
+        tT.init_cache_paged(mt.cfg, mt.dims, 2, 8, 5, 16)
+    with pytest.raises(ValueError, match="does not divide"):
+        tT.paged_layouts(mt.cfg, 5, 16)
+    assert tT.paged_layouts(mt.cfg, 4, 16) == {"blocks/pos0/attn": (4, 4)}
     with pytest.raises(NotImplementedError, match="item 10"):
         mt.loss(pt, {})

@@ -254,15 +254,6 @@ def test_submit_guards_invalid_and_duplicate_uid(qwen):
     assert r2.done and len(r2.output) == 3
 
 
-def test_engine_paging_and_chunked_prefill_raise(qwen):
-    from repro_torch.serve.paging import PagingConfig
-
-    _, mt, _, pt = qwen
-    for kw in ({"paging": PagingConfig(4, 9)}, {"chunk_tokens": 4}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tE.Engine(mt, pt, batch_size=2, device=CPU, **kw)
-
-
 def test_engine_telemetry_cells_and_counters(qwen):
     """With telemetry on: the decode, prefill and seat cells are tracked
     (one decode signature for the whole pool), and the admission counters

@@ -33,6 +33,7 @@ from repro_torch.data import iegm as tiegm
 from repro_torch.configs import reduced as reduced_config
 from repro_torch.examples import quickstart, serve_lm
 from repro_torch.launch import serve as tlaunch
+from repro_torch.launch import stream as tstream
 from repro_torch.models import api as tapi
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import va_service as tsvc
@@ -124,8 +125,9 @@ def test_synth_batches_are_seeded():
 
 def test_port_imports_no_jax():
     """The port's serving path, its kernel benchmark, the CMUL, the
-    training path and the LM substrate and its serving import neither jax
-    nor anything of the JAX package (checked in a fresh interpreter: this
+    training path, the LM substrate and its serving, and the serving
+    frontend with its launchers import neither jax nor anything of the JAX
+    package (checked in a fresh interpreter: this
     one has jax)."""
     code = (
         "import sys, repro_torch.serve.va_service, repro_torch.convert, "
@@ -139,7 +141,8 @@ def test_port_imports_no_jax():
         "repro_torch.models.transformer, repro_torch.models.api, "
         "repro_torch.serve.engine, repro_torch.serve.seating, "
         "repro_torch.serve.paging, repro_torch.launch.serve, "
-        "repro_torch.examples.serve_lm\n"
+        "repro_torch.examples.serve_lm, repro_torch.serve.frontend, "
+        "repro_torch.obs.loadlab, repro_torch.launch.stream\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -159,7 +162,7 @@ def lm_model():
     "entry", ["init", "synth", "params", "runner", "service", "benchmark",
               "stream", "trainer", "state", "quickstart", "lm_init",
               "lm_params", "generate", "engine", "launch_serve",
-              "serve_lm_example"]
+              "serve_lm_example", "launch_serve_listen", "launch_stream"]
 )
 def test_default_device_raises_without_a_card(entry):
     """`device=None` means the CUDA card; with none present an entry
@@ -192,6 +195,9 @@ def test_default_device_raises_without_a_card(entry):
         "launch_serve": lambda: tlaunch.main(
             ["--arch", "qwen3-8b", "--reduced"]),
         "serve_lm_example": lambda: serve_lm.main(["--smoke"]),
+        "launch_serve_listen": lambda: tlaunch.main(
+            ["--arch", "qwen3-8b", "--reduced", "--listen", "127.0.0.1:0"]),
+        "launch_stream": lambda: tstream.main(["--patients", "4"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

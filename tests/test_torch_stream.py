@@ -16,6 +16,7 @@ identical.
 import dataclasses
 import functools
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -596,10 +597,20 @@ def test_stream_throughput_pieces_run_on_the_cpu():
     assert over["overhead_ratio"] > 0 and over["reps"] == 2
     for arm in ("disabled", "enabled", "disabled_again"):
         assert len(over[f"{arm}_walls_s"]) == 2
+    d, e, a = (over[f"{arm}_walls_s"]
+               for arm in ("disabled", "enabled", "disabled_again"))
+    # paired: the median over reps of enabled / mean(disabled, again)
+    assert over["overhead_ratio"] == pytest.approx(statistics.median(
+        e_i / ((d_i + a_i) / 2) for d_i, e_i, a_i in zip(d, e, a)))
+    assert over["noise_spread"] == pytest.approx(abs(statistics.median(
+        a_i / d_i for d_i, a_i in zip(d, a)) - 1))
+    lo, hi = over["ratio_bounds"]
+    assert lo <= over["overhead_ratio"] <= hi
     floor = stream_throughput.wall_floor
-    assert over["noise_spread"] == pytest.approx(abs(
-        floor(over["disabled_again_walls_s"])
-        / floor(over["disabled_walls_s"]) - 1))
+    assert over["floor_ratio"] == pytest.approx(floor(e) / floor(d + a))
+    bounds = stream_throughput.median_bounds
+    assert bounds([3.0, 1.0, 2.0]) == (1.0, 3.0)
+    assert bounds([float(i) for i in range(100)]) == (37.0, 62.0)
     assert floor([5.0, 1.0, 3.0]) == 3.0 and floor([4.0, 2.0]) == 3.0
     assert floor([float(i) for i in range(36, 0, -1)]) == 3.5  # fastest 6
     rec = {"cells": [cell], "device": {"type": "cpu"},

@@ -4,9 +4,10 @@ CMUL sweep, VA co-design training (the quickstart), the streaming fleet,
 the paper's entry points (the benchmark orchestrator, the ablation, the
 inference demo, train_va with checkpoints and restart), LM serving
 (launch.serve at the full widths of qwen3-8b, recurrentgemma-2b,
-olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode), and
-the paged cache, chunked prefill and the serving frontend
-(launch.serve and launch.stream --listen / --connect) on one CUDA card.
+olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode), the
+paged cache, chunked prefill and the serving frontend (launch.serve and
+launch.stream --listen / --connect), and LM training (launch.train at
+recurrentgemma-2b's full CONFIG, examples.train_lm) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -99,14 +100,14 @@ toolkit. Phases, each printing JSON lines:
    batch_size 3);
    frontend — launch.serve --listen at qwen3-8b's full CONFIG (dense
    bfloat16, --page-size 16 --chunk-tokens 16) in a server process and
-   launch.serve --connect offering 12 requests at 4 req/s from this one
-   (12 completed, 16 tokens each, SIGINT stops the server with exit
+   launch.serve --connect offering 6 requests at 4 req/s from this one
+   (6 completed, 16 tokens each, SIGINT stops the server with exit
    status 0; latency per request and tokens/s recorded); lm_paged —
-   qwen3-8b's full CONFIG at 8 bits, a dense and a paged Engine (both
-   chunked) on the same 8 requests, prompts either side of the page
-   boundaries: identical tokens and schedules, every decode call's
-   logits equal bit for bit on the occupied slots, each engine's
-   quant_matmul launches equal to 252 x (prefill cells + chunk steps +
+   qwen3-8b's full width cut to 8 layers, at 8 bits, a dense and a paged
+   Engine (both chunked) on the same 8 requests, prompts either side of
+   the page boundaries: identical tokens and schedules, every decode
+   call's logits equal bit for bit on the occupied slots, each engine's
+   quant_matmul launches equal to 56 x (prefill cells + chunk steps +
    decode calls), the paged cache_bytes_in_use below the dense one while
    running and 0 after, each engine's decode step replayed under the
    profiler (the gather's device cost); lm_paged_reduced — the reduced
@@ -118,6 +119,20 @@ toolkit. Phases, each printing JSON lines:
    --connect offering 256 x 8 segments at 2000/s (every segment acked,
    enqueued == packed), then the same frontend in process through an
    InProcClient, its nm_spmm launches 7 a flushed bucket;
+   lm_train — repro_torch.launch.train.main at recurrentgemma-2b's full
+   CONFIG (26 layers, d_model 2560, vocab 256000; 3.55 B parameters, 56.8
+   GB of float32 AdamW state) with the reference's defaults (batch 16,
+   seq 64, bfloat16 compute, block remat), its step donated (updated in
+   place), 4 steps, then --spe-bits 8 --spe-sparse for 2: each step's
+   wall, one more step under the profiler (device ms, kernels, busy
+   share), peak memory below the card's, every loss and grad norm finite
+   and nonzero; after the bf16 run one more step with the stacked leaves
+   sliced per group where forward_train unbinds them (the cost the unbind
+   saves); repro_torch.examples.train_lm --hundred-m --steps 60 (the
+   loss falls); one train step on the card (donated) against the CPU
+   (functional) from the same warm state for every reduced decoder-only
+   family and whisper-tiny's full CONFIG in float32 (params, m and v
+   within STEP_RTOL); none of the four kernels launched over the phase;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -245,17 +260,21 @@ LM_PLAIN_F32_RTOL = 1e-3
 REDUCED_RTOL = 1e-4  # reduced float32 config, card against CPU, of max|logit|
 # the serving frontend: launch.serve --listen at qwen3-8b's full CONFIG
 # (dense bfloat16, as the reference's --listen serves it; max_seq 66
-# rounded up to 80: 5 pages a slot, 21 in the pool), and the client
+# rounded up to 80: 5 pages a slot, 21 in the pool), and the client (6
+# requests: cut from 12 to pay for the lm_train phase)
 LM_FRONTEND_SERVER = ("--arch", "qwen3-8b", "--listen", "127.0.0.1:0",
                       "--batch", "4", "--prompt-len", "48", "--max-new", "16",
                       "--page-size", "16", "--chunk-tokens", "16")
-LM_FRONTEND_CLIENT = ("--arch", "qwen3-8b", "--load-requests", "12",
+LM_FRONTEND_CLIENT = ("--arch", "qwen3-8b", "--load-requests", "6",
                       "--offered-rate", "4", "--prompt-len", "48",
                       "--max-new", "16")
-# dense against paged Engine at qwen3-8b's full CONFIG, 8 bits: prompt
-# lengths either side of the page boundaries, the frontend's max_seq (span
-# 5, 21 pages); at 8 new tokens every reservation fits at once, so the two
-# engines keep one schedule and their decode calls pair up
+# dense against paged Engine at qwen3-8b's full width (d_model 4096,
+# vocab 151936) cut to PAGED_LAYERS of its 36 layers to pay for the lm_train
+# phase, 8 bits: prompt lengths either side of the page boundaries, the
+# frontend's max_seq (span 5, 21 pages); at 8 new tokens every reservation
+# fits at once, so the two engines keep one schedule and their decode calls
+# pair up
+PAGED_LAYERS = 8
 PAGED_PROMPTS = (5, 15, 16, 17, 31, 32, 33, 48)
 PAGED_BATCH, PAGED_PAGE, PAGED_CHUNK = 4, 16, 16
 PAGED_MAX_NEW, PAGED_MAX_SEQ = 8, 80
@@ -265,6 +284,24 @@ STREAM_FRONTEND_SERVER = ("--listen", "127.0.0.1:0", "--path", "kernel",
                           "--patients", "256")
 STREAM_FRONTEND_CLIENT = ("--patients", "256", "--segments", "8",
                           "--offered-rate", "2000")
+# LM training: launch.train at recurrentgemma-2b's full CONFIG (the
+# reference's defaults: batch 16, seq 64, AdamW, warmup 20, clip 1.0, the
+# config's bfloat16 compute over float32 masters, block remat; the step
+# donated), then with the paper's QAT on every projection, then the ~100M
+# example; one more step of each launch.train run under the profiler
+LM_TRAIN_RUNS = {
+    "bf16": ("--arch", "recurrentgemma-2b", "--steps", "4",
+             "--log-every", "0"),
+    "spe8_sparse": ("--arch", "recurrentgemma-2b", "--steps", "2",
+                    "--spe-bits", "8", "--spe-sparse", "--log-every", "0"),
+}
+LM_TRAIN_EXAMPLE = ("--hundred-m", "--steps", "60")
+# one train step on the card against the CPU from the same warm state (3
+# CPU steps): every reduced decoder-only family and whisper-tiny's full
+# CONFIG, float32, batch 1 (whisper's 1500 encoder frames set the CPU's
+# time), seq 16; params, m and v within STEP_RTOL
+LM_TRAIN_WARM_STEPS = 3
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 1, 16
 SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
@@ -451,22 +488,27 @@ def lm_profile(torch, fn, steps: int) -> dict:
     """Device time of `fn` (`steps` forwards) from a profiler trace of the
     card alone: the kernels' (and copies') device time a forward, the
     launches a forward and the kernels by device time. The sum is the
-    card's busy time, free of the host's gaps."""
+    card's busy time, free of the host's gaps. Summed from the trace's raw
+    events: `key_averages` takes seconds over a train step's tens of
+    thousands of kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    averages = prof.key_averages()
-    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
-    top = sorted(on_card, key=lambda e: e.device_time_total, reverse=True)
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            count, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (count + 1, ns + e.duration_ns())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     return {
-        "device_ms": sum(e.device_time_total for e in on_card) / steps / 1e3,
-        "kernels": sum(e.count for e in on_card) / steps,
-        "top_kernels": [{"name": e.key[:80], "count": e.count / steps,
-                         "device_ms": e.device_time_total / steps / 1e3}
-                        for e in top[:6]],
+        "device_ms": sum(ns for _, ns in by_name.values()) / steps / 1e6,
+        "kernels": sum(count for count, _ in by_name.values()) / steps,
+        "top_kernels": [{"name": name[:80], "count": count / steps,
+                         "device_ms": ns / steps / 1e6}
+                        for name, (count, ns) in top[:6]],
     }
 
 
@@ -1149,10 +1191,11 @@ def paged_pair(torch, dev, model, params, prompts, *, batch, page, chunk,
 
 
 def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
-    """qwen3-8b's full CONFIG packed at 8 bits, one build; a dense and a
-    paged Engine (PagingConfig(page, batch·span + 1), both chunk_tokens
-    PAGED_CHUNK) on the same params take the same PAGED_PROMPTS, whose
-    lengths straddle the page boundaries. Identical tokens and schedules;
+    """qwen3-8b's full width at PAGED_LAYERS layers, packed at 8 bits, one
+    build; a dense and a paged Engine (PagingConfig(page, batch·span + 1),
+    both chunk_tokens PAGED_CHUNK) on the same params take the same
+    PAGED_PROMPTS, whose lengths straddle the page boundaries. Identical
+    tokens and schedules;
     every decode call's logits equal bit for bit on the occupied slots;
     each engine's quant_matmul launches equal to packed_per_forward × (its
     prefill cells + chunk steps + decode calls); the paged
@@ -1160,6 +1203,8 @@ def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
     both 0 after. Then each engine's decode step replayed (its last-fed
     tokens: the cache is rewritten in place with what it holds) under the
     profiler: the gather's cost on the card."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch._tree import leaves
     from repro_torch.kernels import quant_matmul as QM
@@ -1168,7 +1213,7 @@ def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
 
     t_phase = time.perf_counter()
     free_card(torch, dev)
-    cfg = configs.get("qwen3-8b")
+    cfg = dataclasses.replace(configs.get("qwen3-8b"), n_layers=PAGED_LAYERS)
     model = api.build_model(cfg, max_seq=PAGED_MAX_SEQ)
     t0 = time.perf_counter()
     params = engine.quantize_for_serving(model.init(SEED, device=dev), 8)
@@ -1330,6 +1375,176 @@ def lm_paged_reduced(torch, dev, smi) -> dict:
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     free_card(torch, dev)
+    return out
+
+
+def lm_train_card_vs_cpu(torch, dev, name: str, full: bool) -> dict:
+    """One AdamW train step of `name` (its reduced config, or with `full`
+    its CONFIG) in float32 on the card — donated — against the functional
+    step on the CPU, from the same state after LM_TRAIN_WARM_STEPS CPU
+    steps (warm moments) on the same batch: params, m and v within
+    STEP_RTOL of each tree's max, loss and grad norm too."""
+    import dataclasses
+
+    from repro_torch import configs, optim
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.data import lm
+    from repro_torch.launch.train import lm_batch_at
+    from repro_torch.models import api
+    from repro_torch.train import trainer
+
+    t0 = time.perf_counter()
+    cfg = configs.get(name) if full else configs.reduced(name)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = api.build_model(cfg, max_seq=LM_TRAIN_SEQ)
+    opt = optim.adamw(optim.linear_warmup_cosine(3e-3, 2, 20),
+                      weight_decay=0.01)
+    step = trainer.make_train_step(model.loss, opt, clip_norm=1.0)
+    donated = trainer.make_train_step(model.loss, opt, clip_norm=1.0,
+                                      donate=True)
+    state = trainer.init_state(model.init(SEED, device="cpu"), opt,
+                               device="cpu")
+    stream = lm.TokenStream(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                            vocab=cfg.vocab, seed=SEED, device="cpu")
+    batch_at = lm_batch_at(stream, cfg, LM_TRAIN_BATCH)
+    for i in range(LM_TRAIN_WARM_STEPS):
+        state, _ = step(state, batch_at(i))
+    batch = batch_at(LM_TRAIN_WARM_STEPS)
+    on_card = tree_map(lambda v: v.to(dev), state)
+    new_c, m_c = step(state, batch)
+    new_d, m_d = donated(on_card, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    errs = {"params": tree_rel(new_d["params"], new_c["params"], leaves),
+            **{k: tree_rel(new_d["opt"][k], new_c["opt"][k], leaves)
+               for k in ("m", "v")},
+            **{k: abs(float(m_d[k]) / float(m_c[k]) - 1.0)
+               for k in ("loss", "grad_norm")}}
+    rec = {"arch": name, "config": cfg.name, "full": full,
+           "n_params": sum(x.numel() for x in leaves(new_c["params"])),
+           "loss": float(m_d["loss"]), "grad_norm": float(m_d["grad_norm"]),
+           "rel_err": errs, "donated_in_place": new_d is on_card,
+           "seconds": time.perf_counter() - t0}
+    check(max(errs.values()) <= STEP_RTOL,
+          f"lm_train card vs CPU {name}: {errs}")
+    check(new_d is on_card, f"lm_train card vs CPU {name}: not in place")
+    return rec
+
+
+def sliced_leaves_cost(torch, dev, step) -> dict:
+    """One train step (`step`) under the profiler with each stacked
+    (n_groups, ...) leaf sliced [g] in every group, where forward_train
+    takes it apart once with torch.unbind: device ms, kernels and peak
+    memory, against the same of the run's own profiled step — what the
+    unbind saves."""
+    from repro_torch.models import transformer as T
+
+    unbind = T._unbind
+    T._unbind = lambda tree, n: [T._group(tree, g) for g in range(n)]
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = lm_profile(torch, step, 1)
+    finally:
+        T._unbind = unbind
+    return {"device_ms": prof["device_ms"], "kernels": prof["kernels"],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def lm_train(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """launch.train.main at recurrentgemma-2b's full CONFIG (bfloat16
+    compute, donated AdamW step), then with --spe-bits 8 --spe-sparse: each
+    run's peak memory, the wall of each step through a synchronize, one
+    more step under the profiler (device ms and kernels a step, busy share
+    against the median wall), first and last loss, grad norms, and after
+    the bf16 run `sliced_leaves_cost`; then
+    examples.train_lm --hundred-m (loss first -> last against log(vocab));
+    then lm_train_card_vs_cpu for every reduced decoder-only family and
+    whisper-tiny's full CONFIG. Every loss and grad norm finite and
+    nonzero, every peak below the card's memory, and none of the four
+    kernels launched over the phase (training runs float32 masters
+    through the dense linear: no serving path)."""
+    from repro_torch import configs
+    from repro_torch._tree import leaves
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    reset_launches()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    out = {"phase": "lm_train", "card": smi, "card_bytes": card_bytes,
+           "runs": {}}
+    for label, argv in LM_TRAIN_RUNS.items():
+        free_card(torch, dev)
+        t0 = time.perf_counter()
+        run = launch_train.main(list(argv))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        hist, state = run["history"], run["state"]
+        cfg = configs.get(argv[argv.index("--arch") + 1])
+        n_steps = len(hist)
+        t0 = time.perf_counter()
+        prof = lm_profile(torch, lambda: run["step_fn"](
+            state, run["batch_at"](n_steps)), 1)
+        profile_s = time.perf_counter() - t0
+        walls = [h["wall_s"] * 1e3 for h in hist]
+        steady = statistics.median(walls[1:]) if len(walls) > 1 else walls[0]
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(x.numel() for x in leaves(state["params"]))
+        rec = {"argv": list(argv), "arch": cfg.name,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "vocab": cfg.vocab, "n_params": n_params,
+               "state_bytes": 16 * n_params,
+               "run_s": run_s, "profile_s": profile_s, "step_wall_ms": walls,
+               "step_wall_ms_steady": steady,
+               "step_device_ms": prof["device_ms"],
+               "kernels_per_step": prof["kernels"],
+               "top_kernels": prof["top_kernels"],
+               "busy": prof["device_ms"] / steady,
+               "peak_device_bytes": peak,
+               "loss": [h["loss"] for h in hist],
+               "grad_norm": [h["grad_norm"] for h in hist]}
+        if label == "bf16":
+            rec["sliced_leaves"] = sliced_leaves_cost(
+                torch, dev, lambda: run["step_fn"](
+                    state, run["batch_at"](n_steps + 1)))
+        out["runs"][label] = rec
+        emit({"phase": "lm_train_run", "label": label, "card": smi, **rec})
+        check(all(math.isfinite(v) and v > 0 for v in rec["loss"]
+                  + rec["grad_norm"]),
+              f"lm_train {label}: loss or grad norm not finite and nonzero")
+        check(peak < card_bytes, f"lm_train {label}: peak {peak} B")
+        del run, state
+        free_card(torch, dev)
+    ckpt = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    ex = train_lm.main([*LM_TRAIN_EXAMPLE, "--ckpt", str(ckpt)])
+    torch.cuda.synchronize()
+    hist = ex["history"]
+    out["example"] = {
+        "argv": list(LM_TRAIN_EXAMPLE),
+        "n_params": sum(x.numel() for x in leaves(ex["state"]["params"])),
+        "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+        "uniform": ex["uniform"], "seconds": time.perf_counter() - t0,
+        "step_wall_ms_median": statistics.median(h["wall_s"] * 1e3
+                                                 for h in hist[1:]),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              and h["grad_norm"] > 0 for h in hist),
+          "lm_train example: loss or grad norm not finite")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"lm_train example: loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    del ex
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_card(torch, dev)
+    out["card_vs_cpu"] = [
+        lm_train_card_vs_cpu(torch, dev, name, name == "whisper_tiny")
+        for name in configs.ALL_ARCHS]
+    out["launches"] = launches_now()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(not any(out["launches"].values()),
+          f"lm_train: a kernel launched while training: {out['launches']}")
     return out
 
 
@@ -2329,6 +2544,10 @@ def main() -> int:
     clock("lm_paged_reduced")
     stream_front = stream_frontend(torch, dev, smi)
     clock("stream_frontend")
+
+    # -- LM training ----------------------------------------------------------
+    lm_train(torch, dev, smi, launches_now, reset_launches)
+    clock("lm_train")
 
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work

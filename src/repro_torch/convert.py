@@ -81,6 +81,22 @@ def lm_params_from_numpy(tree, device: _device.DeviceLike = None):
     return one(tree)
 
 
+def lm_state_from_numpy(tree: Mapping, device: _device.DeviceLike = None) -> dict:
+    """An LM trainer state {"params", "opt", "step"} as numpy -> the port's
+    state on `device`: the params and every optimizer tree (Adam's {"m",
+    "v"}, SGD's {"mu"}; a None entry stays None) nested as the param tree
+    is (`lm_params_from_numpy`), and a 0-d int32 step."""
+    dev = _device.resolve(device)
+    return {
+        "params": lm_params_from_numpy(tree["params"], dev),
+        "opt": {
+            k: None if v is None else lm_params_from_numpy(v, dev)
+            for k, v in tree["opt"].items()
+        },
+        "step": torch.tensor(int(tree["step"]), dtype=torch.int32, device=dev),
+    }
+
+
 def program_from_numpy(
     layers: Mapping[str, Mapping],
     biases: Mapping[str, np.ndarray],

@@ -1,5 +1,5 @@
-"""Data: the synthetic IEGM pipeline."""
+"""Data: the synthetic IEGM pipeline and the synthetic LM token stream."""
 
-from repro_torch.data import iegm
+from repro_torch.data import iegm, lm
 
-__all__ = ["iegm"]
+__all__ = ["iegm", "lm"]

@@ -1,0 +1,205 @@
+"""Training launcher: --arch <id> [--reduced] on the card (port of
+`repro.launch.train`).
+
+    python -m repro_torch.launch.train --arch recurrentgemma-2b --steps 4
+    python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
+        --steps 50 --batch 8 --seq 64 --ckpt /tmp/ck
+    python -m repro_torch.launch.train --arch va-cnn --steps 300
+
+Without `--reduced` the LM trains the architecture's full `CONFIG` from
+random weights drawn on the card from `--seed`, in the config's compute
+dtype over float32 masters, with AdamW (warmup-cosine schedule, weight
+decay 0.01), global-norm clipping at 1.0, `--grad-accum` micro-batches
+and the config's block remat. The step is donated
+(`trainer.make_train_step(..., donate=True)`: the update is written into
+the state in place), as the reference donates its jitted step: AdamW's
+float32 state is 16 bytes a parameter, so recurrentgemma-2b's 3.55 B
+parameters hold 56.8 GB, which fits one 80 GB card only without a second
+copy. `--spe-bits` / `--spe-sparse` apply the paper's co-design QAT
+(16:8 prune-STE and fake-quant) to every projection. The data is the
+synthetic `data.lm.TokenStream`; whisper-family configs also get frames
+drawn from a generator keyed by the step. `--arch va-cnn` trains the
+paper's VA detector on the IEGM stream instead.
+
+`main(argv, device="cpu")` runs the same paths on the CPU; with no
+`device` it needs a card. The reference's multi-pod flags are refused,
+naming the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch import _device, configs, obs
+from repro_torch._tree import leaves
+from repro_torch.data import iegm, lm
+from repro_torch.data.iegm import _stream_seed
+from repro_torch.models import api
+from repro_torch.optim import adamw, linear_warmup_cosine
+from repro_torch.train import fault, trainer
+
+FRAMES_SEED = 7  # the whisper frames' stream, keyed (7, 0, step)
+
+# the reference's flags whose parts of the system are not ported yet
+_NOT_PORTED = {
+    "--multi-pod": "compressed multi-pod data parallelism, "
+                   "ROADMAP.md queue 1 item 8",
+    "--scheme": "the cross-pod wire layouts, ROADMAP.md queue 1 item 8",
+    "--no-compress": "the f32 cross-pod reduction, ROADMAP.md queue 1 "
+                     "item 8",
+}
+
+
+def _lm_cfg(args):
+    cfg = configs.reduced(args.arch) if args.reduced else configs.get(
+        args.arch
+    )
+    if args.spe_bits or args.spe_sparse:
+        cfg = dataclasses.replace(
+            cfg, spe_bits=args.spe_bits, spe_sparse=args.spe_sparse
+        )
+    return cfg
+
+
+def lm_batch_at(stream: lm.TokenStream, cfg, batch: int):
+    """step -> batch, adding the deterministic encoder frames (B, enc_seq,
+    d_model) the whisper-family loss consumes, drawn on the stream's
+    device from a generator keyed by the step."""
+    def batch_at(step):
+        b = stream.batch_at(step)
+        if cfg.is_enc_dec:
+            gen = torch.Generator(device=stream.device)
+            gen.manual_seed(_stream_seed(FRAMES_SEED, 0, step))
+            b["frames"] = torch.randn(
+                (batch, cfg.enc_seq, cfg.d_model), generator=gen,
+                device=stream.device,
+            )
+        return b
+
+    return batch_at
+
+
+def train_lm(args, device: _device.DeviceLike = None) -> dict:
+    """Returns {"history", "state", "step_fn", "batch_at"}: the metric
+    history, the final (donated) state, the tracked step function and the
+    batch source, so a caller can take further steps."""
+    dev = _device.resolve(device)
+    cfg = _lm_cfg(args)
+    model = api.build_model(cfg, tp=1, max_seq=args.seq)
+    params = model.init(args.seed, device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    logging.info("arch=%s params=%.3fM", cfg.name, n_params / 1e6)
+
+    opt = adamw(
+        linear_warmup_cosine(args.lr, args.warmup, args.steps),
+        weight_decay=0.01,
+    )
+    state = trainer.init_state(params, opt, device=dev)
+    del params
+    step_fn = obs.get().probe.track("train.step", trainer.make_train_step(
+        model.loss, opt, clip_norm=1.0, n_micro=args.grad_accum, donate=True,
+    ))
+    stream = lm.TokenStream(
+        batch=args.batch, seq_len=args.seq, vocab=cfg.vocab, seed=args.seed,
+        device=dev,
+    )
+    batch_at = lm_batch_at(stream, cfg, args.batch)
+    state, history = fault.run_training(
+        step_fn, state, batch_at,
+        num_steps=args.steps,
+        ckpt_dir=args.ckpt,
+        ckpt_every=args.ckpt_every,
+        watchdog=fault.StragglerWatchdog(),
+        log_every=args.log_every,
+    )
+    first, last = history[0]["loss"], history[-1]["loss"]
+    print(f"[train] {cfg.name}: loss {first:.4f} -> {last:.4f} "
+          f"({len(history)} steps)")
+    return {"history": history, "state": state, "step_fn": step_fn,
+            "batch_at": batch_at}
+
+
+def train_va(args, device: _device.DeviceLike = None) -> dict:
+    from repro_torch.configs import va_cnn
+    from repro_torch.core import vadetect
+
+    dev = _device.resolve(device)
+    cfg = va_cnn.CONFIG
+    params = vadetect.init(torch.Generator().manual_seed(args.seed), cfg,
+                           device=dev)
+    opt = adamw(linear_warmup_cosine(args.lr, args.warmup, args.steps))
+    state = trainer.init_state(params, opt, device=dev)
+    step_fn = obs.get().probe.track("train.step", trainer.make_train_step(
+        lambda p, b: vadetect.loss_fn(p, b, cfg), opt, clip_norm=1.0,
+        donate=True,
+    ))
+    stream = iegm.IEGMStream(batch=args.batch, seed=args.seed, device=dev)
+    state, history = fault.run_training(
+        step_fn, state, stream.batch_at,
+        num_steps=args.steps, ckpt_dir=args.ckpt,
+        ckpt_every=args.ckpt_every, log_every=args.log_every,
+    )
+    accs = [h["accuracy"] for h in history[-20:]]
+    print(f"[train] va-cnn: loss {history[0]['loss']:.4f} -> "
+          f"{history[-1]['loss']:.4f}; acc(last20) "
+          f"{sum(accs)/len(accs):.4f}")
+    return {"history": history, "state": state}
+
+
+def main(
+    argv: Optional[Sequence[str]] = None, device: _device.DeviceLike = None
+) -> dict:
+    """Parse `argv` and train; returns the run's record (`train_lm`'s or
+    `train_va`'s). `device=None` means the CUDA card (raises without
+    one)."""
+    logging.basicConfig(level=logging.INFO)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt", type=str, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spe-bits", type=int, default=None)
+    ap.add_argument("--spe-sparse", action="store_true")
+    ap.add_argument(
+        "--trace-out", default=None, metavar="PREFIX",
+        help="enable telemetry; on exit write PREFIX.jsonl (event log) "
+             "and PREFIX.json (Chrome/Perfetto trace)",
+    )
+    for flag, what in _NOT_PORTED.items():
+        kw = ({"action": "store_true"} if flag == "--no-compress"
+              else {"default": None})
+        ap.add_argument(flag, help=f"not ported yet ({what})", **kw)
+    args = ap.parse_args(argv)
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+            ap.error(f"{flag} is not ported yet ({what})")
+    _device.resolve(device)
+    if args.trace_out:
+        # before the step is built, so it registers with the probe
+        obs.configure(enabled=True)
+    if args.arch == "va-cnn":
+        out = train_va(args, device)
+    else:
+        out = train_lm(args, device)
+    if args.trace_out:
+        jsonl, chrome = obs.get().finish(args.trace_out)
+        print(f"[obs] trace written: {jsonl} + {chrome} "
+              f"(cells: {obs.get().probe.cache_sizes()})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

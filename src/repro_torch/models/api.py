@@ -8,8 +8,9 @@ whose entry points are what the server drives:
         (encoder-decoder: prefill(params, tokens, frames))
     decode_step(params, cache, token, pos) -> (logits, cache)
     init_cache(batch, device=None) -> cache tree
-    loss(params, batch)            -> raises: LM training is ROADMAP.md
-                                      queue 1 item 10
+    loss(params, batch)            -> (loss, metrics): next-token CE
+                                      (+ MoE aux); batch {"tokens",
+                                      "targets"[, "frames"]}
 
 and, for the decoder-only stack, the paged serving cache (None for the
 encoder-decoder model, as in the reference):

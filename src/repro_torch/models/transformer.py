@@ -34,10 +34,16 @@ pages into the dense ring view, writes the new K/V into that view and
 into its physical page, and attends over the view: bit for bit the dense
 step (masked scores weigh exactly 0).
 
-Not ported yet, and raising `NotImplementedError` (nothing falls back):
-`loss_fn` (ROADMAP.md queue 1 item 10). The reference's `constrain`
-layout hints do nothing on one device and are dropped (item 8), as is its
-`remat` (training, item 10).
+Training: `loss_fn` is the next-token cross-entropy (plus the MoE
+auxiliary loss), optionally chunked over S (`cfg.loss_chunk`). Under
+`cfg.remat == "block"` (every config's default) each pattern group of
+`forward_train` runs under non-reentrant `torch.utils.checkpoint`, as the
+reference wraps its scan body in `jax.checkpoint`; the tail runs outside
+it. `forward_train` takes each stacked `(n_groups, ...)` leaf apart once
+with `torch.unbind`, whose backward is one stack, where slicing `[g]` in
+every group would add a full-size zero-padded gradient per group. The
+reference's `constrain` layout hints do nothing on one device and are
+dropped (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, pad_up
 from repro_torch.core.spe import SPEConfig
@@ -65,9 +73,6 @@ from repro_torch.models.layers import (
     norm_init,
     softcap,
 )
-
-TRAINING_ITEM = "ROADMAP.md queue 1 item 10"
-
 
 # ---------------------------------------------------------------------------
 # Mesh-divisibility padding
@@ -573,6 +578,19 @@ def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tens
     return softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
+def _unbind(tree: Any, n: int) -> list:
+    """The `n` groups of a stacked subtree, each leaf taken apart once on
+    its leading axis (`torch.unbind`: its backward stacks the groups'
+    gradients, where `n` slices would each scatter into a full-size
+    zero tensor)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    return [tree] * n
+
+
 def forward_train(
     params: dict,
     tokens: torch.Tensor,  # (B, S)
@@ -583,7 +601,7 @@ def forward_train(
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded) f32, moe_aux) — or the post-norm
-    hidden states (B,S,D) when return_hidden."""
+    hidden states (B,S,D) when return_hidden (the chunked-CE path)."""
     dtype = compute_dtype(cfg)
     spe = spe_config(cfg)
     b, s = tokens.shape
@@ -592,9 +610,23 @@ def forward_train(
     h = embed_apply(params["embed"], tokens, dtype=dtype,
                     scale=cfg.scale_embed)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for where, kind in _groups(params, cfg):
-        h, a, _ = block_apply(_at(params, where), h, pos, cfg, dims, kind,
-                              spe=spe, dtype=dtype)
+
+    def group_body(h, aux, gp):
+        for p_idx, kind in enumerate(cfg.pattern):
+            h, a, _ = block_apply(gp[f"pos{p_idx}"], h, pos, cfg, dims, kind,
+                                  spe=spe, dtype=dtype)
+            aux = aux + a
+        return h, aux
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for gp in _unbind(params["blocks"], cfg.n_groups):
+        if remat:
+            h, aux = checkpoint(group_body, h, aux, gp, use_reentrant=False)
+        else:
+            h, aux = group_body(h, aux, gp)
+    for i, kind in enumerate(cfg.tail):
+        h, a, _ = block_apply(params["tail"][f"pos{i}"], h, pos, cfg, dims,
+                              kind, spe=spe, dtype=dtype)
         aux = aux + a
     h = norm_apply(cfg.norm, params["final_norm"], h)
     if return_hidden:
@@ -602,10 +634,57 @@ def forward_train(
     return _logits(params, h, cfg, dtype), aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig, dims: Dims):
-    raise NotImplementedError(
-        f"LM training (loss_fn, data/lm.py) is not ported yet ({TRAINING_ITEM})"
-    )
+def _chunk_nll_sum(params: dict, hc: torch.Tensor, tc: torch.Tensor,
+                   mc: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
+    """sum(log p(target) * mask) over one (B, c) chunk of the sequence."""
+    lp = F.log_softmax(_logits(params, hc, cfg, dtype), dim=-1)
+    pick = torch.gather(lp, -1, tc[..., None])[..., 0]
+    return torch.sum(pick * mc)
+
+
+def loss_fn(
+    params: dict, batch: dict, cfg: ArchConfig, dims: Dims
+) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (+ MoE aux). Targets beyond cfg.vocab never occur.
+
+    With cfg.loss_chunk > 0 the CE is evaluated in S-chunks, each under
+    non-reentrant checkpoint: the lm_head matmul and the log-softmax run
+    per chunk and are recomputed in the backward, so live logits are
+    (B, chunk, V) instead of (B, S, V), as in the reference's scan —
+    without the checkpoint autograd would keep every chunk's log-probs.
+    """
+    tgt = batch["targets"].long()
+    if not cfg.loss_chunk:
+        logits, aux = forward_train(
+            params, batch["tokens"], cfg, dims,
+            positions=batch.get("positions"),
+        )
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None]).mean()
+    else:
+        h, aux = forward_train(
+            params, batch["tokens"], cfg, dims,
+            positions=batch.get("positions"), return_hidden=True,
+        )
+        dtype = compute_dtype(cfg)
+        b, s, _ = h.shape
+        c = min(cfg.loss_chunk, s)
+        pad = (-s) % c
+        hp = F.pad(h, (0, 0, 0, pad))
+        tp_ = F.pad(tgt, (0, pad))
+        mask = F.pad(torch.ones((b, s), dtype=torch.float32, device=h.device),
+                     (0, pad))
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s + pad, c):
+            total = total - checkpoint(
+                _chunk_nll_sum, params, hp[:, i:i + c], tp_[:, i:i + c],
+                mask[:, i:i + c], cfg, dtype, use_reentrant=False,
+            )
+        nll = total / (b * s)
+    loss = nll
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux
+    return loss, {"loss": loss, "nll": nll, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ writes the new token's K/V into that cache **in place** and returns it,
 as `models.transformer.decode_step` does. The decoder-only serving entry
 points (`serve.engine.Engine`, `generate`) refuse this family with
 `serve.engine.EncDecUnsupportedError`, as the reference's do. Training
-(`loss_fn`) is not ported yet (ROADMAP.md queue 1 item 10).
+(`loss_fn`) is `encode` -> `decode_train` -> the next-token
+cross-entropy; both stacks take their stacked layer leaves apart once
+(`transformer._unbind`), so a layer's gradient is not a full-size
+zero-padded scatter.
 """
 
 from __future__ import annotations
@@ -37,10 +40,10 @@ from repro_torch.models.layers import (
     linear_init,
 )
 from repro_torch.models.transformer import (
-    TRAINING_ITEM,
     Dims,
     _group,
     _stack,
+    _unbind,
     attn_cache_from_prefill,
     attn_cache_init,
     compute_dtype,
@@ -123,8 +126,7 @@ def encode(params, frames: torch.Tensor, cfg: ArchConfig, dims: Dims):
     dtype = compute_dtype(cfg)
     h = frames.to(dtype) + _sinusoid(
         frames.shape[1], cfg.d_model, frames.device).to(dtype)
-    for layer in range(cfg.enc_layers):
-        bp = _group(params["enc_blocks"], layer)
+    for bp in _unbind(params["enc_blocks"], cfg.enc_layers):
         x_in = layernorm_apply(bp["ln1"], h)
         att, _, _ = _mha(bp["attn"], x_in, x_in, heads=dims.n_heads,
                          hd=cfg.hd, causal=False, dtype=dtype,
@@ -150,8 +152,7 @@ def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
     dtype = compute_dtype(cfg)
     s = tokens.shape[1]
     h = _embed(params, tokens, params["pos_emb"][:s], dtype)
-    for layer in range(cfg.n_layers):
-        bp = _group(params["dec_blocks"], layer)
+    for bp in _unbind(params["dec_blocks"], cfg.n_layers):
         x_in = layernorm_apply(bp["ln1"], h)
         sa, _, _ = _mha(bp["self_attn"], x_in, x_in, heads=dims.n_heads,
                         hd=cfg.hd, causal=True, dtype=dtype,
@@ -166,9 +167,13 @@ def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor,
 
 
 def loss_fn(params, batch, cfg: ArchConfig, dims: Dims):
-    raise NotImplementedError(
-        f"LM training (whisper.loss_fn) is not ported yet ({TRAINING_ITEM})"
-    )
+    """Teacher-forced next-token CE of the decoder over the encoded
+    `batch["frames"]`. Returns (nll, {"loss", "nll"})."""
+    enc_out = encode(params, batch["frames"], cfg, dims)
+    logits = decode_train(params, batch["tokens"], enc_out, cfg, dims)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["targets"].long()[..., None]).mean()
+    return nll, {"loss": nll, "nll": nll}
 
 
 # --- serving ---------------------------------------------------------------

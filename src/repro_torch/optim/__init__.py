@@ -1,6 +1,10 @@
 """Optimizers as functions on trees of tensors (port of `repro.optim`)."""
 
-from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.clip import (
+    clip_by_global_norm,
+    clip_by_global_norm_,
+    global_norm,
+)
 from repro_torch.optim.optimizers import (
     Optimizer,
     adam,
@@ -24,5 +28,6 @@ __all__ = [
     "cosine_schedule",
     "linear_warmup_cosine",
     "clip_by_global_norm",
+    "clip_by_global_norm_",
     "global_norm",
 ]

@@ -22,3 +22,14 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_(tree: Any, max_norm: float) -> torch.Tensor:
+    """`clip_by_global_norm` written into `tree`'s leaves in place (the
+    same products, bit for bit); returns the pre-clip norm."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    for x in leaves(tree):
+        x.mul_(scale)
+    return norm

@@ -1,7 +1,7 @@
 """SGD / Adam / AdamW as functions on trees of tensors (port of
 `repro.optim.optimizers`).
 
-Each optimizer is an `Optimizer(init, update)` pair:
+Each optimizer is an `Optimizer(init, update, update_)` triple:
 
     state = opt.init(params)
     updates, state = opt.update(grads, state, params, step)
@@ -11,7 +11,15 @@ The state is a plain dict mirroring the params leaf for leaf (`{"m", "v"}`
 for Adam, `{"mu"}` for SGD), so a checkpoint can save it as it is; `step`
 is passed in, not carried; the learning rate is a schedule of the step.
 `torch.optim` is not used: its state is hidden inside the optimizer object.
-Updates are computed under `torch.no_grad()` into new tensors.
+`update` computes under `torch.no_grad()` into new tensors.
+
+`update_(grads, state, params, step)` is the same update written into
+`params` and `state` in place, leaf by leaf — the port's counterpart of
+the reference's donated train step (`trainer.make_train_step(...,
+donate=True)`). It consumes `grads` as scratch and allocates at most one
+leaf-sized temporary at a time. Every in-place op keeps the functional
+order of operations, so the result is the functional update's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch._tree import map_with_path, tree_map
+from repro_torch._tree import leaves, map_with_path, tree_map
 
 Schedule = Callable[[Any], torch.Tensor]
 
@@ -30,6 +38,7 @@ Schedule = Callable[[Any], torch.Tensor]
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[..., tuple[Any, Any]]
+    update_: Callable[..., None]
 
 
 def _as_schedule(lr) -> Schedule:
@@ -58,7 +67,21 @@ def sgd(lr, *, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
             upd = tree_map(lambda m: -lr_t * m, mu)
         return upd, {"mu": mu}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state, params, step):
+        lr_t = sched(step)
+        mus = [None] * len(leaves(params)) if momentum == 0.0 else leaves(
+            state["mu"])
+        for g, m, p in zip(leaves(grads), mus, leaves(params)):
+            if m is not None:
+                m.mul_(momentum).add_(g)  # momentum * m + g
+                if nesterov:
+                    g.add_(m * momentum)  # (momentum * mu + g) into g
+                else:
+                    g.copy_(m)
+            p.add_(g.mul_(-lr_t).to(p.dtype))
+
+    return Optimizer(init, update, update_)
 
 
 def adam(
@@ -84,13 +107,15 @@ def adamw(
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
+    def corrections(step):
+        # bias corrections in float32, as the reference computes b**t
+        t = torch.as_tensor(step).to(torch.float32) + 1.0
+        return 1.0 - b1**t, 1.0 - b2**t
+
     @torch.no_grad()
     def update(grads, state, params, step):
         lr_t = sched(step)
-        # bias corrections in float32, as the reference computes b**t
-        t = torch.as_tensor(step).to(torch.float32) + 1.0
-        c1 = 1.0 - b1**t
-        c2 = 1.0 - b2**t
+        c1, c2 = corrections(step)
         m = tree_map(
             lambda mm, g: b1 * mm + (1 - b1) * g.to(torch.float32),
             state["m"], grads,
@@ -108,7 +133,27 @@ def adamw(
 
         return map_with_path(upd, m, v, params), {"m": m, "v": v}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state, params, step):
+        lr_t = sched(step)
+        c1, c2 = corrections(step)
+
+        def one(path, g, mm, vv, p):
+            g = g.to(torch.float32)
+            tmp = g * (1 - b1)
+            mm.mul_(b1).add_(tmp)  # b1 * m + (1 - b1) * g
+            torch.square(g, out=tmp).mul_(1 - b2)
+            vv.mul_(b2).add_(tmp)  # b2 * v + (1 - b2) * g^2
+            # g is scratch from here: the denominator, then the decay term
+            torch.div(vv, c2, out=g).sqrt_().add_(eps)
+            torch.div(mm, c1, out=tmp).div_(g)
+            if weight_decay != 0.0 and (mask is None or mask(path)):
+                tmp.add_(torch.mul(p.to(torch.float32), weight_decay, out=g))
+            p.add_(tmp.mul_(-lr_t).to(p.dtype))
+
+        map_with_path(one, grads, state["m"], state["v"], params)
+
+    return Optimizer(init, update, update_)
 
 
 @torch.no_grad()

@@ -97,6 +97,12 @@ def run_training(
 
     A restored state's leaves go to the devices of `state`'s leaves, or
     to `restore_device` where given.
+
+    A donated step (`trainer.make_train_step(..., donate=True)`) writes
+    its update into `state` in place, so after a step that raised the
+    state is not valid: with `ckpt_dir` the retry restores it from the
+    newest checkpoint, as the reference must after its donated step. A
+    `fault_hook` raises before the step, with the state intact.
     """
     step = 0
     if ckpt_dir is not None:

@@ -877,3 +877,72 @@ def test_frontend_lm_roundtrip_on_the_card(cuda):
     got = replies(cuda, tree_map(lambda v: v.to(cuda), params))
     assert tqm.launches > 0
     assert got == want and all(s == "completed" for s, _ in got)
+
+
+# ---------------------------------------------------------------------------
+# LM training: the train step on the card, functional and donated
+# ---------------------------------------------------------------------------
+
+
+def _lm_train_setup(name, cuda):
+    """(model, AdamW, functional step, CPU state after 3 CPU steps,
+    batch_at on the CPU) of a reduced config in float32."""
+    from repro_torch.data import lm
+    from repro_torch.launch.train import lm_batch_at
+
+    model = _family(name, max_seq=16)
+    opt = optim.adamw(optim.linear_warmup_cosine(3e-3, 2, 20),
+                      weight_decay=0.01)
+    step = trainer.make_train_step(model.loss, opt, clip_norm=1.0)
+    state = trainer.init_state(model.init(0, device="cpu"), opt, device="cpu")
+    stream = lm.TokenStream(batch=4, seq_len=16, vocab=model.cfg.vocab,
+                            device="cpu")
+    batch_at = lm_batch_at(stream, model.cfg, 4)
+    for i in range(3):
+        state, _ = step(state, batch_at(i))
+    return model, opt, step, state, batch_at
+
+
+@pytest.mark.parametrize("name", ["qwen3_8b", "recurrentgemma_2b",
+                                  "olmoe_1b_7b", "whisper_tiny"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """From warm AdamW moments (3 CPU steps), one train step of a reduced
+    LM in float32 (TF32 off) on the card and on the CPU on the same batch:
+    loss, grad norm, params, m and v within 1e-4."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, _, step, state, batch_at = _lm_train_setup(name, cuda)
+        batch = batch_at(3)
+        new_c, m_c = step(state, batch)
+        new_d, m_d = step(tree_map(lambda v: v.to(cuda), state),
+                          {k: v.to(cuda) for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for key in ("loss", "grad_norm"):
+        assert float(m_d[key]) == pytest.approx(float(m_c[key]), rel=1e-4)
+    assert _rel_tree(new_d["params"], new_c["params"]) <= 1e-4
+    for k in ("m", "v"):
+        assert _rel_tree(new_d["opt"][k], new_c["opt"][k]) <= 1e-4
+
+
+def test_donated_lm_step_on_the_card_keeps_its_storage(cuda):
+    """A donated step on the card writes the update into the state it is
+    given (every tensor keeps its data_ptr) and equals the functional step
+    on the card within 1e-6 (each computes its own gradients; a scatter's
+    atomic adds may sum in another order)."""
+    model, opt, step, state, batch_at = _lm_train_setup("qwen3_8b", cuda)
+    donated = trainer.make_train_step(model.loss, opt, clip_norm=1.0,
+                                      donate=True)
+    batch = {k: v.to(cuda) for k, v in batch_at(3).items()}
+    on_card = tree_map(lambda v: v.to(cuda), state)
+    want, _ = step(on_card, batch)
+    ptrs = [x.data_ptr() for x in leaves(on_card)]
+    got, _ = donated(on_card, batch)
+    torch.cuda.synchronize()
+    assert got is on_card
+    assert [x.data_ptr() for x in leaves(got)] == ptrs
+    assert int(got["step"]) == 4
+    assert _rel_tree(got["params"], want["params"]) <= 1e-6
+    for k in ("m", "v"):
+        assert _rel_tree(got["opt"][k], want["opt"][k]) <= 1e-6

@@ -416,13 +416,18 @@ def _leaves(tree):
 def test_paging_and_training_raise():
     """The paged cache raises where the page does not divide an attention
     capacity, as the reference's does (the paged cache itself is held in
-    tests/test_torch_paged.py); training raises, naming its ROADMAP
-    item."""
-    _, mt, _, pt = lm_models("qwen3_8b", "float32", max_seq=16)
+    tests/test_torch_paged.py); the training loss, which raised before it
+    was ported, equals the reference's (its gradients and every family:
+    tests/test_torch_lm_train.py)."""
+    mj, mt, pj, pt = lm_models("qwen3_8b", "float32", max_seq=16)
     with pytest.raises(ValueError, match="does not divide"):
         tT.init_cache_paged(mt.cfg, mt.dims, 2, 8, 5, 16)
     with pytest.raises(ValueError, match="does not divide"):
         tT.paged_layouts(mt.cfg, 5, 16)
     assert tT.paged_layouts(mt.cfg, 4, 16) == {"blocks/pos0/attn": (4, 4)}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mt.loss(pt, {})
+    toks = np_tokens((B, 17), mt.cfg.vocab, seed=5)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    lt, met_t = mt.loss(pt, {k: t(v) for k, v in batch.items()})
+    lj, met_j = mj.loss(pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert float(lt) == pytest.approx(float(lj), rel=1e-5)
+    assert float(met_t["nll"]) == pytest.approx(float(met_j["nll"]), rel=1e-5)

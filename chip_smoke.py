@@ -6,8 +6,11 @@ inference demo, train_va with checkpoints and restart), LM serving
 (launch.serve at the full widths of qwen3-8b, recurrentgemma-2b,
 olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode), the
 paged cache, chunked prefill and the serving frontend (launch.serve and
-launch.stream --listen / --connect), and LM training (launch.train at
-recurrentgemma-2b's full CONFIG, examples.train_lm) on one CUDA card.
+launch.stream --listen / --connect), LM training (launch.train at
+recurrentgemma-2b's full width, examples.train_lm), and the pod and data
+axes over NCCL (launch.train --multi-pod 1x1 at recurrentgemma-2b's full
+CONFIG, the multi-pod step card against CPU, the data-sharded fleet
+runner) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -120,8 +123,8 @@ toolkit. Phases, each printing JSON lines:
    enqueued == packed), then the same frontend in process through an
    InProcClient, its nm_spmm launches 7 a flushed bucket;
    lm_train — repro_torch.launch.train.main at recurrentgemma-2b's full
-   CONFIG (26 layers, d_model 2560, vocab 256000; 3.55 B parameters, 56.8
-   GB of float32 AdamW state) with the reference's defaults (batch 16,
+   width (d_model 2560, vocab 256000) and LM_TRAIN_LAYERS of its 26
+   layers with the reference's defaults (batch 16,
    seq 64, bfloat16 compute, block remat), its step donated (updated in
    place), 4 steps, then --spe-bits 8 --spe-sparse for 2: each step's
    wall, one more step under the profiler (device ms, kernels, busy
@@ -133,6 +136,16 @@ toolkit. Phases, each printing JSON lines:
    (functional) from the same warm state for every reduced decoder-only
    family and whisper-tiny's full CONFIG in float32 (params, m and v
    within STEP_RTOL); none of the four kernels launched over the phase;
+   dist — launch.train --multi-pod 1x1 --scheme gather at
+   recurrentgemma-2b's full CONFIG (3.55 B parameters; params, grads, m,
+   v and the error buffer: 71 GB of float32) in a world-1 NCCL group:
+   each step's wall, one more step under the profiler, the compression's
+   share of the wall (its span), peak memory, the bytes and calls handed
+   to the collectives a step, no kernel launched; each scheme's
+   multi-pod step (gather, two_stage, f32) on the card against the CPU
+   (gloo) from the same warm state; the kernel-path FleetRunner on a
+   1-card NCCL data mesh, 7 nm_spmm launches a bucket, predictions equal
+   the unsharded runner's;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -302,6 +315,26 @@ LM_TRAIN_EXAMPLE = ("--hundred-m", "--steps", "60")
 # time), seq 16; params, m and v within STEP_RTOL
 LM_TRAIN_WARM_STEPS = 3
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 1, 16
+# lm_train's launch.train runs at recurrentgemma-2b's full width and
+# LM_TRAIN_LAYERS of its 26 layers: the full CONFIG trains in dist_train
+LM_TRAIN_LAYERS = 8
+# the pod axis over NCCL at world 1: launch.train --multi-pod 1x1 at
+# recurrentgemma-2b's full CONFIG (params, grads, m, v and the gather
+# scheme's error buffer: 71 GB of float32), one more step profiled
+DIST_TRAIN = ("--arch", "recurrentgemma-2b", "--multi-pod", "1x1",
+              "--scheme", "gather", "--steps", "4", "--log-every", "0")
+# make_multipod_train_step at world 1, card (NCCL) against CPU (gloo), the
+# reduced qwen3-8b in float32 at batch 8 x seq 16, AdamW 3e-3: each scheme
+# DIST_STEPS steps from a state warmed by DIST_WARM_STEPS CPU steps;
+# params, m and v within STEP_RTOL_DIST of each tree's max, but where an
+# int8 code fell on the other side of a .5 (at most DIST_FLIP_SHARE of
+# the elements); the error buffers at the gradients' level (127 code
+# steps of the leaf, a step), each within one code step where a code
+# flipped (a leaf's code step: twice its stage-1 residual's max)
+DIST_MODES = (("gather", True), ("two_stage", True), ("f32", False))
+DIST_WARM_STEPS, DIST_STEPS = 3, 3
+STEP_RTOL_DIST = 1e-5
+DIST_FLIP_SHARE = 0.02
 SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
@@ -1450,8 +1483,10 @@ def sliced_leaves_cost(torch, dev, step) -> dict:
 
 
 def lm_train(torch, dev, smi, launches_now, reset_launches) -> dict:
-    """launch.train.main at recurrentgemma-2b's full CONFIG (bfloat16
-    compute, donated AdamW step), then with --spe-bits 8 --spe-sparse: each
+    """launch.train.main at recurrentgemma-2b's full width and
+    LM_TRAIN_LAYERS of its layers (bfloat16 compute, donated AdamW step;
+    the full CONFIG trains in dist_train), then with --spe-bits 8
+    --spe-sparse: each
     run's peak memory, the wall of each step through a synchronize, one
     more step under the profiler (device ms and kernels a step, busy share
     against the median wall), first and last loss, grad norms, and after
@@ -1462,6 +1497,8 @@ def lm_train(torch, dev, smi, launches_now, reset_launches) -> dict:
     nonzero, every peak below the card's memory, and none of the four
     kernels launched over the phase (training runs float32 masters
     through the dense linear: no serving path)."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch._tree import leaves
     from repro_torch.examples import train_lm
@@ -1473,14 +1510,20 @@ def lm_train(torch, dev, smi, launches_now, reset_launches) -> dict:
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     out = {"phase": "lm_train", "card": smi, "card_bytes": card_bytes,
            "runs": {}}
+    full_get = configs.get
+
+    def cut(name):
+        return dataclasses.replace(full_get(name), n_layers=LM_TRAIN_LAYERS)
+
     for label, argv in LM_TRAIN_RUNS.items():
         free_card(torch, dev)
         t0 = time.perf_counter()
-        run = launch_train.main(list(argv))
+        with mock.patch.object(configs, "get", cut):
+            run = launch_train.main(list(argv))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         hist, state = run["history"], run["state"]
-        cfg = configs.get(argv[argv.index("--arch") + 1])
+        cfg = cut(argv[argv.index("--arch") + 1])
         n_steps = len(hist)
         t0 = time.perf_counter()
         prof = lm_profile(torch, lambda: run["step_fn"](
@@ -1546,6 +1589,253 @@ def lm_train(torch, dev, smi, launches_now, reset_launches) -> dict:
     check(not any(out["launches"].values()),
           f"lm_train: a kernel launched while training: {out['launches']}")
     return out
+
+
+def span_seconds(tel) -> dict:
+    """Seconds in each span name of the telemetry's trace."""
+    out: dict = {}
+    for e in tel.tracer.events():
+        if e["type"] == "span":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur_us"] / 1e6
+    return out
+
+
+def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """launch.train.main --multi-pod 1x1 --scheme gather at
+    recurrentgemma-2b's full CONFIG in a world-1 NCCL group (the pod
+    group's collectives: int8 codes and scales all-gathered, metrics
+    all-reduced): each step's wall, one more step under the profiler
+    (device ms, kernels), the compression's share of the steps' wall (the
+    train/reduce span, telemetry on), peak memory below the card's, the
+    bytes and calls handed to the collectives a step, every loss and grad
+    norm finite and nonzero, the error buffer carrying a residual, and no
+    kernel launched."""
+    from repro_torch import obs
+    from repro_torch._tree import leaves
+    from repro_torch.dist import compression as C
+    from repro_torch.launch import _spawn
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    reset_launches()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    tel = obs.configure(enabled=True)  # the train/* spans
+    C.reset_wire()
+    try:
+        with _spawn.process_group("cuda", timeout_s=600):
+            backend = torch.distributed.get_backend()
+            t0 = time.perf_counter()
+            run = launch_train.main(list(DIST_TRAIN))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            hist, state = run["history"], run["state"]
+            wire = {"bytes": dict(C.wire_bytes), "calls": dict(C.wire_calls)}
+            spans = span_seconds(tel)
+            peak = torch.cuda.max_memory_allocated(dev)
+            n_steps = len(hist)
+            t0 = time.perf_counter()
+            prof = lm_profile(torch, lambda: run["step_fn"](
+                state, run["batch_at"](n_steps)), 1)
+            profile_s = time.perf_counter() - t0
+            s1_abs = sum(float(x.abs().sum())
+                         for x in leaves(state["err"]["s1"]))
+            n_params = sum(x.numel() for x in leaves(state["params"]))
+    finally:
+        obs.reset()
+    walls = [h["wall_s"] * 1e3 for h in hist]
+    steady = statistics.median(walls[1:]) if len(walls) > 1 else walls[0]
+    out = {"phase": "dist_train", "card": smi, "argv": list(DIST_TRAIN),
+           "backend": backend, "world": 1, "n_params": n_params,
+           "state_bytes": 20 * n_params, "card_bytes": card_bytes,
+           "run_s": run_s, "profile_s": profile_s, "step_wall_ms": walls,
+           "step_wall_ms_steady": steady,
+           "step_device_ms": prof["device_ms"],
+           "kernels_per_step": prof["kernels"],
+           "top_kernels": prof["top_kernels"],
+           "busy": prof["device_ms"] / steady,
+           "span_s": spans,
+           "reduce_share": spans["train/reduce"] / spans["train/step"],
+           "peak_device_bytes": peak,
+           "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "collective_bytes_per_step": {
+               k: v / n_steps for k, v in wire["bytes"].items()},
+           "collective_calls_per_step": {
+               k: v / n_steps for k, v in wire["calls"].items()},
+           "metrics_all_reduce_per_step": 1,
+           "err_s1_abs_sum": s1_abs}
+    del run, state
+    free_card(torch, dev)
+    out["launches"] = launches_now()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(backend == "nccl", f"dist_train: backend {backend}")
+    check(all(math.isfinite(v) and v > 0 for v in out["loss"]
+              + out["grad_norm"]),
+          "dist_train: loss or grad norm not finite and nonzero")
+    check(peak < card_bytes, f"dist_train: peak {peak} B")
+    check(s1_abs > 0, "dist_train: the error buffer carries no residual")
+    check(wire["calls"].get("all_gather", 0) > 0,
+          f"dist_train: no collective: {wire}")
+    check(not any(out["launches"].values()),
+          f"dist_train: a kernel launched: {out['launches']}")
+    return out
+
+
+def _dist_run(torch, device, steps: int, state=None):
+    """make_multipod_train_step at world 1 on `device` for each of
+    DIST_MODES: `steps` steps from `state` (per mode; fresh where None)
+    on the reduced qwen3-8b in float32. Returns {mode: state on the
+    host}."""
+    import dataclasses
+
+    from repro_torch import configs, optim
+    from repro_torch._tree import tree_map
+    from repro_torch.data import lm
+    from repro_torch.launch import _spawn
+    from repro_torch.launch.mesh import make_multipod_mesh
+    from repro_torch.models import api
+    from repro_torch.train import trainer
+
+    cfg = dataclasses.replace(configs.reduced("qwen3-8b"), dtype="float32")
+    model = api.build_model(cfg, max_seq=32)
+    # drawn on the CPU, then moved: the card's generator draws otherwise
+    stream = lm.TokenStream(batch=8, seq_len=16, vocab=cfg.vocab, seed=SEED,
+                            device="cpu")
+    out = {}
+    with _spawn.process_group(device, timeout_s=300):
+        mesh = make_multipod_mesh("1x1", device)
+        for mode, compress in DIST_MODES:
+            scheme = mode if compress else "gather"
+            opt = optim.adamw(3e-3)
+            if state is None:
+                st = trainer.init_state(model.init(SEED, device="cpu"), opt,
+                                        device=device)
+                st["err"] = trainer.init_dp_err(
+                    st["params"], mesh, scheme=scheme, compress=compress)
+                first = 0
+            else:
+                st = tree_map(lambda v: v.to(device, copy=True), state[mode])
+                first = int(st["step"])
+            step, _ = trainer.make_multipod_train_step(
+                model.loss, opt, cfg, mesh, st, scheme=scheme,
+                compress=compress)
+            for i in range(first, first + steps):
+                st, _ = step(st, {k: v.to(device)
+                                  for k, v in stream.batch_at(i).items()})
+            out[mode] = tree_map(lambda v: v.cpu(), st)
+    return out
+
+
+def dist_card_vs_cpu(torch, dev, smi) -> dict:
+    """Each scheme's multi-pod step at world 1: DIST_STEPS steps on the
+    card (NCCL) against the same on the CPU (gloo, this process) from the
+    same warm state (DIST_WARM_STEPS CPU steps). Per tree (params, m, v,
+    each error buffer): the largest difference and the share of elements
+    past STEP_RTOL_DIST of the tree's max; the f32 scheme within it
+    everywhere, the int8 schemes but for at most DIST_FLIP_SHARE (codes
+    on the other side of a .5); each error buffer at the gradients'
+    level but for that share, and within one code step."""
+    from repro_torch._tree import leaves
+
+    t0 = time.perf_counter()
+    warm = _dist_run(torch, "cpu", DIST_WARM_STEPS)
+    card = _dist_run(torch, dev, DIST_STEPS, warm)
+    host = _dist_run(torch, "cpu", DIST_STEPS, warm)
+    rec = {"phase": "dist_card_vs_cpu", "card": smi, "modes": {}}
+    for mode, compress in DIST_MODES:
+        trees = {"params": lambda st: st["params"],
+                 "m": lambda st: st["opt"]["m"],
+                 "v": lambda st: st["opt"]["v"],
+                 "s1": lambda st: st["err"].get("s1"),
+                 "s2": lambda st: st["err"].get("s2")}
+        # each leaf's code step: twice its stage-1 residual's max
+        # (|err| <= scale/2); the stage-2 shard's scale is the same leaf's
+        steps = ([2 * float(y.abs().max())
+                  for y in leaves(host[mode]["err"]["s1"])]
+                 if compress else [])
+        errs = {}
+        for name, part in trees.items():
+            if part(host[mode]) is None:
+                continue
+            pairs = list(zip(leaves(part(card[mode])),
+                             leaves(part(host[mode]))))
+            top = max(float(y.abs().max()) for _, y in pairs)
+            worst = max(float((x - y).abs().max()) for x, y in pairs)
+            past = sum(int(((x - y).abs() > STEP_RTOL_DIST * top).sum())
+                       for x, y in pairs)
+            total = sum(y.numel() for _, y in pairs)
+            errs[name] = {
+                "max_abs": worst,
+                "rel_max": worst / top if top else float(worst > 0),
+                "share_past": past / total,
+                # an error buffer g + err - q·s differs as the gradient
+                # does, and the gradient's max is 127 code steps, once a
+                # step: that level, leaf by leaf, and within one code
+                # step where a code flipped
+                "share_past_grad_level": sum(
+                    int(((x - y).abs() > STEP_RTOL_DIST * 127 * DIST_STEPS
+                         * c).sum())
+                    for (x, y), c in zip(pairs, steps)) / total
+                if name in ("s1", "s2") else None,
+                "code_step_ok": all(
+                    float((x - y).abs().max()) <= c * (1 + 1e-3) + 1e-12
+                    for (x, y), c in zip(pairs, steps))
+                if name in ("s1", "s2") else None}
+        rec["modes"][mode] = errs
+        for name, e in errs.items():
+            if not compress:
+                check(e["rel_max"] <= STEP_RTOL_DIST,
+                      f"dist_card_vs_cpu {mode} {name}: {e}")
+            elif name in ("s1", "s2"):
+                check(e["share_past_grad_level"] <= DIST_FLIP_SHARE
+                      and e["code_step_ok"],
+                      f"dist_card_vs_cpu {mode} {name}: {e}")
+            else:
+                check(e["share_past"] <= DIST_FLIP_SHARE,
+                      f"dist_card_vs_cpu {mode} {name}: {e}")
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+def dist_fleet(torch, dev, smi) -> dict:
+    """FleetRunner(program, path="kernel", mesh=) on a 1-device ("data",)
+    mesh over NCCL (built explicitly: make_data_mesh(1) is None): one
+    bucket of BUCKET, its nm_spmm launches counted from 0 (7), its
+    predictions equal the unsharded runner's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import compiler, vadetect
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import _spawn
+    from repro_torch.stream import FleetRunner
+
+    params = vadetect.init(torch.Generator().manual_seed(SEED), device=dev)
+    program = compiler.compile_model(params)
+    x = torch.randn((BUCKET, vadetect.RECORD_LEN),
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    one = FleetRunner(program, path="kernel", device=dev)
+    want = one.classify(x)
+    with _spawn.process_group("cuda", timeout_s=300):
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        runner = FleetRunner(program, path="kernel", device=dev, mesh=mesh)
+        runner.classify(x)  # warm
+        torch.cuda.synchronize()
+        K.launches = 0
+        got = runner.classify(x)
+        torch.cuda.synchronize()
+        launches = K.launches
+        backend = torch.distributed.get_backend()
+    rec = {"phase": "dist_fleet", "card": smi, "backend": backend,
+           "bucket": BUCKET, "n_devices": runner.n_devices,
+           "nm_spmm_launches": launches,
+           "same_predictions": bool(torch.equal(got, want))}
+    emit(rec)
+    check(launches == 7, f"dist_fleet: {launches} nm_spmm launches")
+    check(rec["same_predictions"], "dist_fleet: predictions differ")
+    return rec
 
 
 def stream_frontend(torch, dev, smi) -> dict:
@@ -2549,6 +2839,14 @@ def main() -> int:
     lm_train(torch, dev, smi, launches_now, reset_launches)
     clock("lm_train")
 
+    # -- the pod and data axes over NCCL --------------------------------------
+    dist_train(torch, dev, smi, launches_now, reset_launches)
+    clock("dist_train")
+    dist_card_vs_cpu(torch, dev, smi)
+    clock("dist_card_vs_cpu")
+    fleet_dist = dist_fleet(torch, dev, smi)
+    clock("dist_fleet")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -2761,6 +3059,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/nm_spmm.py:68",
         "launches": fleet_launches, "launches_service": main_launches,
         "launches_frontend": stream_front["inproc"]["nm_spmm_launches"],
+        "launches_dist_fleet": fleet_dist["nm_spmm_launches"],
         "max_abs_err": max(max_abs_err, fleet_err),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2769,7 +3068,8 @@ def main() -> int:
         "at": "sum of the 7 sparse VA layers at bucket 256; launches over "
               "the 1000-patient fleet's kernel-path run (launches_service: "
               "over the service run; launches_frontend: the stream "
-              "frontend's in-process run)",
+              "frontend's in-process run; launches_dist_fleet: one bucket "
+              "through the FleetRunner on a 1-device NCCL data mesh)",
     }, {
         "name": SC.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",

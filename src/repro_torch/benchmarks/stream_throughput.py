@@ -1,14 +1,25 @@
-"""Fleet streaming throughput on one card: patients sustained at 250 Hz
-vs batch bucket size.
+"""Fleet streaming throughput: patients sustained at 250 Hz vs batch
+bucket size vs device count.
 
-Port of `benchmarks/stream_throughput.py` on one device. Two throughput
-views per bucket cell:
+Port of `benchmarks/stream_throughput.py`. Two throughput views per
+(bucket, devices) cell:
 
-  * wall — what this host and its card actually sustain through the full
-    loop (schedule → pack → inference on the card → vectorized vote);
-  * modeled chip fleet — the perf model's chip twin running every bucket
-    serially at its per-segment latency (35 µs at the paper's operating
-    point). That is the modelled ASIC's number, not the card's.
+  * wall — what this host and its cards actually sustain through the
+    full loop (schedule → pack → sharded inference → vectorized vote);
+  * modeled chip fleet — each mesh device is one chip twin running its
+    shard of every bucket serially at the perf model's per-segment
+    latency (35 µs at the paper's operating point): N chips monitor N
+    disjoint fleet slices, so it scales exactly linearly. That is the
+    modelled ASIC's number, not the card's.
+
+The device counts are the reference's (1, 2, 4, 8; 1 and 8 with
+`--smoke`) that the process group holds: one rank a device
+(`--devices N` brings N ranks up through `launch._spawn.run`; one card
+runs 1). A cell of d devices runs on a data mesh over the first d ranks
+(`launch.mesh.make_data_mesh`); `_verify_batch_sharding` checks that
+every rank of it really classifies bucket/d rows. Every rank runs the
+sweep; rank 0 runs the 1000-patient cell's report, the overhead
+measurement and the checks, and returns the record.
 
 `--smoke` runs the acceptance configuration: a 1000-patient fleet that
 must sustain real-time rate (one 512-sample segment per patient per
@@ -37,9 +48,12 @@ import json
 import statistics
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device, obs
 from repro_torch.core import compiler, vadetect
+from repro_torch.launch import _spawn
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.stream import (
     SEGMENT_PERIOD_S,
     FleetConfig,
@@ -48,18 +62,43 @@ from repro_torch.stream import (
 )
 
 
+def _verify_batch_sharding(runner, bucket: int, devices: int) -> bool:
+    """The modelled chip-fleet rate is N/latency *by definition*; what
+    must be verified is the mechanism behind it — that every rank of the
+    runner's mesh really classifies bucket/N rows of a bucket (a
+    collective over the mesh: each of its ranks calls it)."""
+    if devices <= 1:
+        return True
+    rows = runner.local_rows(
+        torch.zeros((bucket, vadetect.RECORD_LEN), device=runner.device))
+    counts = torch.zeros(devices, dtype=torch.int64, device=runner.device)
+    counts[runner.mesh.get_local_rank()] = rows.shape[0]
+    dist.all_reduce(counts, group=runner.mesh.get_group())
+    return (runner.n_devices == devices
+            and set(counts.tolist()) == {bucket // devices})
+
+
 def run_cell(
     program,
     *,
     patients: int,
     segments: int,
     bucket: int,
+    devices: int = 1,
     seed: int = 0,
     device: _device.DeviceLike = None,
-) -> dict:
-    """One bucket cell: fleet sim with a single-bucket ladder (plus a
-    small partial-batch bucket so drains stay fixed-shape)."""
-    runner = FleetRunner(program, path="twin", device=device)
+) -> dict | None:
+    """One (bucket, devices) cell: fleet sim with a single-bucket ladder
+    (plus a small partial-batch bucket so drains stay fixed-shape), on a
+    data mesh over the first `devices` ranks. Every rank of the group
+    calls it; a rank outside the mesh returns None (at one device, every
+    rank but 0)."""
+    mesh = make_data_mesh(devices, device)
+    if (mesh.get_coordinate() is None if mesh is not None
+            else _spawn.rank() != 0):
+        return None
+    runner = FleetRunner(program, path="twin", device=device, mesh=mesh)
+    shard_ok = _verify_batch_sharding(runner, bucket, devices)
     small = max(8, bucket // 16)
     buckets = (small, bucket) if small < bucket else (bucket,)
     cfg = FleetConfig(
@@ -75,6 +114,8 @@ def run_cell(
     m = out["metrics"]
     return {
         "bucket": bucket,
+        "devices": devices,
+        "batch_sharded_over_devices": shard_ok,
         "patients": patients,
         "segments_total": m["segments_total"],
         "dropped_total": m["dropped_total"],
@@ -210,13 +251,19 @@ def _require(ok: bool, what) -> None:
 
 
 def check(rec: dict) -> None:
-    """The acceptance criteria that apply on one card: zero scheduler
-    drops everywhere, real-time sustained for 1000 patients, the
-    telemetry schema (drop counter, flush-latency percentiles, classify
-    cells seen, device memory on a card), and the < 3% enabled-telemetry
-    tax on the loop's wall where the host can resolve it."""
+    """The acceptance criteria: zero scheduler drops everywhere, every
+    multi-device cell's buckets split bucket/N over its ranks, the
+    modelled speedup past 4 where the sweep spans 8x the devices,
+    real-time sustained for 1000 patients, the telemetry schema (drop
+    counter, flush-latency percentiles, classify cells seen, device
+    memory on a card), and the < 3% enabled-telemetry tax on the loop's
+    wall where the host can resolve it."""
     cells, realtime, t = rec["cells"], rec["realtime_1000_patients"], rec["telemetry"]
+    scaling = rec["scaling_largest_bucket"]
     _require(all(c["dropped_total"] == 0 for c in cells), cells)
+    _require(all(c["batch_sharded_over_devices"] for c in cells), cells)
+    if scaling["devices_hi"] >= 8 * scaling["devices_lo"]:
+        _require(scaling["modeled_speedup"] > 4.0, scaling)
     _require(realtime["dropped_total"] == 0, realtime)
     _require(realtime["realtime_factor"] >= 1.0, realtime)
     _require(t["schema_version"] == obs.SCHEMA_VERSION and t["enabled"], t)
@@ -233,14 +280,65 @@ def check(rec: dict) -> None:
         _require(overhead["overhead_ratio"] < 1.03, overhead)
 
 
+def device_counts(smoke: bool) -> list[int]:
+    """The reference's device counts that the process group holds."""
+    counts = [1, 8] if smoke else [1, 2, 4, 8]
+    return [d for d in counts if d <= _spawn.world_size()]
+
+
+def sweep(program, buckets, counts, *, patients: int, segments: int,
+          device: _device.DeviceLike = None) -> tuple[list, dict]:
+    """Every (bucket, devices) cell and the device-count scaling record
+    on the largest bucket (the modelled chip fleet's; the wall numbers
+    are reported beside it). Every rank calls it; rank 0 gets every cell
+    and the scaling record, the others their own cells and None."""
+    cells = []
+    for b in buckets:
+        for d in counts:
+            cell = run_cell(program, patients=patients, segments=segments,
+                            bucket=b, devices=d, device=device)
+            if cell is None:
+                continue
+            cells.append(cell)
+            if _spawn.rank() == 0:
+                print(
+                    f"[stream_throughput] bucket={b:4d} devices={d} "
+                    f"wall={cell['wall_segments_per_s']:7.0f} seg/s "
+                    f"modeled-chips="
+                    f"{cell['modeled_chip_segments_per_s']:7.0f} "
+                    f"seg/s dropped={cell['dropped_total']}",
+                    flush=True,
+                )
+    if _spawn.rank() != 0:
+        return cells, None
+    largest = max(buckets)
+    by_dev = {c["devices"]: c for c in cells if c["bucket"] == largest}
+    lo, hi = min(by_dev), max(by_dev)
+    scaling = {
+        "bucket": largest,
+        "devices_lo": lo,
+        "devices_hi": hi,
+        "modeled_chip_segments_per_s_lo": by_dev[lo][
+            "modeled_chip_segments_per_s"],
+        "modeled_chip_segments_per_s_hi": by_dev[hi][
+            "modeled_chip_segments_per_s"],
+        "modeled_speedup": by_dev[hi]["modeled_chip_segments_per_s"]
+        / by_dev[lo]["modeled_chip_segments_per_s"],
+        "wall_segments_per_s_lo": by_dev[lo]["wall_segments_per_s"],
+        "wall_segments_per_s_hi": by_dev[hi]["wall_segments_per_s"],
+    }
+    return cells, scaling
+
+
 def run(
     *, smoke: bool = False, patients: int = 512, segments: int = 6,
     device: _device.DeviceLike = None,
-) -> dict:
+) -> dict | None:
     """Run the sweep, the 1000-patient real-time cell and the overhead
     measurement with telemetry enabled; check the record (`check`) and
-    return it. The telemetry configured here stays installed, so a
-    caller can write its trace."""
+    return it (None on ranks other than 0, which run the sweep and the
+    real-time cell only). The telemetry configured here stays installed,
+    so a caller can write its trace."""
     dev = _device.resolve(device)
     # before any runner is built, so its cells register with the probe
     obs.configure(enabled=True)
@@ -255,22 +353,17 @@ def run(
     else:
         buckets = [32, 128, 256]
         sweep_patients, sweep_segments = patients, segments
+    counts = device_counts(smoke)
+    cells, scaling = sweep(program, buckets, counts, patients=sweep_patients,
+                           segments=sweep_segments, device=dev)
 
-    cells = []
-    for b in buckets:
-        cell = run_cell(program, patients=sweep_patients,
-                        segments=sweep_segments, bucket=b, device=dev)
-        cells.append(cell)
-        print(
-            f"[stream_throughput] bucket={b:4d} "
-            f"wall={cell['wall_segments_per_s']:7.0f} seg/s "
-            f"modeled-chip={cell['modeled_chip_segments_per_s']:7.0f} "
-            f"seg/s dropped={cell['dropped_total']}",
-            flush=True,
-        )
-
-    # the 1000-patient real-time acceptance cell
-    rt_runner = FleetRunner(program, path="twin", device=dev)
+    # the 1000-patient real-time acceptance cell, on the most devices
+    rt_devices = max(counts)
+    rt_mesh = make_data_mesh(rt_devices, dev)
+    if (rt_mesh.get_coordinate() is None if rt_mesh is not None
+            else _spawn.rank() != 0):
+        return None
+    rt_runner = FleetRunner(program, path="twin", device=dev, mesh=rt_mesh)
     rt_cfg = FleetConfig(
         n_patients=1000,
         segments_per_patient=6,  # one full vote window per patient
@@ -280,8 +373,11 @@ def run(
         path="twin",
     )
     rt = simulate(rt_cfg, runner=rt_runner)
+    if _spawn.rank() != 0:
+        return None
     realtime = {
         "patients": 1000,
+        "devices": rt_devices,
         "segments_total": rt["metrics"]["segments_total"],
         "dropped_total": rt["metrics"]["dropped_total"],
         "required_segments_per_s": rt["realtime"][
@@ -295,7 +391,7 @@ def run(
         "jit_cache_misses": rt["jit_cache_misses"],
     }
     print(
-        f"[stream_throughput] 1000 patients: "
+        f"[stream_throughput] 1000 patients on {rt_devices} devices: "
         f"{realtime['sustained_segments_per_s']:.0f} seg/s sustained vs "
         f"{realtime['required_segments_per_s']:.0f} required "
         f"({realtime['realtime_factor']:.1f}x real-time), "
@@ -320,8 +416,10 @@ def run(
             "name": (torch.cuda.get_device_name(dev)
                      if dev.type == "cuda" else "cpu"),
         },
+        "n_ranks": _spawn.world_size(),
         "chip_latency_us": program.report.latency_s * 1e6,
         "cells": cells,
+        "scaling_largest_bucket": scaling,
         "realtime_1000_patients": realtime,
         "telemetry": telemetry,
     }
@@ -341,14 +439,18 @@ def main() -> None:
                     help="tiny sweep + 1000-patient real-time check")
     ap.add_argument("--patients", type=int, default=512)
     ap.add_argument("--segments", type=int, default=6)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks to bring up, one a card")
     ap.add_argument("--out", default=None,
                     help="write the JSON record here (default: nowhere)")
     ap.add_argument("--trace-out", default=None, metavar="PREFIX",
                     help="write the telemetry trace to PREFIX.jsonl "
                          "(event log) + PREFIX.json (Chrome/Perfetto)")
     args = ap.parse_args()
-    rec = run(smoke=args.smoke, patients=args.patients,
+    kw = dict(smoke=args.smoke, patients=args.patients,
               segments=args.segments)
+    rec = (run(**kw) if args.devices == 1
+           else _spawn.run(run, args.devices, device="cuda", kwargs=kw))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)

@@ -13,7 +13,7 @@ repeats with int8/int4 weight-only quantization (the packed projections
 run the hand-written `quant_matmul` kernel on the card) and reports the
 token agreement between precisions, and draws a sampled batch twice.
 The reference's mesh-sharded engine block is not ported (ROADMAP.md
-queue 1 item 8).
+queue 1 item 8b).
 
 `--smoke` shrinks the burst and asserts the demo's claims instead of
 just printing them. `main(argv, device="cpu")` runs it on the CPU.

@@ -56,7 +56,7 @@ from repro_torch.serve import engine as E
 
 # the reference's flags whose parts of the system are not ported yet
 _NOT_PORTED = {
-    "--mesh": "sharded decode, ROADMAP.md queue 1 item 8",
+    "--mesh": "sharded decode, ROADMAP.md queue 1 item 8b",
     "--frontend-sweep": "loadlab.sweep_frontend, ROADMAP.md queue 1 item 9",
     "--load-sweep": "obs.loadlab, ROADMAP.md queue 1 item 9",
     "--load-fractions": "obs.loadlab, ROADMAP.md queue 1 item 9",

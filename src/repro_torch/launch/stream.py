@@ -22,9 +22,18 @@ offers `--patients` x `--segments` segments at `--offered-rate` seg/s
     python -m repro_torch.launch.stream --connect HOST:PORT \\
         --patients 256 --segments 8 --offered-rate 2000
 
+`--devices N` splits every bucket over N ranks of a ("data",) mesh
+(`make_data_mesh`; `launch._spawn.run` spawns gloo ranks with
+`device="cpu"`, one NCCL rank a card on the card): each rank classifies
+its bucket/N rows and all-gathers the predictions, every rank runs the
+same scheduler and vote, and rank 0 reports.
+
+    python -m repro_torch.launch.stream --devices 4 --patients 256
+
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
-`device` it needs a card. A mesh (`--devices` > 1) is ROADMAP.md queue 1
-item 8; the open-loop sweep (`--load-sweep` and its flags) is item 9.
+`device` it needs a card. The open-loop sweep (`--load-sweep` and its
+flags) is ROADMAP.md queue 1 item 9; a frontend over a mesh (`--listen`
+with `--devices` > 1) is item 8b.
 """
 
 from __future__ import annotations
@@ -38,7 +47,11 @@ import torch
 
 from repro_torch import _device, obs
 from repro_torch.core import compiler, vadetect
+from repro_torch.launch import _spawn
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.stream import FleetConfig, FleetRunner, simulate
+
+__all__ = ["main", "make_data_mesh", "stream_connect", "stream_listen"]
 
 # the reference's flags whose parts of the system are not ported yet
 _NOT_PORTED = {
@@ -194,9 +207,9 @@ def main(
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag} is not ported yet ({what})")
-    if args.devices > 1:
-        ap.error("--devices > 1 (a data mesh) is not ported yet (sharded "
-                 "stream runner, ROADMAP.md queue 1 item 8)")
+    if args.devices > 1 and args.listen:
+        ap.error("--listen with --devices > 1 (a frontend over a data mesh) "
+                 "is not ported yet (ROADMAP.md queue 1 item 8b)")
     dev = _device.resolve(device)
     if args.trace_out:
         # before the runner is built, so its cells register with the probe
@@ -204,12 +217,36 @@ def main(
 
     if args.connect:
         return stream_connect(args)
-    buckets = tuple(sorted(int(b) for b in args.buckets.split(",")))
+    if args.listen:
+        return stream_listen(args, _program(args, dev), _buckets(args), dev)
+    if args.devices > 1:
+        return _spawn.run(
+            _simulate_main, args.devices, device=dev.type,
+            args=(args, dev.type if dev.type == "cpu" else None),
+        )
+    return _simulate_main(args, dev)
+
+
+def _buckets(args) -> tuple:
+    return tuple(sorted(int(b) for b in args.buckets.split(",")))
+
+
+def _program(args, dev):
     params = vadetect.init(torch.Generator().manual_seed(args.seed),
                            device=dev)
-    program = compiler.compile_model(params)
-    if args.listen:
-        return stream_listen(args, program, buckets, dev)
+    return compiler.compile_model(params)
+
+
+def _simulate_main(args, device):
+    """The fleet simulation on this rank (over a data mesh of
+    `--devices` ranks when that is more than one); rank 0 prints and
+    returns the record."""
+    dev = _device.resolve(device)
+    if args.trace_out and not obs.get().enabled:  # a spawned rank
+        obs.configure(enabled=True)
+    buckets = _buckets(args)
+    mesh = make_data_mesh(args.devices, dev)
+    lead = _spawn.rank() == 0
     cfg = FleetConfig(
         n_patients=args.patients,
         segments_per_patient=args.segments,
@@ -221,7 +258,9 @@ def main(
         max_wait_s=args.max_wait,
         path=args.path,
     )
-    out = simulate(cfg, program, device=dev)
+    out = simulate(cfg, _program(args, dev), device=dev, mesh=mesh)
+    if not lead:
+        return None
     if args.trace_out:
         out["telemetry"] = obs.telemetry_section()
         jsonl, chrome = obs.get().finish(args.trace_out)

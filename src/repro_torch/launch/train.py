@@ -21,9 +21,25 @@ synthetic `data.lm.TokenStream`; whisper-family configs also get frames
 drawn from a generator keyed by the step. `--arch va-cnn` trains the
 paper's VA detector on the IEGM stream instead.
 
-`main(argv, device="cpu")` runs the same paths on the CPU; with no
-`device` it needs a card. The reference's multi-pod flags are refused,
-naming the ROADMAP.md item that ports them.
+`--multi-pod PxD[xM]` switches to compressed multi-pod data parallelism
+(`trainer.make_multipod_train_step`) over a ("pod", "data", "model")
+`DeviceMesh`, one rank a pod: the pod axis reduces gradients through
+`dist.compression` — `--scheme gather` (default; (8/n)x egress, best
+below 8 pods) or `--scheme two_stage` (n-independent ~4x),
+`--no-compress` for the f32 ablation baseline. The error-feedback
+buffers ride in the checkpointed state, so kill-and-resume reproduces
+the uninterrupted run bit for bit. The ranks come from
+`launch._spawn.run`: spawned here over gloo with `device="cpu"`, NCCL on
+the cards (one rank a card), or `torchrun`'s. Every rank draws the same
+params and takes rank 0's by broadcast; only rank 0 logs, prints and
+writes checkpoints. In-pod axes (D or M > 1: FSDP and TP) are refused,
+naming ROADMAP.md queue 1 item 8b.
+
+    python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --multi-pod 1x1 --scheme gather --steps 4
+
+`main(argv, device="cpu")` runs the same paths on the CPU (multi-pod:
+P gloo ranks); with no `device` it needs a card.
 """
 
 from __future__ import annotations
@@ -31,28 +47,24 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import math
 from typing import Optional, Sequence
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import _device, configs, obs
-from repro_torch._tree import leaves
+from repro_torch._tree import leaves, tree_map
 from repro_torch.data import iegm, lm
 from repro_torch.data.iegm import _stream_seed
+from repro_torch.launch import _spawn
+from repro_torch.launch.mesh import make_multipod_mesh, parse_multipod_spec
 from repro_torch.models import api
 from repro_torch.optim import adamw, linear_warmup_cosine
 from repro_torch.train import fault, trainer
 
 FRAMES_SEED = 7  # the whisper frames' stream, keyed (7, 0, step)
-
-# the reference's flags whose parts of the system are not ported yet
-_NOT_PORTED = {
-    "--multi-pod": "compressed multi-pod data parallelism, "
-                   "ROADMAP.md queue 1 item 8",
-    "--scheme": "the cross-pod wire layouts, ROADMAP.md queue 1 item 8",
-    "--no-compress": "the f32 cross-pod reduction, ROADMAP.md queue 1 "
-                     "item 8",
-}
 
 
 def _lm_cfg(args):
@@ -124,6 +136,102 @@ def train_lm(args, device: _device.DeviceLike = None) -> dict:
             "batch_at": batch_at}
 
 
+def train_lm_multipod(args, device: _device.DeviceLike = None):
+    """Compressed multi-pod DP on this rank of the process group (every
+    rank of the mesh calls it): the pod axis's quantized reduction,
+    checkpoint-restartable with the error buffers. Returns
+    {"history", "state", "step_fn", "batch_at"} as `train_lm` does, or
+    None on a rank outside the mesh."""
+    dev = _device.resolve(device)
+    cfg = _lm_cfg(args)
+    mesh = make_multipod_mesh(args.multi_pod, dev)
+    if mesh.get_coordinate() is None:
+        return None
+    n_pod = mesh.size(0)
+    if args.batch % n_pod:
+        raise SystemExit(
+            f"--batch {args.batch} must divide by {n_pod} pods"
+        )
+    compress = not args.no_compress
+    lead = _spawn.rank() == 0
+    if args.trace_out:
+        obs.configure(enabled=True)
+    model = api.build_model(cfg, tp=1, max_seq=args.seq)
+    params = model.init(args.seed, device=dev)
+    pods = mesh.get_group("pod")
+    for p in leaves(params):  # every pod starts from pod 0's draw
+        dist.broadcast(p, src=dist.get_global_rank(pods, 0), group=pods)
+    if lead:
+        logging.info(
+            "arch=%s params=%.3fM mesh=%s scheme=%s compress=%s",
+            cfg.name, sum(p.numel() for p in leaves(params)) / 1e6,
+            dict(zip(mesh.mesh_dim_names, mesh.shape)), args.scheme,
+            compress,
+        )
+    opt = adamw(
+        linear_warmup_cosine(args.lr, args.warmup, args.steps),
+        weight_decay=0.01,
+    )
+    state = trainer.init_state(params, opt, device=dev)
+    del params
+    state["err"] = trainer.init_dp_err(
+        state["params"], mesh, scheme=args.scheme, compress=compress
+    )
+    step, s_shard = trainer.make_multipod_train_step(
+        model.loss, opt, cfg, mesh, state, scheme=args.scheme,
+        compress=compress, clip_norm=1.0, n_micro=args.grad_accum,
+    )
+    step_fn = obs.get().probe.track("train.step", step)
+    stream = lm.TokenStream(
+        batch=args.batch, seq_len=args.seq, vocab=cfg.vocab, seed=args.seed,
+        device=dev,
+    )
+    batch_at = lm_batch_at(stream, cfg, args.batch)
+    state, history = fault.run_training(
+        step_fn, state, batch_at,
+        num_steps=args.steps,
+        ckpt_dir=args.ckpt,
+        ckpt_every=args.ckpt_every,
+        watchdog=fault.StragglerWatchdog() if lead else None,
+        log_every=args.log_every if lead else 0,
+        restore_shardings=s_shard,
+    )
+    if lead:
+        first, last = history[0]["loss"], history[-1]["loss"]
+        print(
+            f"[train] {cfg.name} multi-pod {args.multi_pod} "
+            f"scheme={args.scheme if compress else 'f32'}: "
+            f"loss {first:.4f} -> {last:.4f} ({len(history)} steps)"
+        )
+        if args.trace_out:
+            jsonl, chrome = obs.get().finish(args.trace_out)
+            print(f"[obs] trace written: {jsonl} + {chrome}")
+    return {"history": history, "state": state, "step_fn": step_fn,
+            "batch_at": batch_at}
+
+
+def _multipod_record(args, device) -> dict | None:
+    """`train_lm_multipod` on a spawned rank: the history and the state
+    on the host (what crosses back to the caller)."""
+    out = train_lm_multipod(args, device)
+    if out is None:
+        return None
+    return {"history": out["history"],
+            "state": tree_map(lambda x: x.cpu(), out["state"])}
+
+
+def _run_multipod(args, device) -> dict:
+    if args.arch == "va-cnn":
+        raise SystemExit(
+            "--multi-pod currently drives the LM trainer; va-cnn "
+            "fits on one pod (use the plain path)"
+        )
+    world = math.prod(parse_multipod_spec(args.multi_pod))
+    fn = _multipod_record if _spawn.spawns(world) else train_lm_multipod
+    dev = "cpu" if _device.resolve(device).type == "cpu" else device
+    return _spawn.run(fn, world, device=dev, args=(args, dev))
+
+
 def train_va(args, device: _device.DeviceLike = None) -> dict:
     from repro_torch.configs import va_cnn
     from repro_torch.core import vadetect
@@ -154,9 +262,10 @@ def train_va(args, device: _device.DeviceLike = None) -> dict:
 def main(
     argv: Optional[Sequence[str]] = None, device: _device.DeviceLike = None
 ) -> dict:
-    """Parse `argv` and train; returns the run's record (`train_lm`'s or
-    `train_va`'s). `device=None` means the CUDA card (raises without
-    one)."""
+    """Parse `argv` and train; returns the run's record (`train_lm`'s,
+    `train_lm_multipod`'s — only "history" and "state" where its ranks
+    were spawned — or `train_va`'s). `device=None` means the CUDA card
+    (raises without one)."""
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -178,15 +287,33 @@ def main(
         help="enable telemetry; on exit write PREFIX.jsonl (event log) "
              "and PREFIX.json (Chrome/Perfetto trace)",
     )
-    for flag, what in _NOT_PORTED.items():
-        kw = ({"action": "store_true"} if flag == "--no-compress"
-              else {"default": None})
-        ap.add_argument(flag, help=f"not ported yet ({what})", **kw)
+    ap.add_argument(
+        "--multi-pod", type=str, default=None, metavar="PxD[xM]",
+        help="compressed multi-pod DP over a (pod, data, model) mesh, "
+             "e.g. 2x1 (one rank a pod; D = M = 1 until ROADMAP.md item 8b)",
+    )
+    ap.add_argument(
+        "--scheme", choices=("gather", "two_stage"), default="gather",
+        help="cross-pod wire layout: gather=(8/n)x egress (n<8 pods), "
+             "two_stage=n-independent ~4x (n>=8)",
+    )
+    ap.add_argument(
+        "--no-compress", action="store_true",
+        help="f32 cross-pod reduction (ablation baseline)",
+    )
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag} is not ported yet ({what})")
+    if args.multi_pod:
+        _, n_data, n_model = parse_multipod_spec(args.multi_pod)
+        if n_data * n_model > 1:
+            ap.error(
+                f"--multi-pod {args.multi_pod}: in-pod data x model = "
+                f"{n_data * n_model}; placing parameters over 'data' and "
+                f"'model' (FSDP, TP) is not ported yet (ROADMAP.md queue 1 "
+                f"item 8b): use PxD with D = 1"
+            )
     _device.resolve(device)
+    if args.multi_pod:
+        return _run_multipod(args, device)
     if args.trace_out:
         # before the step is built, so it registers with the probe
         obs.configure(enabled=True)

@@ -24,7 +24,8 @@ returns bfloat16, so operands are cast up first. A masked score is
 `NEG`, so once its row has a valid score its weight exp(NEG - max) is
 exactly 0 (the direct softmax also floors the max at `NEG / 2`). The
 reference's `constrain` layout hints do nothing on one device and are
-dropped (ROADMAP.md queue 1 item 8).
+dropped (`dist.sharding` ports the rules; `constrain` and
+`activation_context` are ROADMAP.md queue 1 item 8b).
 """
 
 from __future__ import annotations

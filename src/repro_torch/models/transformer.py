@@ -43,7 +43,8 @@ it. `forward_train` takes each stacked `(n_groups, ...)` leaf apart once
 with `torch.unbind`, whose backward is one stack, where slicing `[g]` in
 every group would add a full-size zero-padded gradient per group. The
 reference's `constrain` layout hints do nothing on one device and are
-dropped (ROADMAP.md queue 1 item 8).
+dropped (`dist.sharding` ports the rules; `constrain` and
+`activation_context` are ROADMAP.md queue 1 item 8b).
 """
 
 from __future__ import annotations

@@ -274,7 +274,7 @@ class Engine:
                 # needed (span == 0 keeps _pg None)
                 self._layouts = model.page_layouts(paging.page_size)
                 # one pool shard on one device (a sharded engine's pool
-                # has one a data-axis device, ROADMAP.md queue 1 item 8)
+                # has one a data-axis device, ROADMAP.md queue 1 item 8b)
                 self._pg = PageAllocator(paging.n_pages)
         if self._pg is not None:
             # host-authoritative slot->page table + per-slot mirrors (page

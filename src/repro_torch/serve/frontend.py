@@ -12,7 +12,7 @@ this is the boundary where they arrive from outside. One asyncio
 frontend feeds
 
   * LM decode requests into the slot engine (`serve.engine.Engine`; the
-    sharded engine is ROADMAP.md queue 1 item 8), and
+    sharded engine is ROADMAP.md queue 1 item 8b), and
   * patient segment arrivals into the stream fleet's micro-batch
     scheduler (`stream.scheduler.MicroBatchScheduler`),
 

@@ -1,6 +1,9 @@
 """Virtual-time fleet simulation: sources → scheduler → runner → vote.
 
-Port of `repro.stream.fleet` on one device. This is the subsystem's
+Port of `repro.stream.fleet`, on one device or, with `mesh=`, over the
+ranks of a data mesh: every rank runs the same scheduler and vote on the
+predictions the sharded runner gathers, and the caller reports from rank
+0. This is the subsystem's
 facade: wire a synthetic P-patient fleet through the deadline-aware
 micro-batcher, the bucketed runner, and the vectorized vote machines
 (their state on the runner's device), and report fleet metrics. Time is
@@ -138,6 +141,7 @@ def simulate(
     *,
     runner: Optional[FleetRunner] = None,
     device: _device.DeviceLike = None,
+    mesh=None,
     collect_diagnoses: bool = False,
     arrivals=None,
     pinned_urgent=None,
@@ -148,7 +152,9 @@ def simulate(
     `program` (a runner is built over it on `device`, `None` meaning the
     CUDA card; `program=None` compiles `vadetect.init` drawn from a
     generator seeded with `cfg.seed`) or a ready `runner`, whose device
-    the run uses.
+    the run uses. `mesh` (a 1-D data `DeviceMesh`) splits each bucket
+    over its ranks where the runner is built here; every rank of it calls
+    `simulate` alike.
 
     Load-lab hooks: `arrivals` replaces the source's periodic schedule
     with an explicit `SegmentRef` list (the open-loop Poisson /
@@ -170,7 +176,7 @@ def simulate(
                 torch.Generator().manual_seed(cfg.seed), device=dev
             )
             program = compiler.compile_model(params)
-        runner = FleetRunner(program, path=cfg.path, device=dev)
+        runner = FleetRunner(program, path=cfg.path, device=dev, mesh=mesh)
 
     source = FleetSource(cfg.source_config())
     refs = (

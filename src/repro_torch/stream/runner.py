@@ -1,7 +1,14 @@
 """Bucketed batched inference over the compiled accelerator program.
 
-Port of `repro.stream.runner` on one device (no mesh yet). Each
-`classify` is a cell tracked by the telemetry probe
+Port of `repro.stream.runner`, on one device or, with `mesh=`, data
+parallel over the ranks of a 1-D ("data",) `DeviceMesh`
+(`launch.mesh.make_data_mesh`): every rank is handed the same bucket,
+classifies its bucket/N rows (`dist.sharding.batch_specs`, then
+`shard_local`) on its own device, and all-gathers the predictions over
+the mesh's group, so every rank holds the bucket's — the reference's
+"N chip twins over disjoint fleet slices". Each rank of the mesh calls
+`classify` with the same bucket. Each `classify` is a cell tracked by
+the telemetry probe
 (`stream.classify.<path>`), and the runner keeps the set of bucket
 shapes it has classified: the scheduler's pad-to-bucket contract keeps
 `jit_cache_misses()` at the number of declared buckets. Compute paths:
@@ -21,10 +28,20 @@ Time accounting is the modelled chip's: every segment costs
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device, obs
 from repro_torch.core import compiler, sparsity, vadetect
 from repro_torch.core.spe import conv1d_same
+from repro_torch.dist import sharding as shd
+
+
+class _FleetShardCfg:
+    """Profile for `dist.sharding`: the VA fleet is pure data
+    parallelism — no tensor parallelism, params replicated."""
+
+    use_tp: bool = False
+    fsdp: bool = False
 
 
 def twin_weights(program: compiler.AcceleratorProgram) -> list[dict]:
@@ -64,7 +81,9 @@ def _twin_logits(
 
 class FleetRunner:
     """Fixed-shape batched classifier over one compiled program, on one
-    device (`None` means the CUDA card; the program is moved there)."""
+    device (`None` means the CUDA card; the program is moved there),
+    each bucket's rows split over the ranks of `mesh` where one is
+    given (its device type must be the runner's)."""
 
     def __init__(
         self,
@@ -74,8 +93,15 @@ class FleetRunner:
         path: str = "twin",
         device: _device.DeviceLike = None,
         record: bool = False,
+        mesh=None,
     ):
         self.device = _device.resolve(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.ndim != 1:
+            raise ValueError(
+                f"FleetRunner shards over a 1-D data mesh, got dims "
+                f"{mesh.mesh_dim_names} (launch.mesh.make_data_mesh)"
+            )
         self.program = program.to(self.device)
         self.cfg = cfg
         self.path = path
@@ -111,19 +137,44 @@ class FleetRunner:
         with torch.inference_mode():
             return self._logits(x)
 
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a bucket: all of them without a mesh, else
+        its bucket/N block of the batch dim over the data axes."""
+        if self.mesh is None:
+            return x
+        if x.shape[0] % self.n_devices:
+            # silently classifying on one device would void the "N chip
+            # twins over disjoint fleet slices" contract — declare
+            # divisible bucket shapes instead
+            raise ValueError(
+                f"bucket {x.shape[0]} not divisible by "
+                f"{self.n_devices} mesh devices"
+            )
+        spec = shd.batch_specs({"x": x}, _FleetShardCfg(), self.mesh)["x"]
+        return shd.shard_local(x, spec, self.mesh)
+
     def classify(self, signals) -> torch.Tensor:
         """(bucket, 512) f32 -> (bucket,) int32 predictions on the
-        runner's device."""
+        runner's device. With a mesh this rank classifies its rows and
+        the predictions are all-gathered over the mesh."""
         x = torch.as_tensor(signals, dtype=torch.float32, device=self.device)
+        local = self.local_rows(x)
         self._shapes_seen.add(int(x.shape[0]))
         with torch.inference_mode():
-            return self._infer(x)
+            pred = self._infer(local)
+            if self.mesh is None:
+                return pred
+            out = torch.empty(x.shape[0], dtype=pred.dtype,
+                              device=pred.device)
+            dist.all_gather_into_tensor(out, pred.contiguous(),
+                                        group=self.mesh.get_group())
+            return out
 
     # -- accounting (the modelled chip's time, not a measurement) ----------
 
     @property
     def n_devices(self) -> int:
-        return 1
+        return 1 if self.mesh is None else self.mesh.size()
 
     @property
     def chip_latency_s(self) -> float:
@@ -131,8 +182,9 @@ class FleetRunner:
         return self.program.report.latency_s
 
     def batch_service_s(self, bucket: int) -> float:
-        """Modelled service time of one packed bucket: the chip twin runs
-        its ceil(bucket/N) segments serially (padding rows included)."""
+        """Modelled service time of one packed bucket: each device's chip
+        twin runs its ceil(bucket/N) segments serially (padding rows
+        included)."""
         per_dev = -(-bucket // max(1, self.n_devices))
         return per_dev * self.chip_latency_s
 

@@ -20,9 +20,15 @@ and deletes meta.json before the dir so an interrupted prune leaves an
 invisible partial, not a listed-but-unloadable step (see `_gc`).
 
 Arrays are saved gathered to the host with their logical paths.
-`restore(..., device=...)` puts every leaf on one device; the
-reference's `shardings=` (reshard-on-restore onto a mesh) waits for the
-port's mesh.
+`restore(..., device=...)` puts every leaf on one device. Across ranks
+(`shardings=`, a tree of `dist.sharding.NamedSharding`s mirroring the
+state, as `trainer.make_multipod_train_step` returns it): `save` gathers
+every leaf a spec shards (the per-pod error buffers) over its mesh axis
+into the global array, in the reference's layout (n_pod, *leaf); rank 0
+writes, and every rank waits at a barrier after. `restore` reads the
+global array and keeps this rank's block of it (`dist.sharding.
+shard_local`); a global shape other than the saved one (another pod
+count) raises.
 """
 
 from __future__ import annotations
@@ -35,38 +41,88 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch._tree import map_with_path
+from repro_torch.dist import sharding as shd
 
 
 def _key(path: tuple) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _flatten(tree: Any) -> dict[str, np.ndarray]:
+def _gather(leaf: torch.Tensor, sharding) -> torch.Tensor:
+    """The global tensor whose blocks the ranks hold under `sharding`
+    (the leaf itself where nothing is sharded), on the host."""
+    out = leaf.detach()
+    if sharding is None:
+        return out.cpu()
+    for dim, axis in enumerate(sharding.spec):
+        names = axis if isinstance(axis, (tuple, list)) else (axis,)
+        if axis is None or shd._axis_size(axis, sharding.mesh) == 1:
+            continue
+        if len(names) != 1:
+            raise ValueError(
+                f"save: dim {dim} sharded over several axes {names}: not "
+                f"ported yet (ROADMAP.md queue 1 item 8b)")
+        group = sharding.mesh.get_group(names[0])
+        n = dist.get_world_size(group)
+        part = out.movedim(dim, 0).contiguous()
+        full = torch.empty(n * part.numel(), dtype=part.dtype,
+                           device=part.device)
+        dist.all_gather_into_tensor(full, part.reshape(-1), group=group)
+        full = full.reshape((n * part.shape[0],) + tuple(part.shape[1:]))
+        out = full.movedim(0, dim)
+    return out.cpu()
+
+
+def _flatten(tree: Any, shardings: Any = None) -> dict[str, np.ndarray]:
     """'/'-joined path -> host array, in jax's leaf order; `None` leaves
-    are skipped."""
+    are skipped. With `shardings`, each sharded leaf is gathered."""
     items = []
 
-    def visit(path, leaf):
+    def visit(path, leaf, *sh):
         if leaf is not None:
-            items.append((path, leaf.detach().cpu().numpy()))
+            arr = _gather(leaf, sh[0] if sh else None).numpy()
+            items.append((path, arr))
 
-    map_with_path(visit, tree)
+    map_with_path(visit, tree, *(() if shardings is None else (shardings,)))
     items.sort(key=lambda kv: kv[0])  # jax flattens a dict by sorted keys
     return {_key(path): arr for path, arr in items}
 
 
-def save(state: Any, ckpt_dir: str, step: int, *, keep: int = 3) -> str:
-    """Atomic checkpoint write; returns the final path."""
+def _mesh_of(shardings: Any):
+    found = []
+    map_with_path(lambda _, s: found.append(s.mesh) if s is not None
+                  else None, shardings)
+    return found[0] if found else None
+
+
+def save(state: Any, ckpt_dir: str, step: int, *, keep: int = 3,
+         shardings: Any = None) -> str:
+    """Atomic checkpoint write; returns the final path. With
+    `shardings`, every rank of their mesh calls it: the sharded leaves
+    are gathered, the mesh's first rank writes, and every rank of the
+    mesh waits for it (a barrier over each mesh dimension's group)."""
+    flat = _flatten(state, shardings)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    mesh = None if shardings is None else _mesh_of(shardings)
+    if mesh is None or not any(mesh.get_coordinate()):
+        _write(flat, ckpt_dir, step, keep)
+    if mesh is not None:
+        for dim in range(mesh.ndim):
+            dist.barrier(group=mesh.get_group(dim))
+    return final
+
+
+def _write(flat: dict, ckpt_dir: str, step: int, keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(state)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         # repro: allow[wallclock-ban] wall-clock save time is metadata
@@ -77,7 +133,6 @@ def save(state: Any, ckpt_dir: str, step: int, *, keep: int = 3) -> str:
     os.rename(tmp, final)
     _update_latest(ckpt_dir, step)
     _gc(ckpt_dir, keep, protect=(step,))
-    return final
 
 
 def _update_latest(ckpt_dir: str, step: int) -> None:
@@ -166,10 +221,14 @@ def restore(
     *,
     step: Optional[int] = None,
     device: _device.DeviceLike = None,
+    shardings: Any = None,
 ) -> tuple[Any, int]:
     """Restore into the structure of `like` (a tree of tensors; a `None`
     leaf stays `None`). Each leaf takes the dtype of `like`'s leaf and
-    its device, or `device` where given. Returns (state, step)."""
+    its device, or `device` where given. With `shardings` (mirroring
+    `like`), `like`'s leaves are this rank's blocks: each saved array
+    must have the global shape of its block, and this rank keeps its
+    block of it. Returns (state, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -178,19 +237,27 @@ def restore(
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
 
-        def leaf(path_elts, like_leaf):
+        def leaf(path_elts, like_leaf, *sh):
             if like_leaf is None:
                 return None
             key = _key(path_elts)
             arr = data[key]
-            if tuple(arr.shape) != tuple(like_leaf.shape):
+            sharding = sh[0] if sh else None
+            want = tuple(like_leaf.shape)
+            if sharding is not None:
+                want = shd.global_shape(want, sharding.spec, sharding.mesh)
+            if tuple(arr.shape) != want:
                 raise ValueError(
                     f"{key}: checkpoint shape {arr.shape}, expected "
-                    f"{tuple(like_leaf.shape)}")
+                    f"{want}")
+            if sharding is not None:
+                arr = np.array(  # a contiguous copy; keeps 0-d leaves 0-d
+                    shd.shard_local(arr, sharding.spec, sharding.mesh))
             return torch.from_numpy(arr).to(
                 device=like_leaf.device if dev is None else dev,
                 dtype=like_leaf.dtype,
             )
 
-        state = map_with_path(leaf, like)
+        state = map_with_path(
+            leaf, like, *(() if shardings is None else (shardings,)))
     return state, step

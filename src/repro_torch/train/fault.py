@@ -88,6 +88,7 @@ def run_training(
     log_every: int = 10,
     metrics_cb: Optional[Callable[[int, dict], None]] = None,
     restore_device: _device.DeviceLike = None,
+    restore_shardings: Any = None,
 ) -> tuple[Any, list[dict]]:
     """Checkpoint-restart training loop.
 
@@ -96,7 +97,15 @@ def run_training(
     metric history).
 
     A restored state's leaves go to the devices of `state`'s leaves, or
-    to `restore_device` where given.
+    to `restore_device` where given. `restore_shardings` (the multi-pod
+    step's `NamedSharding`s, mirroring `state`) makes every checkpoint a
+    collective one: `checkpoint.save` gathers the per-pod error blocks
+    into the reference's layout and rank 0 writes; `restore` gives each
+    rank its block back. Every rank runs this loop with the same
+    arguments: a `fault_hook` then fires on every rank at the same step,
+    and all of them restore together (a rank raising alone would leave
+    the others waiting in the step's next collective until the group's
+    timeout).
 
     A donated step (`trainer.make_train_step(..., donate=True)`) writes
     its update into `state` in place, so after a step that raised the
@@ -110,6 +119,7 @@ def run_training(
         if latest is not None:
             state, step = ckpt.restore(
                 ckpt_dir, state, step=latest, device=restore_device,
+                shardings=restore_shardings,
             )
             logger.info("resumed from checkpoint step %d", step)
 
@@ -138,6 +148,7 @@ def run_training(
                 if latest is not None:
                     state, step = ckpt.restore(
                         ckpt_dir, state, step=latest, device=restore_device,
+                        shardings=restore_shardings,
                     )
             continue
         retries = 0
@@ -156,7 +167,9 @@ def run_training(
             logger.info("step %d: %s", step, m)
         step += 1
         if ckpt_dir is not None and step % ckpt_every == 0:
-            ckpt.save(state, ckpt_dir, step, keep=keep)
+            ckpt.save(state, ckpt_dir, step, keep=keep,
+                      shardings=restore_shardings)
     if ckpt_dir is not None:
-        ckpt.save(state, ckpt_dir, step, keep=keep)
+        ckpt.save(state, ckpt_dir, step, keep=keep,
+                  shardings=restore_shardings)
     return state, history

@@ -946,3 +946,86 @@ def test_donated_lm_step_on_the_card_keeps_its_storage(cuda):
     assert _rel_tree(got["params"], want["params"]) <= 1e-6
     for k in ("m", "v"):
         assert _rel_tree(got["opt"][k], want["opt"][k]) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the pod and data axes over NCCL, at world 1 on one card
+# ---------------------------------------------------------------------------
+
+
+def test_nccl_brings_up_the_pod_group_at_world_one(cuda):
+    from repro_torch.launch import _spawn
+    from repro_torch.launch.mesh import make_multipod_mesh
+
+    with _spawn.process_group("cuda", timeout_s=120):
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = make_multipod_mesh("1x1", "cuda")
+        assert mesh.device_type == "cuda"
+        assert mesh.get_local_rank("pod") == 0 and mesh.size() == 1
+    assert not torch.distributed.is_initialized()
+
+
+def _reductions(device):
+    """quantize_leaf, compressed_psum_mean and two_stage_psum_mean at
+    world 1 on `device` (NCCL on the card, gloo on the CPU), on seeded
+    inputs; results on the host."""
+    from repro_torch.dist import compression as C
+    from repro_torch.launch import _spawn
+
+    gen = torch.Generator().manual_seed(11)
+    g = {"a": torch.randn((257, 33), generator=gen) * 3,
+         "b": torch.randn(1000, generator=gen)}
+    g = tree_map(lambda x: x.to(device), g)
+    with _spawn.process_group(device, timeout_s=120):
+        group = torch.distributed.group.WORLD
+        q, s = C.quantize_leaf(g["a"])
+        z = tree_map(torch.zeros_like, g)
+        mean, err = C.compressed_psum_mean(g, z, group)
+        two, e1, e2 = C.two_stage_psum_mean(
+            g, z, tree_map(lambda x: torch.zeros(x.numel(), device=device),
+                           g), group)
+    return tree_map(lambda x: x.cpu(), {"q": q, "s": s, "mean": mean,
+                                        "err": err, "two": two, "e1": e1,
+                                        "e2": e2})
+
+
+def test_compressed_reductions_on_the_card_equal_the_cpu(cuda):
+    card, host = _reductions("cuda"), _reductions("cpu")
+    assert torch.equal(card["q"], host["q"])  # the codes exactly
+    assert torch.equal(card["s"], host["s"])
+    for k in ("mean", "err", "two", "e1", "e2"):
+        for a, b in zip(leaves(card[k]), leaves(host[k])):
+            assert torch.equal(a, b), k
+
+
+def test_sharded_fleet_runner_on_one_card_equals_unsharded(cuda):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import _spawn
+
+    params = vadetect.init(torch.Generator().manual_seed(0), device=cuda)
+    program = compiler.compile_model(params)
+    x = torch.randn((64, 512), generator=torch.Generator().manual_seed(1))
+    one = FleetRunner(program, path="kernel", device=cuda)
+    with _spawn.process_group("cuda", timeout_s=120):
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        sharded = FleetRunner(program, path="kernel", device=cuda, mesh=mesh)
+        before = tk.launches
+        got = sharded.classify(x)
+        torch.cuda.synchronize()
+        assert tk.launches == before + 7
+    assert torch.equal(got, one.classify(x))
+    assert sharded.n_devices == 1
+
+
+def test_no_gloo_fallback_on_the_card(cuda, monkeypatch):
+    from repro_torch.launch import _spawn
+
+    monkeypatch.setattr(torch.distributed, "is_nccl_available",
+                        lambda: False)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        _spawn.backend("cuda")
+    with pytest.raises(RuntimeError, match="NCCL"):
+        with _spawn.process_group("cuda"):
+            pass
+    assert not torch.distributed.is_initialized()

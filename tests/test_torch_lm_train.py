@@ -433,12 +433,13 @@ def test_launch_train_va_and_the_refused_flags(capsys):
                         "--log-every", "0"], device="cpu")
     assert len(out["history"]) == 3
     assert all(np.isfinite(h["loss"]) for h in out["history"])
-    for flag in (["--multi-pod", "2x2x2"], ["--scheme", "two_stage"],
-                 ["--no-compress"]):
+    # --multi-pod, --scheme and --no-compress are ported (test_torch_multipod.py);
+    # in-pod axes larger than 1 still refuse
+    for spec in ("2x2x2", "2x2"):
         with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", "qwen3-8b", "--reduced", *flag],
-                         device="cpu")
-        assert "ROADMAP.md queue 1 item 8" in capsys.readouterr().err
+            tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--multi-pod",
+                          spec], device="cpu")
+        assert "ROADMAP.md queue 1 item 8b" in capsys.readouterr().err
 
 
 class _Kill(BaseException):

@@ -126,7 +126,9 @@ def test_synth_batches_are_seeded():
 def test_port_imports_no_jax():
     """The port's serving path, its kernel benchmark, the CMUL, the
     training path, the LM substrate and its serving, and the serving
-    frontend with its launchers import neither jax nor anything of the JAX
+    frontend with its launchers, and the distributed pieces (sharding
+    rules, compression, meshes, the multi-pod trainer's launcher, the
+    dist and stream benchmarks) import neither jax nor anything of the JAX
     package (checked in a fresh interpreter: this
     one has jax)."""
     code = (
@@ -142,7 +144,11 @@ def test_port_imports_no_jax():
         "repro_torch.serve.engine, repro_torch.serve.seating, "
         "repro_torch.serve.paging, repro_torch.launch.serve, "
         "repro_torch.examples.serve_lm, repro_torch.serve.frontend, "
-        "repro_torch.obs.loadlab, repro_torch.launch.stream\n"
+        "repro_torch.obs.loadlab, repro_torch.launch.stream, "
+        "repro_torch.dist.sharding, repro_torch.dist.compression, "
+        "repro_torch.launch.mesh, repro_torch.launch.train, "
+        "repro_torch.benchmarks.dist_compression, "
+        "repro_torch.benchmarks.stream_throughput\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"

@@ -614,6 +614,8 @@ def test_stream_throughput_pieces_run_on_the_cpu():
     assert floor([5.0, 1.0, 3.0]) == 3.0 and floor([4.0, 2.0]) == 3.0
     assert floor([float(i) for i in range(36, 0, -1)]) == 3.5  # fastest 6
     rec = {"cells": [cell], "device": {"type": "cpu"},
+           "scaling_largest_bucket": {"devices_lo": 1, "devices_hi": 1,
+                                      "modeled_speedup": 1.0},
            "realtime_1000_patients": {"dropped_total": 0,
                                       "realtime_factor": 1.5},
            "telemetry": {**obs.telemetry_section(), "overhead": over}}

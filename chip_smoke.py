@@ -146,6 +146,14 @@ toolkit. Phases, each printing JSON lines:
    (gloo) from the same warm state; the kernel-path FleetRunner on a
    1-card NCCL data mesh, 7 nm_spmm launches a bucket, predictions equal
    the unsharded runner's;
+   lm_sharded — launch.serve --mesh 1 at qwen3-8b's full CONFIG, 8 bits,
+   in a world-1 NCCL group (serve.sharded: the plan, the rank-local
+   placement, every packed projection's quant_matmul on the rank's
+   shard): the unsharded run's launches, lm_serve's 8-bit tokens, placed
+   bytes equal to the plan's, each decode step's collectives within the
+   budget, peak below the card's; the decode step's wall, device ms and
+   kernels (LM_PROFILE_STEPS steps under the profiler), the sharded
+   prefill against the unsharded one on the same params;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -283,11 +291,11 @@ LM_FRONTEND_CLIENT = ("--arch", "qwen3-8b", "--load-requests", "6",
                       "--max-new", "16")
 # dense against paged Engine at qwen3-8b's full width (d_model 4096,
 # vocab 151936) cut to PAGED_LAYERS of its 36 layers to pay for the lm_train
-# phase, 8 bits: prompt lengths either side of the page boundaries, the
-# frontend's max_seq (span 5, 21 pages); at 8 new tokens every reservation
-# fits at once, so the two engines keep one schedule and their decode calls
-# pair up
-PAGED_LAYERS = 8
+# and lm_sharded phases, 8 bits: prompt lengths either side of the page
+# boundaries, the frontend's max_seq (span 5, 21 pages); at 8 new tokens
+# every reservation fits at once, so the two engines keep one schedule and
+# their decode calls pair up
+PAGED_LAYERS = 4
 PAGED_PROMPTS = (5, 15, 16, 17, 31, 32, 33, 48)
 PAGED_BATCH, PAGED_PAGE, PAGED_CHUNK = 4, 16, 16
 PAGED_MAX_NEW, PAGED_MAX_SEQ = 8, 80
@@ -335,6 +343,7 @@ DIST_MODES = (("gather", True), ("two_stage", True), ("f32", False))
 DIST_WARM_STEPS, DIST_STEPS = 3, 3
 STEP_RTOL_DIST = 1e-5
 DIST_FLIP_SHARE = 0.02
+LM_SHARDED_MESH = "1"  # launch.serve --mesh on the one card: NCCL, world 1
 SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
@@ -751,6 +760,7 @@ def serve_runs(torch, dev, smi, arch: str, bit_widths, launches_now,
             "decode_device_busy_share": decode_prof["device_ms"] / wall,
             "decode_tok_per_s": batch / wall * 1e3,
             "tokens_equal_main_run": torch.equal(got.cpu(), tokens),
+            "tokens": rec["tokens"],
             "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         }
         lg = logits.cpu().double()
@@ -1838,6 +1848,116 @@ def dist_fleet(torch, dev, smi) -> dict:
     return rec
 
 
+def lm_sharded(torch, dev, smi, launches_now, reset_launches,
+               tokens_8bit) -> dict:
+    """launch.serve.main with `--mesh 1` at qwen3-8b's full CONFIG, 8 bits,
+    LM_ARGV, in a world-1 NCCL group (the sharded path: the plan, the
+    placement, the activation context, every packed projection on the
+    rank's shard): the backend, quant_matmul launches (as many as the
+    unsharded 8-bit run), tokens equal to lm_serve's 8-bit run
+    (`tokens_8bit`), the placed param and cache bytes equal to the plan's,
+    each decode step's collectives within `_decode_comm_budget`, peak
+    memory below the card's; the decode step's median wall (through a
+    synchronize) and, from a fresh prefill, the device time and kernels
+    of LM_PROFILE_STEPS steps under the profiler; the sharded prefill's
+    logits against the unsharded prefill on the same params."""
+    from repro_torch import configs
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.launch import _spawn
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import sharded as SH
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    reset_launches()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    full = configs.get("qwen3-8b")
+    max_new = int(LM_ARGV[LM_ARGV.index("--max-new") + 1])
+    argv = list(LM_ARGV) + ["--quant-bits", "8", "--mesh", LM_SHARDED_MESH]
+    with _spawn.process_group("cuda", timeout_s=600):
+        backend = torch.distributed.get_backend()
+        t0 = time.perf_counter()
+        rec = launch_serve.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launched = launches_now()
+        peak = torch.cuda.max_memory_allocated(dev)
+        placed = rec.pop("placed")
+        model, params, plan = placed["model"], placed["params"], placed["plan"]
+        prompts = placed["prompts"]
+        prefill, step = SH.compile_decode(model, plan)
+        lo, hi = plan.rows
+        logits, cache = prefill(params, prompts[lo:hi])
+        unsharded, _ = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        err, rel = rel_err(logits, unsharded)
+        prefill_equal = torch.equal(logits, unsharded)
+        del unsharded
+        tok = torch.argmax(logits, dim=-1)
+        prompt_len = prompts.shape[1]
+
+        def decode(steps: int) -> None:
+            nonlocal cache, tok
+            for t in range(steps):
+                pos = torch.full((hi - lo,), prompt_len + t, dtype=torch.long,
+                                 device=dev)
+                lg, cache = step(params, cache, tok, pos)
+                tok = torch.argmax(lg, dim=-1)
+
+        prof = lm_profile(torch, lambda: decode(LM_PROFILE_STEPS),
+                          LM_PROFILE_STEPS)
+        del placed, model, params, cache, logits
+    expected = dict.fromkeys(launched, 0)
+    expected[QM.NAME] = packed_per_forward(full) * (1 + max_new)
+    wall = statistics.median(rec["decode_wall_ms"])
+    out = {"phase": "lm_sharded", "entry": "repro_torch.launch.serve.main",
+           "argv": argv, "card": smi, "backend": backend,
+           "world": rec["world"], "arch": rec["arch"],
+           "n_layers": rec["n_layers"], "d_model": rec["d_model"],
+           "vocab": rec["vocab"], "launches": launched,
+           "expected_launches": expected, "main_seconds": main_s,
+           "main_generate_s": rec["generate_s"],
+           "main_tok_per_s_incl_first_use": rec["tok_per_s"],
+           "param_bytes_per_device": rec["param_bytes_per_device"],
+           "param_bytes_placed": rec["param_bytes_placed"],
+           "cache_bytes_per_device": rec["cache_bytes_per_device"],
+           "cache_bytes_placed": rec["cache_bytes_placed"],
+           "decode_comm": rec["decode_comm"],
+           "comm_budget": rec["comm_budget"],
+           "decode_wall_ms": rec["decode_wall_ms"],
+           "decode_wall_ms_median": wall,
+           "decode_device_ms": prof["device_ms"],
+           "decode_profile": prof,
+           "decode_device_busy_share": prof["device_ms"] / wall,
+           "decode_tok_per_s": rec["batch"] / wall * 1e3,
+           "prefill_equal_unsharded": prefill_equal,
+           "prefill_max_abs_err_vs_unsharded": err,
+           "prefill_rel_err_vs_unsharded": rel,
+           "tokens_equal_lm_serve_8bit": rec["tokens"] == tokens_8bit,
+           "peak_device_bytes": peak, "card_bytes": card_bytes}
+    free_card(torch, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(backend == "nccl", f"lm_sharded: backend {backend}")
+    check(launched == expected,
+          f"lm_sharded: launches {launched}, expected {expected}")
+    check((rec["n_layers"], rec["d_model"], rec["vocab"])
+          == (full.n_layers, full.d_model, full.vocab),
+          f"lm_sharded ran {rec['arch']}, not qwen3-8b's full CONFIG")
+    check(out["tokens_equal_lm_serve_8bit"],
+          "lm_sharded: tokens differ from lm_serve's 8-bit run")
+    check(rec["param_bytes_placed"] == rec["param_bytes_per_device"]
+          and rec["cache_bytes_placed"] == rec["cache_bytes_per_device"],
+          f"lm_sharded: placed bytes {rec['param_bytes_placed']}, "
+          f"{rec['cache_bytes_placed']} against the plan's "
+          f"{rec['param_bytes_per_device']}, {rec['cache_bytes_per_device']}")
+    check(all(v <= rec["comm_budget"].get(k, 0)
+              for comm in rec["decode_comm"] for k, v in comm.items()),
+          f"lm_sharded: a decode step past the budget: {rec['decode_comm']}")
+    check(peak < card_bytes, f"lm_sharded: peak {peak} B")
+    return out
+
+
 def stream_frontend(torch, dev, smi) -> dict:
     """launch.stream --listen on the kernel path in a server process and
     launch.stream --connect from this one: every segment acked, the drained
@@ -2847,6 +2967,11 @@ def main() -> int:
     fleet_dist = dist_fleet(torch, dev, smi)
     clock("dist_fleet")
 
+    # -- sharded LM serving over data and model -------------------------------
+    sharded = lm_sharded(torch, dev, smi, launches_now, reset_launches,
+                         lm["runs"][8]["tokens"])
+    clock("lm_sharded")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -3108,6 +3233,7 @@ def main() -> int:
             "whisper-tiny 8b": lm["whisper"]["int8"]["quant_matmul_launches"]},
         "launches_benchmark": bench_launches[QM.NAME],
         "launches_paged": {k: paged[k]["launches"] for k in ("dense", "paged")},
+        "launches_sharded": sharded["launches"][QM.NAME],
         "max_abs_err": max(quant_err, lm["max_abs_err"]),
         **{key: lm_layer[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if lm_bytes_ms >= lm_ops_ms else "operations",
@@ -3119,7 +3245,8 @@ def main() -> int:
               "weight, float32 (library_bf16_ms: bfloat16); launches over "
               "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit; the "
               "other families' full CONFIGs: launches_families; the dense "
-              "and paged chunked Engines of lm_paged: launches_paged)",
+              "and paged chunked Engines of lm_paged: launches_paged; "
+              "launch.serve --mesh 1's sharded run: launches_sharded)",
         "at_benchmark_shape": {
             key: cmul_totals[QM.NAME][key] for key in
             ("ms", "plain_ms", "bound_ms", "library_ms", "ms_in_run",

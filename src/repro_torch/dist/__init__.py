@@ -2,10 +2,11 @@
 accumulation, compressed cross-pod collectives.
 
   sharding    — mesh-aware partition rules for params / batches / caches
-                as pure functions of shapes and axis sizes, and this
-                rank's block under a spec (`shard_local`); the logical
-                activation constraints (`constrain`,
-                `activation_context`) are ROADMAP.md queue 1 item 8b;
+                as pure functions of shapes and axis sizes; this rank's
+                block under a spec (`shard_local`, `place`); the
+                activation context a sharded layer reads its groups
+                from, the FSDP gather (`gather_block`), the counted
+                collectives and the logical `constrain` checks;
   accumulate  — micro-batch gradient accumulation;
   compression — int8 + error-feedback gradient reduction over the pod
                 group (`torch.distributed`: NCCL on the card, gloo on
@@ -15,23 +16,29 @@ accumulation, compressed cross-pod collectives.
 from repro_torch.dist import accumulate, compression, sharding
 from repro_torch.dist.accumulate import accumulate_grads
 from repro_torch.dist.sharding import (
+    activation_context,
     batch_specs,
     cache_specs,
+    constrain,
     data_axes,
     named,
     param_specs,
+    place,
     spec_for_path,
 )
 
 __all__ = [
     "accumulate",
     "accumulate_grads",
+    "activation_context",
     "batch_specs",
     "cache_specs",
     "compression",
+    "constrain",
     "data_axes",
     "named",
     "param_specs",
+    "place",
     "sharding",
     "spec_for_path",
 ]

@@ -29,17 +29,42 @@ that has no process group behind it.
 `named` pairs each spec with its mesh (`NamedSharding`), and
 `shard_local` cuts the block of a global tensor that this rank holds
 under a spec, the counterpart of placing an array under a jax
-`NamedSharding` for the replicated and batch-sharded leaves this port
-places. The logical activation constraints (`constrain`,
-`activation_context`) arrive with the placement of parameters over
-`data` and `model` (ROADMAP.md queue 1 item 8b).
+`NamedSharding`; `place` does it for a whole tree, copying each split
+leaf's block once into its own storage.
+
+Where the reference lets GSPMD insert the collectives a placement needs,
+the port runs one process a device and makes them explicit.
+`activation_context(cfg, mesh, specs=)` is where a layer learns them: the
+data and model groups of the mesh (`launch.mesh.serving_groups`), this
+rank's coordinate in each, and the parameters' spec tree. Inside it:
+
+  * `gather_block` hands a block its parameters as the layers take them:
+    every leaf split over `data` (FSDP) all-gathered over the data group
+    in one collective, and every linear whose weight is split over
+    `model` marked `"tp": "col"` (its output columns) or `"tp": "row"`
+    (its input rows), which `models.layers` reads;
+  * `all_reduce` / `all_gather` run a collective over a group and count
+    it by kind in `comm_calls` (the budget of a decode
+    step reads them);
+  * `constrain(x, *logical, shape=)` keeps the reference's layout hints:
+    on a rank-local tensor it checks that each dim is the block the
+    logical axis implies of the global `shape` (a logical axis whose
+    size does not divide the dim is dropped, as in the reference), and
+    raises otherwise. It never moves data.
+
+Outside a context `constrain` is the identity and nothing is gathered,
+so model code runs unsharded by default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional, Sequence
+
+import torch
+import torch.distributed as dist
 
 from repro_torch._tree import leaves, map_with_path, tree_map
 
@@ -389,3 +414,274 @@ def global_shape(local_shape: Sequence[int], spec: Spec, mesh) -> tuple:
     for dim, axis in enumerate(spec):
         shape[dim] *= _axis_size(axis, mesh)
     return tuple(shape)
+
+
+def _names(entry) -> tuple:
+    """The mesh-axis names one spec entry carries."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def place(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's block of every leaf of `tree` under `specs` (mirroring
+    `tree` leaf for leaf) on the `DeviceMesh` `mesh`. A leaf its spec does
+    not split is kept as it is; a split leaf's block is copied once into
+    its own contiguous storage, so the full tree can be freed after.
+    Non-tensor leaves pass through."""
+
+    def one(leaf, spec):
+        if (not isinstance(leaf, torch.Tensor)
+                or spec_shard_factor(spec, mesh) == 1):
+            return leaf
+        return shard_local(leaf, spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(one, tree, specs)
+
+
+def placed_bytes(tree: Any) -> int:
+    """Bytes of the tensors of a (placed) tree on this rank."""
+    return sum(x.numel() * x.element_size() for x in leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+# ---------------------------------------------------------------------------
+# Collectives, counted
+# ---------------------------------------------------------------------------
+
+comm_calls: dict[str, int] = {}  # collectives handed over, by kind
+
+
+def reset_comm() -> None:
+    comm_calls.clear()
+
+
+def _count(kind: str) -> None:
+    comm_calls[kind] = comm_calls.get(kind, 0) + 1
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over `group` (a new contiguous tensor where `x` is
+    not contiguous; else `x` itself, reduced in place)."""
+    x = x.contiguous()
+    _count("all-reduce")
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's `x` of `group`, concatenated along `dim` in the
+    group's rank order (a mesh axis's coordinate order)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+    _count("all-gather")
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
+    return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim)
+
+
+def all_gather_many(xs: list, dims: list, group) -> list:
+    """`all_gather(x, group, dim)` of every x in `xs` in one collective:
+    their bytes packed into one buffer (each at a 16-byte offset), the
+    buffer gathered, each tensor's rank blocks joined along its dim."""
+    n = dist.get_world_size(group)
+    parts, spans, off = [], [], 0
+    for x in xs:
+        b = x.contiguous().reshape(-1).view(torch.uint8)
+        pad = (-b.numel()) % 16
+        parts.append(b)
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8, device=b.device))
+        spans.append((off, b.numel()))
+        off += b.numel() + pad
+    buf = torch.cat(parts)
+    out = torch.empty((n * off,), dtype=torch.uint8, device=buf.device)
+    _count("all-gather")
+    dist.all_gather_into_tensor(out, buf, group=group)
+    out = out.view(n, off)
+    got = []
+    for x, d, (o, nb) in zip(xs, dims, spans):
+        blocks = out[:, o:o + nb].view(x.dtype).reshape(n, *x.shape)
+        got.append(torch.cat(blocks.unbind(0), dim=d))
+    return got
+
+
+# ---------------------------------------------------------------------------
+# Activation context: groups, coordinates, gathered blocks, constraints
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Activations:
+    """What a layer reads inside `activation_context`: the config, the
+    mesh, the parameters' global spec tree (None: nothing is gathered),
+    and the mesh's serving groups (`launch.mesh.ServingGroups`)."""
+
+    cfg: Any
+    mesh: Any
+    specs: Any
+    groups: Any
+
+    @property
+    def tp(self) -> int:
+        return self.groups.tp
+
+    @property
+    def n_data(self) -> int:
+        return self.groups.n_data
+
+
+_ACTIVATION_CTX: list[Activations] = []
+
+
+@contextlib.contextmanager
+def activation_context(cfg, mesh, *, specs: Any = None):
+    """Makes `constrain`, `gather_block` and the tensor-parallel layers
+    resolve against (cfg, mesh): the mesh's data and model groups and
+    this rank's coordinate in each. `specs` is the parameters' spec tree
+    (`param_specs`), which `gather_block` reads. Nestable; the innermost
+    context wins. Every rank of the mesh enters it (building the groups
+    is collective the first time)."""
+    from repro_torch.launch.mesh import serving_groups
+
+    if cfg.use_tp:
+        bad = [a for a in data_axes(cfg, mesh) if a != "data"]
+    else:
+        bad = [a for a in axis_names(mesh) if a != "data"
+               and axis_sizes(mesh)[a] > 1]
+    if bad:
+        raise ShardingGuardError(
+            f"activation_context: the batch would shard over {bad}; the "
+            f"port serves over a ('data', 'model') mesh with use_tp"
+        )
+    _ACTIVATION_CTX.append(Activations(cfg, mesh, specs,
+                                       serving_groups(mesh)))
+    try:
+        yield
+    finally:
+        _ACTIVATION_CTX.pop()
+
+
+def current() -> Optional[Activations]:
+    """The innermost activation context, or None."""
+    return _ACTIVATION_CTX[-1] if _ACTIVATION_CTX else None
+
+
+def tp_size() -> int:
+    """The model axis's size in the current context (1 outside one)."""
+    ctx = current()
+    return 1 if ctx is None else ctx.tp
+
+
+def model_block(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's block of the model-replicated `x` along `dim` (a view):
+    the block a tensor split over `model` holds."""
+    ctx = current()
+    if ctx is None or ctx.tp == 1:
+        return x
+    part = x.shape[dim] // ctx.tp
+    return x.narrow(dim, ctx.groups.model_rank * part, part)
+
+
+def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The model group's blocks of `x` joined along `dim`."""
+    ctx = current()
+    if ctx is None or ctx.tp == 1:
+        return x
+    return all_gather(x, ctx.groups.model, dim)
+
+
+def reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model group's partial `x`."""
+    ctx = current()
+    if ctx is None or ctx.tp == 1:
+        return x
+    return all_reduce(x, ctx.groups.model)
+
+
+def _linear_weight(node: dict) -> Optional[str]:
+    for k in ("w", "packed", "values_q"):
+        if k in node and isinstance(node[k], torch.Tensor):
+            return k
+    return None
+
+
+def gather_block(tree: Any, specs: Any) -> Any:
+    """A block's rank-local parameters as its layers take them, inside an
+    activation context: the leaves `specs` splits over `data` all-gathered
+    over the data group (one collective for the block; the gathered
+    tensors are the caller's to drop after the block), and every linear
+    whose weight `specs` splits over `model` marked `"tp": "col"` (the
+    out-features, last dim) or `"tp": "row"` (the in-features). Outside a
+    context, or on a 1x1 mesh, `tree` itself."""
+    ctx = current()
+    if ctx is None or (ctx.n_data == 1 and ctx.tp == 1):
+        return tree
+    mesh = ctx.mesh
+    found: list = []  # (path, leaf, dim) of the data-split leaves
+
+    def split(entry, axis) -> bool:
+        return axis in _names(entry) and _axis_size(axis, mesh) > 1
+
+    def visit(path, leaf, spec):
+        if isinstance(leaf, torch.Tensor):
+            dims = [i for i, e in enumerate(spec) if split(e, "data")]
+            if dims:
+                found.append((path, leaf, dims[0]))
+        return leaf
+
+    map_with_path(visit, tree, specs)
+    gathered = {}
+    if found:
+        xs = all_gather_many([x for _, x, _ in found],
+                              [d for _, _, d in found], ctx.groups.data)
+        gathered = {path: x for (path, _, _), x in zip(found, xs)}
+
+    def rebuild(node, spec, path):
+        if not isinstance(node, dict):
+            return gathered.get(path, node)
+        out = {k: rebuild(v, spec[k], path + (k,)) for k, v in node.items()}
+        w = _linear_weight(node)
+        if w is not None and ctx.tp > 1:
+            s = spec[w]
+            if s and split(s[-1], "model"):
+                out["tp"] = "col"
+            elif len(s) > 1 and split(s[-2], "model"):
+                out["tp"] = "row"
+        return out
+
+    return rebuild(tree, specs, ())
+
+
+def constrain(x: torch.Tensor, *logical, shape: Optional[Sequence] = None
+              ) -> torch.Tensor:
+    """The reference's layout hint over logical axes ("dp", "tp", None),
+    one per dim of `x`, on a rank-local tensor: each dim whose global
+    size `shape` gives (None: not checked) must be this rank's block of
+    it — the global size divided by the axis's size where that divides
+    it, else whole (the reference drops such an axis). Raises
+    `ShardingGuardError` otherwise; returns `x` unmoved. The identity
+    outside `activation_context`."""
+    ctx = current()
+    if ctx is None:
+        return x
+    if len(logical) != x.ndim:
+        raise ValueError(
+            f"constrain: {len(logical)} axes for rank-{x.ndim} tensor"
+        )
+    for i, ax in enumerate(logical):
+        if ax not in ("dp", "tp", None):
+            raise ValueError(f"unknown logical axis {ax!r}")
+        full = None if shape is None else shape[i]
+        if full is None:
+            continue
+        size = {"dp": ctx.n_data, "tp": ctx.tp, None: 1}[ax]
+        want = full // size if size > 1 and full % size == 0 else full
+        if x.shape[i] != want:
+            raise ShardingGuardError(
+                f"constrain: dim {i} of local shape {tuple(x.shape)} is "
+                f"{x.shape[i]}, but {ax!r} over global {full} implies "
+                f"{want}"
+            )
+    return x

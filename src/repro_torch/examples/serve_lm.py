@@ -12,8 +12,10 @@ admission work next to what pool-replay admission would have cost. Then
 repeats with int8/int4 weight-only quantization (the packed projections
 run the hand-written `quant_matmul` kernel on the card) and reports the
 token agreement between precisions, and draws a sampled batch twice.
-The reference's mesh-sharded engine block is not ported (ROADMAP.md
-queue 1 item 8b).
+Run in a process group of more than one rank (`torchrun`, or inside
+`launch._spawn.run`), it also submits the burst to `serve.sharded`'s
+`ShardedEngine` on a data mesh over every rank and checks that the
+outputs equal the single-device engine's.
 
 `--smoke` shrinks the burst and asserts the demo's claims instead of
 just printing them. `main(argv, device="cpu")` runs it on the CPU.
@@ -27,8 +29,11 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import _device, configs, obs
+from repro_torch.launch import _spawn
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import api
 from repro_torch.serve import engine as E
+from repro_torch.serve import sharded as SH
 
 
 def submit_burst(eng, reqs):
@@ -107,6 +112,37 @@ def main(
         assert eng.admission_prefills < args.requests
         assert eng.admission_rowsteps < replay_cost
 
+    # --- sharded engine on a data mesh (token-identical) ----------------
+    n_dev = _spawn.world_size()
+    sharded = None
+    if n_dev > 1:
+        pool = max(args.slots, n_dev)
+        pool += (-pool) % n_dev  # divisible by the data axis
+        seng = SH.ShardedEngine(
+            model, params, batch_size=pool,
+            mesh=make_smoke_mesh(n_dev, 1, dev), device=dev,
+        )
+        sreqs = make_requests()
+        submit_burst(seng, sreqs)
+        same = all(a.output == b.output for a, b in zip(reqs, sreqs))
+        plan = seng.plan
+        if _spawn.rank() == 0:
+            print(
+                f"sharded engine on {n_dev} devices: outputs "
+                f"{'identical' if same else 'DIFFER'}; cache "
+                f"{plan.cache_bytes_per_device} B/device vs "
+                f"{plan.cache_bytes_total} B replicated; admission "
+                f"{seng.admission_rowsteps} row-tokens over "
+                f"{seng.admission_prefills} cells"
+            )
+        if args.smoke:
+            assert all(r.done for r in sreqs)
+            assert same, "sharded burst diverged from single-device"
+        sharded = {"n_devices": n_dev, "same": same,
+                   "outputs": [r.output for r in sreqs],
+                   "cache_bytes_per_device": plan.cache_bytes_per_device,
+                   "cache_bytes_total": plan.cache_bytes_total}
+
     # --- quantized serving comparison -----------------------------------
     prompts = _randint(42, (4, 12), cfg.vocab)
     base = E.generate(model, params, prompts, max_new=args.max_new,
@@ -149,6 +185,7 @@ def main(
         "replay_cost": replay_cost,
         "agreement": agreement,
         "sampled": sampled.tolist(),
+        "sharded": sharded,
     }
 
 

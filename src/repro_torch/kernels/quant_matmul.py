@@ -88,6 +88,12 @@ def check_operands(x, packed, scale, bits, fn: str) -> None:
             f"shapes: packed {tuple(packed.shape)}, scale {tuple(scale.shape)}"
         )
     check_k(k, kp, bits)
+    check_grid(m, k, n)
+
+
+def check_grid(m: int, k: int, n: int) -> None:
+    """Raise ValueError where an (M, K) x (K, N) launch is out of the
+    packed-weight kernels' grid (64-row tiles, 32-bit indices)."""
     if max(m, k, n) >= 2**31 or m > 65535 * 64:
         raise ValueError(f"M={m}, K={k}, N={n} out of the kernel's grid")
 

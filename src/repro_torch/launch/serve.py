@@ -35,9 +35,23 @@ arrivals.
     python -m repro_torch.launch.serve --arch qwen3-8b --connect HOST:PORT \
         --load-requests 12 --offered-rate 4 --prompt-len 48 --max-new 16
 
+Sharded generation (`serve.sharded`): `--mesh D` (data-parallel over D
+devices) or `--mesh DxM` (and tensor-parallel over M) runs the same
+generate on a ("data", "model") mesh, one process a device: ranks are
+spawned here through `launch._spawn.run` (gloo on the CPU, NCCL one a
+card), or are the caller's or `torchrun`'s. Every rank builds the params
+from `--seed`, keeps its block (`place_params`) and frees the rest; rank
+0 prints the plan's per-device bytes and returns the record.
+
+    python -m repro_torch.launch.serve --arch qwen3-8b --quant-bits 8 \
+        --mesh 1
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-8b --mesh 2x2
+
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
-`device` it needs a card. The reference's mesh, frontend-sweep and
-load-sweep flags are refused with the ROADMAP.md item that ports them.
+`device` it needs a card. The reference's frontend-sweep and load-sweep
+flags, and `--mesh` with `--listen`, are refused with the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -49,14 +63,18 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device, configs, obs
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import _spawn
+from repro_torch.launch.mesh import make_serving_mesh, parse_mesh_spec
 from repro_torch.models import api
 from repro_torch.serve import engine as E
+from repro_torch.serve import sharded as SH
 
 # the reference's flags whose parts of the system are not ported yet
 _NOT_PORTED = {
-    "--mesh": "sharded decode, ROADMAP.md queue 1 item 8b",
     "--frontend-sweep": "loadlab.sweep_frontend, ROADMAP.md queue 1 item 9",
     "--load-sweep": "obs.loadlab, ROADMAP.md queue 1 item 9",
     "--load-fractions": "obs.loadlab, ROADMAP.md queue 1 item 9",
@@ -85,6 +103,16 @@ def build_lm(args, device: _device.DeviceLike = None):
     return cfg, model, params, prompts
 
 
+def _sampling(args) -> dict:
+    return dict(
+        greedy=args.temperature is None,
+        key=E.fold_in(E.prng_key(args.seed), 1),  # decouple from init/prompts
+        # keep an explicit 0.0 (sample_tokens' degenerate-to-greedy case)
+        temperature=1.0 if args.temperature is None else args.temperature,
+        top_k=args.top_k,
+    )
+
+
 def serve_lm(args, device: _device.DeviceLike = None) -> dict:
     dev = _device.resolve(device)
     if dev.type == "cuda":
@@ -94,13 +122,7 @@ def serve_lm(args, device: _device.DeviceLike = None) -> dict:
     build_s = time.perf_counter() - t0
     if args.quant_bits:
         print(f"[serve] weights quantized to {args.quant_bits} bits")
-    sampling = dict(
-        greedy=args.temperature is None,
-        key=E.fold_in(E.prng_key(args.seed), 1),  # decouple from init/prompts
-        # keep an explicit 0.0 (sample_tokens' degenerate-to-greedy case)
-        temperature=1.0 if args.temperature is None else args.temperature,
-        top_k=args.top_k,
-    )
+    sampling = _sampling(args)
     if args.temperature is not None:
         print(f"[serve] sampling: temperature={args.temperature} "
               f"top_k={args.top_k or 'off'} (per-request keys)")
@@ -128,6 +150,93 @@ def serve_lm(args, device: _device.DeviceLike = None) -> dict:
         "build_s": build_s, "generate_s": dt, "tok_per_s": n_tok / dt,
         "peak_device_bytes": peak, "device": where,
     }
+
+
+def serve_lm_mesh_rank(args, device: _device.DeviceLike = None):
+    """`--mesh` on this rank of the process group (every rank of the mesh
+    calls it): the plan, this rank's block of the params (the rest freed),
+    `sharded_generate`. Returns rank 0's record — with, under "placed",
+    the model, the placed params, the plan and the prompts for a caller
+    in this process — or None on the other ranks."""
+    dev = _device.resolve(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_serving_mesh(args.mesh, dev)
+    if mesh.get_coordinate() is None:
+        return None
+    lead = _spawn.rank() == 0
+    t0 = time.perf_counter()
+    cfg, model, params, prompts = build_lm(args, dev)
+    plan = SH.plan_decode(model, params, mesh, batch_size=args.batch)
+    placed = SH.place_params(params, plan)
+    del params  # this rank keeps its block only
+    build_s = time.perf_counter() - t0
+    if lead:
+        sizes = shd.axis_sizes(mesh)
+        print(f"[serve] mesh {sizes}: cache "
+              f"{plan.cache_bytes_per_device / 1e3:.1f} kB/device "
+              f"(replicated would be {plan.cache_bytes_total / 1e3:.1f} "
+              f"kB), params {plan.param_bytes_per_device / 1e3:.1f} "
+              f"kB/device")
+    stats: dict = {}
+    t0 = time.perf_counter()
+    with obs.get().span("serve/generate", cat="serve", batch=args.batch,
+                        max_new=args.max_new, mesh=args.mesh):
+        out = SH.sharded_generate(
+            model, placed, prompts, mesh=mesh, max_new=args.max_new,
+            params_placed=True, plan=plan, stats=stats, **_sampling(args),
+        ).cpu()
+    dt = time.perf_counter() - t0
+    if not lead:
+        return None
+    n_tok = args.batch * args.max_new
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"[serve] {cfg.name} on mesh {args.mesh} ({dist.get_backend()}, "
+          f"{where}): {tuple(out.shape)} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s incl. first-use set-up)")
+    print("[serve] sample:", out[0][:12].tolist())
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "quant_bits": args.quant_bits,
+        "batch": args.batch, "prompt_len": args.prompt_len,
+        "max_new": args.max_new, "tokens": out.tolist(),
+        "mesh": args.mesh, "backend": dist.get_backend(),
+        "world": dist.get_world_size(), "n_devices": plan.n_devices,
+        "param_bytes_per_device": plan.param_bytes_per_device,
+        "cache_bytes_per_device": plan.cache_bytes_per_device,
+        "param_bytes_total": plan.param_bytes_total,
+        "cache_bytes_total": plan.cache_bytes_total,
+        "param_bytes_placed": shd.placed_bytes(placed),
+        "cache_bytes_placed": stats["cache_bytes"],
+        "decode_wall_ms": stats["decode_wall_ms"],
+        "decode_comm": stats["decode_comm"],
+        "comm_budget": SH._decode_comm_budget(model),
+        "build_s": build_s, "generate_s": dt, "tok_per_s": n_tok / dt,
+        "peak_device_bytes": peak, "device": where,
+        "placed": {"model": model, "params": placed, "plan": plan,
+                   "prompts": prompts},
+    }
+
+
+def _mesh_record(args, device) -> Optional[dict]:
+    """`serve_lm_mesh_rank` on a spawned rank: the record without its
+    tensors and model (what crosses back to the caller)."""
+    out = serve_lm_mesh_rank(args, device)
+    if out is not None:
+        out.pop("placed")
+    return out
+
+
+def serve_lm_mesh(args, device: _device.DeviceLike = None) -> dict:
+    """`--mesh`: ranks spawned for the mesh (or the group that is here)."""
+    n_data, n_model = parse_mesh_spec(args.mesh)
+    world = n_data * n_model
+    fn = _mesh_record if _spawn.spawns(world) else serve_lm_mesh_rank
+    dev = "cpu" if _device.resolve(device).type == "cpu" else device
+    return _spawn.run(fn, world, device=dev, args=(args, dev))
 
 
 def _hostport(s: str) -> tuple[str, int]:
@@ -354,6 +463,9 @@ def main(
     ap.add_argument("--chunk-tokens", type=int, default=None,
                     help="chunked prefill: split prompts longer than "
                          "this into chunks interleaved with decode ticks")
+    ap.add_argument("--mesh", default=None, metavar="D|DxM",
+                    help="sharded generate on a data x model mesh, one "
+                         "process a device (e.g. 4, or 2x2)")
     for flag, what in _NOT_PORTED.items():
         kw = ({"action": "store_true"} if flag in _SWITCHES
               else {"default": None})
@@ -374,7 +486,14 @@ def main(
         ap.error("the serving frontend fronts the LM slot engine; "
                  "for the stream side use repro_torch.launch.stream "
                  "--listen/--connect")
-    if args.listen:
+    if args.mesh and (args.listen or args.connect):
+        ap.error("--mesh with --listen/--connect (the frontends over a "
+                 "mesh) is not ported yet (ROADMAP.md queue 1 item 8c)")
+    if args.mesh and args.arch == "va-cnn":
+        ap.error("--mesh shards the LM; va-cnn serves on one device")
+    if args.mesh:
+        out = serve_lm_mesh(args, device)
+    elif args.listen:
         out = serve_listen(args, device)
     elif args.connect:
         out = serve_connect(args)

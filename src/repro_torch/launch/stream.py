@@ -33,7 +33,7 @@ same scheduler and vote, and rank 0 reports.
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
 `device` it needs a card. The open-loop sweep (`--load-sweep` and its
 flags) is ROADMAP.md queue 1 item 9; a frontend over a mesh (`--listen`
-with `--devices` > 1) is item 8b.
+with `--devices` > 1) is item 8c.
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def main(
             ap.error(f"{flag} is not ported yet ({what})")
     if args.devices > 1 and args.listen:
         ap.error("--listen with --devices > 1 (a frontend over a data mesh) "
-                 "is not ported yet (ROADMAP.md queue 1 item 8b)")
+                 "is not ported yet (ROADMAP.md queue 1 item 8c)")
     dev = _device.resolve(device)
     if args.trace_out:
         # before the runner is built, so its cells register with the probe

@@ -33,7 +33,7 @@ the uninterrupted run bit for bit. The ranks come from
 the cards (one rank a card), or `torchrun`'s. Every rank draws the same
 params and takes rank 0's by broadcast; only rank 0 logs, prints and
 writes checkpoints. In-pod axes (D or M > 1: FSDP and TP) are refused,
-naming ROADMAP.md queue 1 item 8b.
+naming ROADMAP.md queue 1 item 8c.
 
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --multi-pod 1x1 --scheme gather --steps 4
@@ -290,7 +290,7 @@ def main(
     ap.add_argument(
         "--multi-pod", type=str, default=None, metavar="PxD[xM]",
         help="compressed multi-pod DP over a (pod, data, model) mesh, "
-             "e.g. 2x1 (one rank a pod; D = M = 1 until ROADMAP.md item 8b)",
+             "e.g. 2x1 (one rank a pod; D = M = 1 until ROADMAP.md item 8c)",
     )
     ap.add_argument(
         "--scheme", choices=("gather", "two_stage"), default="gather",
@@ -309,7 +309,7 @@ def main(
                 f"--multi-pod {args.multi_pod}: in-pod data x model = "
                 f"{n_data * n_model}; placing parameters over 'data' and "
                 f"'model' (FSDP, TP) is not ported yet (ROADMAP.md queue 1 "
-                f"item 8b): use PxD with D = 1"
+                f"item 8c): use PxD with D = 1"
             )
     _device.resolve(device)
     if args.multi_pod:

@@ -23,9 +23,11 @@ result (`preferred_element_type`), and a bfloat16 einsum in torch
 returns bfloat16, so operands are cast up first. A masked score is
 `NEG`, so once its row has a valid score its weight exp(NEG - max) is
 exactly 0 (the direct softmax also floors the max at `NEG / 2`). The
-reference's `constrain` layout hints do nothing on one device and are
-dropped (`dist.sharding` ports the rules; `constrain` and
-`activation_context` are ROADMAP.md queue 1 item 8b).
+reference's `constrain` call sites in the blockwise path are kept
+(`dist.sharding.constrain`); they pin GSPMD's layout of the block axes
+there, and check the ranks of the blocks here: the port's attention runs
+on the heads its caller hands it (`models.transformer`: this rank's
+heads under sharded serving), whose global counts are checked there.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import constrain
 
 NEG = -1e30
 
@@ -124,8 +128,11 @@ def _global_blockwise(
     nk = kp.shape[1] // bk
     ar = torch.arange(kp.shape[1], device=dev)
     kpos = torch.where(ar < sk, ar + k0, -1)  # pad invalid
+    kp = constrain(kp, "dp", None, "tp", None)
+    vp = constrain(vp, "dp", None, "tp", None)
 
     qbs = qp.reshape(b, nq, bq, g, r, hd).movedim(1, 0)  # (nq,B,bq,G,R,hd)
+    qbs = constrain(qbs, None, "dp", None, "tp", None, None)
     qi = (torch.arange(nq, device=dev)[:, None] * bq
           + torch.arange(bq, device=dev) + q0)  # (nq, bq)
     m = torch.full((nq, b, g, r, bq), NEG, dtype=torch.float32, device=dev)
@@ -148,7 +155,7 @@ def _global_blockwise(
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-20)  # (nq,B,G,R,bq,hd)
-    out = out.movedim(4, 2)  # (nq,B,bq,G,R,hd)
+    out = constrain(out.movedim(4, 2), None, "dp", None, "tp", None, None)
     out = out.movedim(0, 1).reshape(b, nq * bq, g, r, hd)
     return out[:, :sq].to(q.dtype)
 

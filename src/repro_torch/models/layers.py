@@ -14,7 +14,16 @@ Port of `repro.models.layers`. Conventions (whole substrate):
     {"values_q","select","meta","scale"}) swaps in compressed storage
     at serve time. Those two go through the port's hand-written kernels
     (`kernels.ops.quant_matmul` and `kernels.ops.nm_spmm`): a CUDA
-    tensor launches the kernel, a CPU tensor takes its plain version.
+    tensor launches the kernel, a CPU tensor takes its plain version;
+  * tensor parallelism (sharded serving, `serve.sharded`): inside
+    `dist.sharding.activation_context` a linear that `gather_block`
+    marked `"tp": "col"` holds its output columns and emits them (its
+    replicated `scale` and bias sliced to them); one marked `"tp": "row"`
+    holds its input rows, takes its block of x, and all-reduces its
+    partial products over the model group, the bias added once after.
+    The packed branch runs `quant_matmul` on the rank's shard either
+    way. The embedding with its vocab rows over `model` looks up its
+    rows masked and all-reduces.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.core import quant as Q
 from repro_torch.core import sparsity as S
 from repro_torch.core.spe import SPEConfig, spe_train_weight
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -62,6 +72,7 @@ def linear_apply(
     *,
     spe: Optional[SPEConfig] = None,
     dtype: torch.dtype = torch.bfloat16,
+    x_local: bool = False,
 ) -> torch.Tensor:
     """y = x @ W (+ b). Dispatches on the param format:
 
@@ -77,7 +88,27 @@ def linear_apply(
                                (SPE): `ops.nm_spmm`, with x's K padded
                                with zeros to the group multiple the
                                compiler padded W to.
+
+    Tensor parallelism (`params["tp"]`, set by `dist.sharding.gather_block`):
+    `x_local` says that x holds this rank's block of its last dim (the
+    output of a column-parallel linear) rather than all of it. A "row"
+    linear takes x's block (sliced where x is whole), runs the local K
+    (the packed bit width from the local rows and the local K: codes
+    pack along K, so a row block is a contiguous K block), applies the
+    scale to each partial (per output column, so the all-reduced sum is
+    the scaled sum) and all-reduces in float32 for the packed path, in
+    `dtype` for the dense one. A linear that is not row-parallel given a
+    local x gathers x over `model` first.
     """
+    tp = params.get("tp")
+    if tp == "row":
+        if not x_local:
+            x = shd.model_block(x)
+    elif x_local:
+        x = shd.gather_model(x)
+    scale = params.get("scale")
+    if tp == "col" and scale is not None:
+        scale = shd.model_block(scale)
     if "w" in params:
         w = params["w"]
         if spe is not None:
@@ -91,8 +122,13 @@ def linear_apply(
         k = x.shape[-1]
         bits = (8 * packed.shape[-2]) // k
         xk = _pad_k(x.to(torch.float32), packed.shape[-2] * (8 // bits))
-        y = ops.quant_matmul(xk, packed, params["scale"], bits=bits).to(dtype)
+        y = ops.quant_matmul(xk, packed, scale, bits=bits)
     elif "values_q" in params:
+        if tp is not None:
+            raise NotImplementedError(
+                "tensor-parallel SPE (values_q) linears are not served "
+                "(ROADMAP.md queue 1 item 8c)"
+            )
         meta = params["meta"]
         group, keep = int(meta["group"]), int(meta["keep"])
         k_dense = (params["values_q"].shape[0] // keep) * group
@@ -100,12 +136,21 @@ def linear_apply(
         y = ops.nm_spmm(
             xk, params["values_q"], params["select"], params["scale"],
             group_size=group, keep=keep,
-        ).to(dtype)
+        )
     else:
         raise ValueError(f"unknown linear param format: {list(params)}")
+    if tp == "row":
+        y = shd.reduce_model(y)
+    y = y.to(dtype)
     if "b" in params:
-        y = y + params["b"].to(dtype)
+        b = params["b"]
+        y = y + (shd.model_block(b) if tp == "col" else b).to(dtype)
     return y
+
+
+def col_local(params: dict) -> bool:
+    """True where a linear emits this rank's block of its columns."""
+    return params.get("tp") == "col"
 
 
 def compile_linear_quant(params: dict, bits: int) -> dict:
@@ -296,13 +341,16 @@ def ffn_apply(
     spe: Optional[SPEConfig] = None,
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
+    local = col_local(params["w_up"])  # d_ff split over model
     if act in ("swiglu", "geglu"):
         g = linear_apply(params["w_gate"], x, spe=spe, dtype=dtype)
         u = linear_apply(params["w_up"], x, spe=spe, dtype=dtype)
         g = silu(g) if act == "swiglu" else gelu(g)
-        return linear_apply(params["w_down"], g * u, spe=spe, dtype=dtype)
+        return linear_apply(params["w_down"], g * u, spe=spe, dtype=dtype,
+                            x_local=local)
     h = linear_apply(params["w_up"], x, spe=spe, dtype=dtype)
-    return linear_apply(params["w_down"], gelu(h), spe=spe, dtype=dtype)
+    return linear_apply(params["w_down"], gelu(h), spe=spe, dtype=dtype,
+                        x_local=local)
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +368,20 @@ def embed_apply(
 ) -> torch.Tensor:
     # gather, then cast: bit-identical to the reference's cast-then-gather
     # (the cast is elementwise), without casting the whole table per call
-    h = params["w"][tokens].to(dtype)
+    w = params["w"]
+    if params.get("tp") == "row":
+        # vocab rows over `model`: each rank looks up the ids it holds,
+        # zeros elsewhere; the all-reduce adds exact zeros (bit for bit)
+        ctx = shd.current()
+        lo = ctx.groups.model_rank * w.shape[0]
+        idx = tokens - lo
+        mine = (idx >= 0) & (idx < w.shape[0])
+        h = w[idx.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
+        h = shd.reduce_model(h).to(dtype)
+    else:
+        h = w[tokens].to(dtype)
     if scale:
-        d = torch.tensor(float(params["w"].shape[1]), dtype=torch.float32)
+        d = torch.tensor(float(w.shape[1]), dtype=torch.float32)
         h = h * torch.sqrt(d).to(device=h.device, dtype=dtype)
     return h
 

@@ -10,8 +10,10 @@ The expert weights are bare (E, d, f) float32 arrays, so
 `serve.engine.quantize_for_serving` leaves them dense; `moe_apply` casts
 them to the compute dtype on every call and runs its own einsums, as the
 reference does. The shared expert (llama4) is an `ffn_init` block and is
-packed like any other FFN. The reference's `constrain` layout hints do
-nothing on one device and are dropped.
+packed like any other FFN. The reference's `constrain` call sites are
+kept as checks of the local shapes (`dist.sharding.constrain`); sharded
+serving runs MoE on data-only meshes, its experts gathered over `data`
+(tensor parallelism for MoE is ROADMAP.md queue 1 item 8c).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MoESpec
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.layers import _randn, ffn_apply, ffn_init, silu
 
 
@@ -108,12 +111,15 @@ def moe_apply(
         xe.index_put_((barange, eidx[:, :, i], pos_c[:, :, i]), upd,
                       accumulate=True)
 
+    xe = constrain(xe, "dp", None, None, "tp", shape=(None, e, c, d))
     wg = params["w_gate"].to(dtype)
     wu = params["w_up"].to(dtype)
     wd = params["w_down"].to(dtype)
     h = silu(torch.einsum("becd,edf->becf", xe, wg)) * torch.einsum(
         "becd,edf->becf", xe, wu)
+    h = constrain(h, "dp", None, None, "tp", shape=(None, e, c, wg.shape[-1]))
     ye = torch.einsum("becf,efd->becd", h, wd)  # (B,E,C,D)
+    ye = constrain(ye, "dp", None, None, "tp", shape=(None, e, c, d))
 
     y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
     for i in range(k):
@@ -130,4 +136,5 @@ def moe_apply(
         dim=(1, 2))  # (B, E)
     pmass = probs.mean(dim=1)  # (B, E)
     aux = e * torch.mean(torch.sum(frac * pmass, dim=-1))
+    y = constrain(y, "dp", None, "tp", shape=(None, s, d))
     return y.to(dtype), aux

@@ -17,6 +17,16 @@ rounding. Decode is the same function at S = 1 on the carried
 `w_x`, `w_gate` and `w_out` go through `layers.linear_apply` (packed at
 serve time, so they reach `quant_matmul`); `w_a` and `w_i` are read as
 float32 `{"w"}` weights and never packed.
+
+Tensor parallelism (sharded serving): `w_x`, `w_gate`, `w_a` and `w_i`
+are column-parallel and `w_out` row-parallel. The recurrence is
+elementwise in the hidden dimension, so a rank runs its block of the R
+channels with its slice of the replicated per-channel leaves (`b_a`,
+`b_i`, `lam`) and of the cache's `h`; the gates' (R, R) matmuls read
+every channel, so `w_x`'s local output is gathered over `model` first
+(the depthwise conv then runs on all channels, as the cache's `conv`
+holds them), and the new `h` is gathered back whole, as the cache keeps
+it (`cache_specs` replicates recurrent state over `model`).
 """
 
 from __future__ import annotations
@@ -27,8 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spe import SPEConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import (
     _randn,
+    col_local,
     gelu,
     linear_apply,
     linear_init,
@@ -100,17 +112,27 @@ def rglru_apply(
     new state as new tensors (the caller writes it into its cache)."""
     gate = gelu(linear_apply(p["w_gate"], x, spe=spe, dtype=dtype))
     u = linear_apply(p["w_x"], x, spe=spe, dtype=dtype)
+    if col_local(p["w_x"]):  # the conv and the gates read every channel
+        u = shd.gather_model(u)
     conv_prev = cache["conv"] if cache is not None else None
     u, conv_new = _causal_conv(u, p["conv_w"], p["conv_b"], conv_prev)
 
+    local = col_local(p["w_a"])  # this rank's block of the R channels
+
+    def mine(t):
+        return shd.model_block(t) if local else t
+
+    if col_local(p["w_gate"]) != local:
+        gate = mine(gate) if local else shd.gather_model(gate)
     uf = u.to(torch.float32)
-    r = sigmoid(uf @ p["w_a"]["w"] + p["b_a"])
-    i = sigmoid(uf @ p["w_i"]["w"] + p["b_i"])
-    log_a = -LRU_C * F.softplus(p["lam"]) * r  # (B,S,R) f32
+    r = sigmoid(uf @ p["w_a"]["w"] + mine(p["b_a"]))
+    i = sigmoid(uf @ p["w_i"]["w"] + mine(p["b_i"]))
+    log_a = -LRU_C * F.softplus(mine(p["lam"])) * r  # (B,S,R) f32
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
-        i * uf)
-    h = _lru_scan(a, b, cache["h"] if cache is not None else None)
+        i * mine(uf))
+    h = _lru_scan(a, b, mine(cache["h"]) if cache is not None else None)
     y = h.to(dtype) * gate
-    y = linear_apply(p["w_out"], y, spe=spe, dtype=dtype)
-    return y, {"h": h[:, -1], "conv": conv_new}
+    y = linear_apply(p["w_out"], y, spe=spe, dtype=dtype, x_local=local)
+    h_last = shd.gather_model(h[:, -1]) if local else h[:, -1]
+    return y, {"h": h_last, "conv": conv_new}

@@ -41,10 +41,23 @@ auxiliary loss), optionally chunked over S (`cfg.loss_chunk`). Under
 reference wraps its scan body in `jax.checkpoint`; the tail runs outside
 it. `forward_train` takes each stacked `(n_groups, ...)` leaf apart once
 with `torch.unbind`, whose backward is one stack, where slicing `[g]` in
-every group would add a full-size zero-padded gradient per group. The
-reference's `constrain` layout hints do nothing on one device and are
-dropped (`dist.sharding` ports the rules; `constrain` and
-`activation_context` are ROADMAP.md queue 1 item 8b).
+every group would add a full-size zero-padded gradient per group.
+
+Sharded serving (`serve.sharded`) runs `prefill` and `decode_step` on
+rank-local parameters and caches inside `dist.sharding.activation_context`:
+each block's parameters come through `gather_block` (FSDP leaves
+all-gathered over `data`, tensor-parallel linears marked), and so do the
+embedding, final norm and head (`_top_params`). An attention layer keeps
+its local heads where its projection's columns split over `model` on head
+boundaries and gathers the projection over `model` where they split
+mid-head (recurrentgemma's one KV head at `model` = 2); the local query
+heads read the KV heads GQA maps them to (`_kv_select`), from the cache's
+local heads or, where the cache keeps every KV head (`cache_specs` splits
+the head axis only where `model` divides it), from all of them. The
+vocab-split logits are gathered over `model`, so every rank holds whole
+rows. The reference's `constrain` call sites are kept as checks of the
+local shapes; its sequence-parallel hints (S over `model`) are `None`
+here: the port does not split S.
 """
 
 from __future__ import annotations
@@ -57,13 +70,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, pad_up
+from repro_torch._tree import tree_map
 from repro_torch.core.spe import SPEConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models.layers import (
     apply_rope,
+    col_local,
     embed_apply,
     embed_init,
     ffn_apply,
@@ -158,18 +175,25 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dims: Dims,
     return p
 
 
+def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """A projection's (B, S, width) output as (B, S, heads, hd): this
+    rank's heads where its columns split over `model` on head boundaries,
+    gathered over `model` first where they split mid-head."""
+    b, s = y.shape[:2]
+    if y.shape[-1] != n * hd and n % shd.tp_size():
+        y = shd.gather_model(y)
+    return y.reshape(b, s, -1, hd)
+
+
 def _qkv(p, x, pos, cfg, dims, spe, dtype):
-    b, s = x.shape[:2]
     hd = cfg.hd
-    q = linear_apply(p["wq"], x, spe=spe, dtype=dtype).reshape(
-        b, s, dims.n_heads, hd
-    )
-    k = linear_apply(p["wk"], x, spe=spe, dtype=dtype).reshape(
-        b, s, dims.n_kv, hd
-    )
-    v = linear_apply(p["wv"], x, spe=spe, dtype=dtype).reshape(
-        b, s, dims.n_kv, hd
-    )
+    q = _heads(linear_apply(p["wq"], x, spe=spe, dtype=dtype),
+               dims.n_heads, hd)
+    k = _heads(linear_apply(p["wk"], x, spe=spe, dtype=dtype), dims.n_kv, hd)
+    v = _heads(linear_apply(p["wv"], x, spe=spe, dtype=dtype), dims.n_kv, hd)
+    q = constrain(q, "dp", None, "tp", None, shape=(None, None, dims.n_heads, hd))
+    k = constrain(k, "dp", None, "tp", None, shape=(None, None, dims.n_kv, hd))
+    v = constrain(v, "dp", None, "tp", None, shape=(None, None, dims.n_kv, hd))
     if cfg.qk_norm:
         q = norm_apply("rmsnorm", p["q_norm"], q)
         k = norm_apply("rmsnorm", p["k_norm"], k)
@@ -178,20 +202,59 @@ def _qkv(p, x, pos, cfg, dims, spe, dtype):
     return q, k, v
 
 
+def _kv_select(hq: int, hk: int, dims: Dims, device):
+    """Which of the `hk` KV heads at hand (this rank's block, or all
+    `dims.n_kv`) this rank's `hq` query heads read — GQA maps query head
+    i to KV head i // (n_heads / n_kv) — as an index of the heads axis:
+    None (all of them, in order), a slice, or a per-query-head index
+    where the local query heads straddle KV groups."""
+    h, kv = dims.n_heads, dims.n_kv
+    if hq == h and hk == kv:
+        return None
+    rank = shd.current().groups.model_rank
+    r = h // kv
+    qlo = 0 if hq == h else rank * hq
+    klo = 0 if hk == kv else rank * hk
+    qhi = qlo + hq
+    if qlo % r == 0 and qhi % r == 0:
+        lo, hi = qlo // r - klo, qhi // r - klo
+    elif qlo // r == (qhi - 1) // r:
+        lo = qlo // r - klo
+        hi = lo + 1
+    else:
+        return torch.arange(qlo, qhi, device=device) // r - klo
+    return None if (lo, hi) == (0, hk) else slice(lo, hi)
+
+
+def _take_heads(t: Optional[torch.Tensor], sel) -> Optional[torch.Tensor]:
+    """`t`'s heads (axis 2) at the index `_kv_select` gave."""
+    if t is None or sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t[:, :, sel]
+    return t.index_select(2, sel)
+
+
+def _attn_out(p: dict, out: torch.Tensor, dims: Dims, *, spe, dtype):
+    """The attention's (B, S, heads, hd) output through `wo` (this rank's
+    heads are its block of wo's input rows)."""
+    b, s = out.shape[:2]
+    return linear_apply(p["wo"], out.reshape(b, s, -1), spe=spe, dtype=dtype,
+                        x_local=out.shape[2] != dims.n_heads)
+
+
 def attn_apply_train(
     p: dict, x: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig,
     dims: Dims, kind: str, *, spe, dtype,
 ) -> torch.Tensor:
     q, k, v = _qkv(p, x, pos, cfg, dims, spe, dtype)
+    sel = _kv_select(q.shape[2], k.shape[2], dims, q.device)
     out = A.attention(
-        q, k, v, kind=kind, window=cfg.window, cap=cfg.attn_softcap,
-        causal=True, block_q=cfg.attn_block, block_k=cfg.attn_block,
+        q, _take_heads(k, sel), _take_heads(v, sel), kind=kind,
+        window=cfg.window, cap=cfg.attn_softcap, causal=True,
+        block_q=cfg.attn_block, block_k=cfg.attn_block,
     )
-    b, s = x.shape[:2]
-    return linear_apply(
-        p["wo"], out.reshape(b, s, dims.n_heads * cfg.hd), spe=spe,
-        dtype=dtype,
-    )
+    return _attn_out(p, out, dims, spe=spe, dtype=dtype)
 
 
 def cache_capacity(cfg: ArchConfig, kind: str, max_seq: int) -> int:
@@ -346,16 +409,14 @@ def attn_apply_decode(
             view[name] = pool[tblb].reshape(b, cap, *pool.shape[2:])
             view[name][bidx, slot] = val.to(pool.dtype)
             pool[phys, off] = val.to(pool.dtype)
+    sel = _kv_select(q.shape[2], k.shape[2], dims, q.device)
     out = A.attention_decode(
-        q[:, 0], view["k"], view["v"], cache["slot_pos"], pos,
-        kind=kind, window=cfg.window, cap=cfg.attn_softcap,
-        k_scale=view.get("k_scale"), v_scale=view.get("v_scale"),
+        q[:, 0], _take_heads(view["k"], sel), _take_heads(view["v"], sel),
+        cache["slot_pos"], pos, kind=kind, window=cfg.window,
+        cap=cfg.attn_softcap, k_scale=_take_heads(view.get("k_scale"), sel),
+        v_scale=_take_heads(view.get("v_scale"), sel),
     )
-    y = linear_apply(
-        p["wo"], out.reshape(b, 1, dims.n_heads * cfg.hd), spe=spe,
-        dtype=dtype,
-    )
-    return y, cache
+    return _attn_out(p, out[:, None], dims, spe=spe, dtype=dtype), cache
 
 
 def attn_cache_from_prefill(
@@ -571,12 +632,48 @@ def _at(tree: dict, where: tuple) -> Any:
     return sub if g is None else _group(sub, g)
 
 
-def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
+def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig, dtype,
+            vocab: Optional[int] = None) -> torch.Tensor:
+    """(B, S, V_padded) float32 logits, whole rows on every rank (a head
+    split over `model` emits its vocab block, gathered here). `vocab`
+    (V_padded) lets `constrain` check the block."""
     if cfg.tie_embeddings:
+        local = params["embed"].get("tp") == "row"
         logits = h @ params["embed"]["w"].to(dtype).T
     else:
+        local = col_local(params["lm_head"])
         logits = linear_apply(params["lm_head"], h, dtype=dtype)
-    return softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = constrain(logits.to(torch.float32), "dp", None, "tp",
+                       shape=(None, None, vocab))
+    if local:
+        logits = shd.gather_model(logits)
+    return softcap(logits, cfg.final_softcap)
+
+
+def _top_params(params: dict) -> dict:
+    """The embedding, final norm and head as the stack takes them: inside
+    a sharded activation context gathered over `data` (one collective)
+    and marked for `model` (`dist.sharding.gather_block`)."""
+    ctx = shd.current()
+    if ctx is None or ctx.specs is None:
+        return params
+    keys = [k for k in params if k not in ("blocks", "tail")]
+    return shd.gather_block({k: params[k] for k in keys},
+                            {k: ctx.specs[k] for k in keys})
+
+
+def _block_params(params: dict, where: tuple) -> dict:
+    """One block's parameters (`_at`), through `gather_block` inside a
+    sharded activation context."""
+    p = _at(params, where)
+    ctx = shd.current()
+    if ctx is None or ctx.specs is None or (ctx.n_data == 1 and ctx.tp == 1):
+        return p  # nothing to gather or mark
+    top, key, g = where
+    specs = ctx.specs[top][key]
+    if g is not None:  # a stacked leaf's spec leads with its group axis
+        specs = tree_map(lambda spec: spec[1:], specs)
+    return shd.gather_block(p, specs)
 
 
 def _unbind(tree: Any, n: int) -> list:
@@ -750,16 +847,18 @@ def decode_step(
     """One-token step: returns (logits (B, V_padded) f32, cache), the cache
     updated in place."""
     dtype = compute_dtype(cfg)
-    h = embed_apply(params["embed"], token[:, None], dtype=dtype,
+    tops = _top_params(params)
+    h = embed_apply(tops["embed"], token[:, None], dtype=dtype,
                     scale=cfg.scale_embed)
+    h = constrain(h, "dp", None, None, shape=(None, None, cfg.d_model))
     for where, kind in _groups(params, cfg):
         h, _, _ = block_apply(
-            _at(params, where), h, pos, cfg, dims, kind,
+            _block_params(params, where), h, pos, cfg, dims, kind,
             cache=_at(cache, where), spe=None, dtype=dtype,
             page_tbl=page_tbl, page=page,
         )
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    return _logits(params, h, cfg, dtype)[:, 0], cache
+    h = norm_apply(cfg.norm, tops["final_norm"], h)
+    return _logits(tops, h, cfg, dtype, dims.vocab)[:, 0], cache
 
 
 def prefill(
@@ -779,12 +878,14 @@ def prefill(
     dtype = compute_dtype(cfg)
     b, s = tokens.shape
     pos = _positions(cfg, b, s, tokens.device)
-    h = embed_apply(params["embed"], tokens, dtype=dtype,
+    tops = _top_params(params)
+    h = embed_apply(tops["embed"], tokens, dtype=dtype,
                     scale=cfg.scale_embed)
+    h = constrain(h, "dp", None, None, shape=(None, None, cfg.d_model))
     caches: dict[str, Any] = {"blocks": {}}
     for where, kind in _groups(params, cfg):
-        h, c = _prefill_block(_at(params, where), h, pos, cfg, dims, kind,
-                              max_seq=max_seq, dtype=dtype)
+        h, c = _prefill_block(_block_params(params, where), h, pos, cfg,
+                              dims, kind, max_seq=max_seq, dtype=dtype)
         top, key, _ = where
         caches.setdefault(top, {}).setdefault(key, []).append(c)
     # stack the groups' caches along the leading group axis; the tail's
@@ -794,8 +895,8 @@ def prefill(
               for key, lst in sub.items()}
         for top, sub in caches.items()
     }
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    return _logits(params, h[:, -1:], cfg, dtype)[:, 0], cache
+    h = norm_apply(cfg.norm, tops["final_norm"], h)
+    return _logits(tops, h[:, -1:], cfg, dtype, dims.vocab)[:, 0], cache
 
 
 def _prefill_block(p: dict, h: torch.Tensor, pos: torch.Tensor,
@@ -805,21 +906,19 @@ def _prefill_block(p: dict, h: torch.Tensor, pos: torch.Tensor,
     if kind == "rwkv":
         h, nc = RWKV.block_apply(p["rwkv"], h, cfg.rwkv_head_dim, dtype=dtype)
         return h, {"rwkv": nc}
-    b, s = h.shape[:2]
     a_in = norm_apply(cfg.norm, p["ln1"], h)
     if kind == "rglru":
         mixed, nc = RG.rglru_apply(p["mix"], a_in, dtype=dtype)
         cache = {"rglru": nc}
     else:
         q, k, v = _qkv(p["mix"], a_in, pos, cfg, dims, None, dtype)
+        sel = _kv_select(q.shape[2], k.shape[2], dims, q.device)
         out = A.attention(
-            q, k, v, kind=kind, window=cfg.window, cap=cfg.attn_softcap,
-            causal=True, block_q=cfg.attn_block, block_k=cfg.attn_block,
+            q, _take_heads(k, sel), _take_heads(v, sel), kind=kind,
+            window=cfg.window, cap=cfg.attn_softcap, causal=True,
+            block_q=cfg.attn_block, block_k=cfg.attn_block,
         )
-        mixed = linear_apply(
-            p["mix"]["wo"], out.reshape(b, s, dims.n_heads * cfg.hd),
-            dtype=dtype,
-        )
+        mixed = _attn_out(p["mix"], out, dims, spe=None, dtype=dtype)
         cache = {"attn": attn_cache_from_prefill(k, v, cfg, kind, max_seq)}
     h, _ = _ffn_half(p, h, mixed, cfg, spe=None, dtype=dtype)
     return h, cache

@@ -44,6 +44,15 @@ positions actually written (`cache_bytes_in_use`). Chunked prefill
 rows-cache, one chunk a tick, so short requests admit and the pool
 decodes in between; a chunked request takes a slot only when its prompt
 is done.
+
+Where arrays live and which rows a rank computes go through overridable
+hooks (`_place_params`, `_place_cache`, `_place_batch`, `_place_tbl`,
+`_gather_rows`, `_gather_cache_rows`, `_seat_rows`, `_cell`,
+`_paging_shards`, `_admission_rows`, `_admit_span_attrs`), the
+reference's: identities here, so that `serve.sharded.ShardedEngine` runs
+the same host logic on every rank of a mesh with its block of the pool.
+The page pool has one shard a data-axis device there; a slot's pages come
+from its own shard (`_slot_shard`).
 """
 
 from __future__ import annotations
@@ -197,6 +206,7 @@ class _ChunkState:
     done: int  # prompt tokens already fed
     logits: Any = None  # (rows, V) last real step's logits once ready
     ready: bool = False
+    shard: int = 0  # the page-pool shard of its reservation (and seat)
 
 
 def _chunk_prefill_fn(model: Model):
@@ -245,7 +255,7 @@ class Engine:
         _reject_enc_dec(model.cfg, "the slot engine")
         self.device = _device.resolve(device)
         self.model = model
-        self.params = params
+        self.params = self._place_params(params)
         self.batch = batch_size
         self.greedy = greedy
         self.temperature = temperature
@@ -273,31 +283,40 @@ class Engine:
                 # cache degenerates to the dense pool and no allocator is
                 # needed (span == 0 keeps _pg None)
                 self._layouts = model.page_layouts(paging.page_size)
-                # one pool shard on one device (a sharded engine's pool
-                # has one a data-axis device, ROADMAP.md queue 1 item 8b)
-                self._pg = PageAllocator(paging.n_pages)
+                # one pool shard a data-axis device (one here)
+                shards = self._paging_shards()
+                if batch_size % shards:
+                    raise ValueError(
+                        f"batch_size={batch_size} not divisible by "
+                        f"{shards} page-pool shards"
+                    )
+                self._pg = PageAllocator(paging.n_pages, shards)
         if self._pg is not None:
             # host-authoritative slot->page table + per-slot mirrors (page
             # count, last written position). The device sees a copy of
             # _tbl each decode step, never stored in the cache tree
-            self._tbl = np.full((batch_size, self._span),
-                                self._pg.scratch(), np.int64)
+            self._tbl = np.stack([
+                np.full((self._span,), self._pg.scratch(self._slot_shard(i)),
+                        np.int64)
+                for i in range(batch_size)
+            ])
             self._npages = [0] * batch_size
             self._hpos = [0] * batch_size
         probe = obs.get().probe
         self._decode = self._compile_decode()
-        self._prefill = probe.track("serve.prefill", model.prefill)
+        self._prefill = probe.track("serve.prefill", self._cell(model.prefill))
         self._seat = probe.track(
             "serve.seat",
             functools.partial(seating.scatter_pages, layouts=self._layouts)
             if self._pg is not None else seating.scatter_slots,
         )
-        self._chunk = probe.track("serve.chunk", _chunk_prefill_fn(model))
+        self._chunk = probe.track("serve.chunk",
+                                  self._cell(_chunk_prefill_fn(model)))
         self._queue: list[Request] = []
         self._slots: list[Optional[Request]] = [None] * batch_size
         self._chunks: list[_ChunkState] = []
         self._chunk_wait: list[Request] = []
-        self.cache = self._init_cache()
+        self.cache = self._place_cache(self._init_cache())
 
         def zi():
             return torch.zeros((batch_size,), dtype=torch.long,
@@ -330,6 +349,58 @@ class Engine:
         # sampling stream; reuse after finish is legal
         self._inflight: set[int] = set()
 
+    # -- placement hooks (identities on one device) -------------------------
+
+    def _place_params(self, params: Any) -> Any:
+        return params
+
+    def _place_cache(self, cache: Any) -> Any:
+        return cache
+
+    def _place_batch(self, x):
+        """This rank's block of the leading (row) axis of `x` (a tensor,
+        array or list): all of it here."""
+        return x
+
+    def _place_tbl(self, x: torch.Tensor) -> torch.Tensor:
+        """Rows of the page table as this rank's pool addresses them."""
+        return x
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's `_place_batch` block of `x`, joined: `x` here."""
+        return x
+
+    def _gather_cache_rows(self, rows: Any) -> Any:
+        """An admission cache with every row (each rank's block joined)."""
+        return rows
+
+    def _cell(self, fn):
+        """`fn` (a model entry point) as this engine runs it."""
+        return fn
+
+    def _paging_shards(self) -> int:
+        """Page-pool shards: the mesh data-axis size for a sharded engine
+        (a slot's pages live on the slot's shard), 1 here."""
+        return 1
+
+    def _slot_shard(self, slot: int) -> int:
+        return slot // (self.batch // self._paging_shards())
+
+    def _admission_rows(self, n: int) -> int:
+        """Prefill rows for `n` admitted prompts (a sharded engine pads to
+        the data-axis multiple; pad rows repeat the last prompt and their
+        outputs are discarded)."""
+        return n
+
+    def _admit_span_attrs(self) -> dict:
+        """Extra attributes of the admission span (a sharded engine
+        reports its mesh here)."""
+        return {}
+
+    def _chunk_cache(self) -> Any:
+        """A fresh one-row dense cache for a chunked prefill."""
+        return self.model.init_cache(1, device=self.device)
+
     # -- the cache and the page pool -----------------------------------------
 
     def _init_cache(self) -> Any:
@@ -345,18 +416,36 @@ class Engine:
     def _compile_decode(self):
         probe = obs.get().probe
         if self._pg is None:
-            return probe.track("serve.decode_step", self.model.decode_step)
+            return probe.track("serve.decode_step",
+                               self._cell(self.model.decode_step))
         model, page = self.model, self._page
         cell = probe.track(
             "serve.decode_step",
-            lambda p, c, t, pos, tbl: model.decode_step_paged(
-                p, c, t, pos, tbl, page),
+            self._cell(lambda p, c, t, pos, tbl: model.decode_step_paged(
+                p, c, t, pos, tbl, page)),
         )
 
         def step(params, cache, tok, pos):
-            return cell(params, cache, tok, pos, self._tbl_device())
+            tbl = self._place_tbl(self._place_batch(self._tbl_device()))
+            return cell(params, cache, tok, pos, tbl)
 
         return step
+
+    def _draw(self, logits: torch.Tensor, keys: Sequence) -> torch.Tensor:
+        """One token a row: greedy argmax, or a draw under the row's key."""
+        if self.greedy:
+            return torch.argmax(logits, dim=-1)
+        return sample_tokens(logits, keys, temperature=self.temperature,
+                             top_k=self.top_k)
+
+    def _decode_tokens(self, toks: torch.Tensor, pos: torch.Tensor,
+                       keys: list) -> torch.Tensor:
+        """Every slot's next token from one pool decode step (this rank's
+        rows decoded, the rows' tokens joined)."""
+        logits, self.cache = self._decode(
+            self.params, self.cache, self._place_batch(toks),
+            self._place_batch(pos))
+        return self._gather_rows(self._draw(logits, self._place_batch(keys)))
 
     # -- queue / admission --------------------------------------------------
 
@@ -431,11 +520,20 @@ class Engine:
 
     def _pick_seat(self, req: Request, free: list) -> Optional[int]:
         """Claim a free slot (and, paged, reserve the request's worst-case
-        pages). None when the pool cannot cover the reservation now:
-        admission defers until running tenants free pages."""
-        if self._pg is not None and not self._reserve(req):
-            return None
-        return free.pop(0)
+        pages on that slot's shard). None when no shard can cover the
+        reservation now: admission defers until running tenants free
+        pages."""
+        if self._pg is None:
+            return free.pop(0)
+        tried: set[int] = set()
+        for i, slot in enumerate(free):
+            shard = self._slot_shard(slot)
+            if shard in tried:
+                continue
+            tried.add(shard)
+            if self._reserve(req, shard):
+                return free.pop(i)
+        return None
 
     def _admit(self) -> None:
         # admission rounds: requests finishing at admission (EOS on
@@ -478,20 +576,17 @@ class Engine:
             else {}
         )
         with tel.span("serve/admit", cat="serve", s_len=s_len,
-                      n=len(pairs), **tagged):
+                      n=len(pairs), **self._admit_span_attrs(), **tagged):
             self._admit_group_inner(tel, s_len, pairs, tagged)
 
     def _first_tokens(self, logits: torch.Tensor, reqs: list) -> list:
         """Each admitted request's first token from its prefill logits —
         the same source `generate` uses, which is what makes the two paths
         token-identical."""
-        if self.greedy:
-            return torch.argmax(logits, dim=-1).tolist()
-        return sample_tokens(
-            logits,
-            [fold_in(request_key(self.key, r.uid), 0) for r in reqs],
-            temperature=self.temperature, top_k=self.top_k,
-        ).tolist()
+        return self._draw(logits, self._first_keys(reqs)).tolist()
+
+    def _first_keys(self, reqs: list) -> list:
+        return [fold_in(request_key(self.key, r.uid), 0) for r in reqs]
 
     def _take_first(self, tel, req: Request, slot: int, first: int) -> bool:
         """Record a request's first token; True when that finishes it (EOS
@@ -533,20 +628,25 @@ class Engine:
                            tagged: dict) -> None:
         reqs = [r for _, r in pairs]
         n = len(reqs)
+        rows = self._admission_rows(n)
+        padded = reqs + reqs[-1:] * (rows - n)
         prompts = torch.stack(
-            [torch.as_tensor(r.prompt, dtype=torch.long) for r in reqs]
+            [torch.as_tensor(r.prompt, dtype=torch.long) for r in padded]
         ).to(self.device)
-        with tel.span("serve/prefill", cat="serve", s_len=s_len, rows=n,
+        with tel.span("serve/prefill", cat="serve", s_len=s_len, rows=rows,
                       **tagged):
-            logits, cache_rows = self._prefill(self.params, prompts)
+            logits, cache_rows = self._prefill(self.params,
+                                               self._place_batch(prompts))
             tel.block(logits)
-        self.admission_rowsteps += n * s_len
+        self.admission_rowsteps += rows * s_len
         self.admission_prefills += 1
-        tel.registry.counter("serve.admission_rowsteps").add(n * s_len)
+        tel.registry.counter("serve.admission_rowsteps").add(rows * s_len)
         tel.registry.counter("serve.admission_prefills").inc()
+        firsts = self._gather_rows(self._draw(
+            logits, self._place_batch(self._first_keys(padded)))).tolist()[:n]
+        cache_rows = self._gather_cache_rows(cache_rows)
         src, dst = [], []
-        for j, ((slot, req), first) in enumerate(
-                zip(pairs, self._first_tokens(logits, reqs))):
+        for j, ((slot, req), first) in enumerate(zip(pairs, firsts)):
             if self._take_first(tel, req, slot, first):
                 continue
             src.append(j)
@@ -580,15 +680,24 @@ class Engine:
 
     # -- chunked prefill ----------------------------------------------------
 
-    def _reserve(self, req: Request) -> bool:
-        """Reserve the request's worst-case pages; False (nothing
-        reserved) when the pool cannot cover them now."""
+    def _reserve(self, req: Request, shard: int) -> bool:
+        """Reserve the request's worst-case pages on `shard`; False
+        (nothing reserved) when it cannot cover them now."""
         worst = self._worst_pages(int(req.prompt.shape[0]), req.max_new)
         try:
-            self._pg.reserve(req.uid, worst)
+            self._pg.reserve(req.uid, worst, shard)
         except PagesExhaustedError:
             return False
         return True
+
+    def _reserve_chunk(self, req: Request) -> Optional[int]:
+        """Reserve a chunking request's worst-case pages on the shard with
+        the most available; returns that shard (where it will be seated),
+        or None to retry next tick."""
+        if self._pg is None:
+            return 0
+        shard = max(range(self._pg.n_shards), key=self._pg.available)
+        return shard if self._reserve(req, shard) else None
 
     def _start_chunks(self) -> None:
         """Move long prompts off the admission queue into chunked prefill.
@@ -603,7 +712,8 @@ class Engine:
                            if int(r.prompt.shape[0]) <= c]
         tel = obs.get()
         for req in self._chunk_wait + longs:
-            if self._pg is not None and not self._reserve(req):
+            shard = self._reserve_chunk(req)
+            if shard is None:
                 if req not in self._chunk_wait:
                     self._chunk_wait.append(req)
                 continue
@@ -611,8 +721,7 @@ class Engine:
                 self._chunk_wait.remove(req)
             # a fresh dense one-row cache for the chunk cell
             self._chunks.append(_ChunkState(
-                req=req, cache=self.model.init_cache(1, device=self.device),
-                done=0))
+                req=req, cache=self._chunk_cache(), done=0, shard=shard))
             if tel.enabled:
                 tel.tracer.instant(
                     "serve/chunk_start", cat="serve",
@@ -648,8 +757,9 @@ class Engine:
             st.logits, st.cache = self._chunk(self.params, st.cache, toks,
                                               poss, hi - lo)
             tel.block(st.logits)
-        self.admission_rowsteps += hi - lo
-        tel.registry.counter("serve.admission_rowsteps").add(hi - lo)
+        rows = self._admission_rows(1)
+        self.admission_rowsteps += rows * (hi - lo)
+        tel.registry.counter("serve.admission_rowsteps").add(rows * (hi - lo))
         tel.registry.counter("serve.chunk_steps").inc()
         st.done = hi
         st.ready = st.done >= prompt.shape[0]
@@ -660,6 +770,8 @@ class Engine:
         admission exactly."""
         req = st.req
         free = [i for i in range(self.batch) if self._slots[i] is None]
+        if self._pg is not None:
+            free = [i for i in free if self._slot_shard(i) == st.shard]
         if not free:
             return False
         slot = free[0]
@@ -685,8 +797,9 @@ class Engine:
         depend only on (token, pos), not on the cache's contents."""
         self._ctok[slot] = token
         self._cpos[slot] = pos
-        logits, self.cache = self._decode(self.params, self.cache,
-                                          self._ctok, self._cpos)
+        logits, self.cache = self._decode(
+            self.params, self.cache, self._place_batch(self._ctok),
+            self._place_batch(self._cpos))
         return logits
 
     @driver_thread_only
@@ -735,17 +848,9 @@ class Engine:
             else {}
         )
         with tel.span("serve/decode", cat="serve", **tagged):
-            logits, self.cache = self._decode(self.params, self.cache, toks,
-                                              pos)
-            if self.greedy:
-                nxt = torch.argmax(logits, dim=-1)
-            else:
-                nxt = sample_tokens(
-                    logits,
-                    [fold_in(k, t) for k, t in zip(self._slot_keys,
-                                                   self._nout)],
-                    temperature=self.temperature, top_k=self.top_k,
-                )
+            nxt = self._decode_tokens(
+                toks, pos,
+                [fold_in(k, t) for k, t in zip(self._slot_keys, self._nout)])
             tel.block(nxt)
         # this decode fed (toks, pos) into every slot's cache
         self._ctok = toks
@@ -780,7 +885,8 @@ class Engine:
                     # every tick, and scratch is the only page those
                     # writes may scribble on
                     self._pg.free(req.uid)
-                    self._tbl[slot, :] = self._pg.scratch()
+                    self._tbl[slot, :] = self._pg.scratch(
+                        self._slot_shard(slot))
                     self._npages[slot] = 0
                 tel.registry.counter("serve.completed_total").inc()
                 if tel.enabled:
@@ -812,13 +918,13 @@ class Engine:
             slot_b = page_b = 0
             for parts, leaf in seating._leaf_paths(self.cache):
                 nbytes = leaf.numel() * leaf.element_size()
+                ax = seating.cache_batch_axis(parts)
                 if (self._pg is not None
                         and seating._leaf_layout(parts, self._layouts)
                         is not None):
-                    page_b += nbytes // self.paging.n_pages
+                    page_b += nbytes // leaf.shape[ax]  # its pages
                 else:
-                    slot_b += nbytes // leaf.shape[
-                        seating.cache_batch_axis(parts)]
+                    slot_b += nbytes // leaf.shape[ax]
             self._byte_model = (slot_b, page_b)
         return self._byte_model
 

@@ -11,6 +11,12 @@ leaf comes from its tree path (`cache_batch_axis`, the rule of the
 reference's `dist.sharding`): stacked subtrees ("blocks", "dec") carry
 a leading layer-group axis before it.
 
+On a mesh (`serve.sharded`) each rank holds its block of the pool's
+slots (and, paged, its shard's pages): `rank_seats` keeps the seats whose
+destination slot is this rank's, in its local numbering, and the same two
+scatters then write them into the rank's block (the page table's rows
+translated to the shard's local page numbers by the engine).
+
 `scatter_slots` and `scatter_pages` write into the pool's tensors in
 place and return the pool (the reference's engine donates the pool to a
 jitted scatter, which XLA also updates in place); one `index_copy_` (or
@@ -70,6 +76,15 @@ def scatter_slots(pool: Any, rows: Any, src, dst) -> Any:
         sel = rl.index_select(ax, _index(src, rl.device))
         pl.index_copy_(ax, _index(dst, pl.device), sel.to(pl.dtype))
     return pool
+
+
+def rank_seats(src, dst, lo: int, hi: int) -> tuple[list, list, list]:
+    """The seats (src[j] -> dst[j]) whose destination slot lies in this
+    rank's block [lo, hi) of the pool: their indices j, their source
+    rows, and their slots numbered within the block."""
+    keep = [j for j, d in enumerate(dst) if lo <= int(d) < hi]
+    return (keep, [int(src[j]) for j in keep],
+            [int(dst[j]) - lo for j in keep])
 
 
 def gather_slots(pool: Any, slots) -> Any:

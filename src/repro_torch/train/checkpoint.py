@@ -65,7 +65,7 @@ def _gather(leaf: torch.Tensor, sharding) -> torch.Tensor:
         if len(names) != 1:
             raise ValueError(
                 f"save: dim {dim} sharded over several axes {names}: not "
-                f"ported yet (ROADMAP.md queue 1 item 8b)")
+                f"ported yet (ROADMAP.md queue 1 item 8c)")
         group = sharding.mesh.get_group(names[0])
         n = dist.get_world_size(group)
         part = out.movedim(dim, 0).contiguous()

@@ -34,8 +34,8 @@ applies the same update, so the params stay equal on every rank. The
 per-pod error-feedback buffers ride in state["err"] (`init_dp_err`): each
 rank holds its own (1, *leaf) block, and a checkpoint gathers them into
 the reference's (n_pod, *leaf) layout (`checkpoint.save(...,
-shardings=)`). The in-pod placements over data and model (FSDP, TP) are
-ROADMAP.md queue 1 item 8b.
+shardings=)`). The in-pod placements over data and model for training
+(FSDP, TP) are ROADMAP.md queue 1 item 8c.
 """
 
 from __future__ import annotations
@@ -335,7 +335,7 @@ def make_multipod_train_step(
     rest replicated.
 
     An in-pod axis larger than 1 raises: placing the params and the
-    batch over data and model (FSDP, TP) is ROADMAP.md queue 1 item 8b.
+    batch over data and model (FSDP, TP) is ROADMAP.md queue 1 item 8c.
     """
     sizes = shd.axis_sizes(mesh)
     if "pod" not in sizes:
@@ -348,7 +348,7 @@ def make_multipod_train_step(
         raise ValueError(
             f"multi-pod with in-pod data x model = {in_pod}: the placement "
             f"of parameters over 'data' and 'model' is not ported yet "
-            f"(ROADMAP.md queue 1 item 8b); use PxD with D = 1"
+            f"(ROADMAP.md queue 1 item 8c); use PxD with D = 1"
         )
     if compress and scheme not in _SCHEMES:
         raise ValueError(f"scheme {scheme!r}: expected one of {_SCHEMES}")

@@ -18,6 +18,15 @@ the reduced qwen3-8b's `init(PRNGKey(0))` in float32 and
 final params, moments, error buffers and per-step metrics; the 4-pod
 state also checkpointed to CKPT_DIR. One process a mode, so that the
 three compile at once.
+
+    ... python tests/_dist_reference.py decode DxM IN.npz OUT.npz
+
+`decode`: `serve.sharded`'s plan, placement and compiled prefill and
+decode step on a DxM `make_smoke_mesh`, greedy, for each case of IN
+(`cases`: tag, config name, quantized or not; `<tag>/params/<path>` the
+float32 or packed params, `prompts`, `new`): the prefill's and every
+decode step's logits and the tokens; also `sharded_generate`'s tokens.
+One process a mesh.
 """
 
 import os
@@ -147,8 +156,59 @@ def multipod(mode: str, n: int, inp: str, outp: str, ckpt_dir: str) -> None:
     np.savez(outp, **out)
 
 
+def decode(spec: str, inp: str, outp: str) -> None:
+    from repro import configs
+    from repro.launch.mesh import make_smoke_mesh
+    from repro.models import api
+    from repro.serve import engine as E
+    from repro.serve import sharded as SH
+
+    data = dict(np.load(inp))
+    prompts = jnp.asarray(data["prompts"], jnp.int32)
+    b, s = prompts.shape
+    new = int(data["new"])
+    n_data, n_model = (int(x) for x in spec.split("x"))
+    mesh = make_smoke_mesh(n_data, n_model)
+    out = {}
+    for case in data["cases"]:
+        tag, name, bits = str(case[0]), str(case[1]), int(case[2])
+        cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+        model = api.build_model(cfg, tp=1, max_seq=int(data["max_seq"]))
+
+        def init(model=model, bits=bits):
+            p = model.init(jax.random.PRNGKey(0))
+            return E.quantize_for_serving(p, bits) if bits else p
+
+        paths, treedef = jax.tree_util.tree_flatten_with_path(
+            jax.eval_shape(init))
+        params = jax.tree_util.tree_unflatten(treedef, [
+            jnp.asarray(data[f"{tag}/params/" + "/".join(
+                str(k.key) for k in kp)]) for kp, _ in paths])
+        plan = SH.plan_decode(model, params, mesh, batch_size=b)
+        prefill, step = SH.compile_decode(model, plan)
+        placed = SH.place_params(params, plan)
+        logits, cache = prefill(placed, jax.device_put(prompts, plan.prompts))
+        out[f"{tag}/logits/0"] = np.asarray(logits)
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        toks = []
+        for t in range(new):
+            toks.append(tok)
+            pos = jax.device_put(jnp.full((b,), s + t, jnp.int32), plan.token)
+            logits, cache = step(placed, cache,
+                                 jax.device_put(tok, plan.token), pos)
+            out[f"{tag}/logits/{t + 1}"] = np.asarray(logits)
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out[f"{tag}/tokens"] = np.stack([np.asarray(x) for x in toks], 1)
+        out[f"{tag}/generate"] = np.asarray(SH.sharded_generate(
+            model, placed, prompts, mesh=mesh, max_new=new,
+            params_placed=True, plan=plan))
+    np.savez(outp, **out)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "compression":
         compression(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "decode":
+        decode(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
         multipod(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])

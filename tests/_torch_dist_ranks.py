@@ -17,7 +17,11 @@ from repro_torch import configs, convert, optim
 from repro_torch._tree import leaves, tree_map
 from repro_torch.dist import compression as C
 from repro_torch.launch import _spawn
-from repro_torch.launch.mesh import make_data_mesh, make_multipod_mesh
+from repro_torch.launch.mesh import (
+    make_data_mesh,
+    make_multipod_mesh,
+    make_smoke_mesh,
+)
 from repro_torch.models import api
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import fault, trainer
@@ -269,4 +273,304 @@ def port_only(tmp: str) -> dict | None:
     _kill_resume(tmp, out)
     _fleet(out)
     _entry_points(out)
+    return out if _spawn.rank() == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (serve.sharded) on ("data", "model") meshes
+# ---------------------------------------------------------------------------
+
+SERVE_CASES = (("qwen3", "qwen3_8b", 0), ("qwen3_q8", "qwen3_8b", 8),
+               ("rg", "recurrentgemma_2b", 0))
+SERVE_MESHES = ("4x1", "2x2")
+SERVE_B, SERVE_S, SERVE_NEW = 8, 6, 6
+SERVE_MAX_SEQ = SERVE_S + SERVE_NEW + 2
+SAMPLE_KEY = (7,)
+PAGE, N_PAGES = 4, 16  # tests/test_paged_properties.py's pool, per shard
+PROMPT_LENS = (2, 3, 5, 9)
+
+
+def serve_model(name: str, max_seq: int = SERVE_MAX_SEQ):
+    """A reduced config in float32, as `_dist_reference.decode` builds it."""
+    cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+    return api.build_model(cfg, tp=1, max_seq=max_seq)
+
+
+def serve_requests(cfg, n: int, max_new: int = 5, seed: int = 100) -> list:
+    """n requests of 4 seeded tokens each (tests/test_decode_multidevice.py's
+    `_requests`, drawn with numpy)."""
+    from repro_torch.serve import engine as E
+
+    return [E.Request(uid=i, prompt=torch.from_numpy(
+        np.random.default_rng(seed + i).integers(0, cfg.vocab, 4)),
+        max_new=max_new) for i in range(n)]
+
+
+def paged_requests(cfg) -> list:
+    """tests/test_paged_properties.py's 12 requests of mixed lengths."""
+    from repro_torch.serve import engine as E
+
+    rng = np.random.default_rng(3)
+    return [E.Request(uid=i, prompt=torch.from_numpy(
+        np.random.default_rng(1000 + i).integers(
+            0, cfg.vocab, int(rng.choice(PROMPT_LENS)))),
+        max_new=int(rng.integers(2, 5))) for i in range(12)]
+
+
+def _delta(before: dict) -> dict:
+    from repro_torch.dist import sharding as shd
+
+    return {k: v - before.get(k, 0) for k, v in shd.comm_calls.items()
+            if v != before.get(k, 0)}
+
+
+def _decode_run(model, params, prompts, mesh, new: int) -> dict:
+    """`_dist_reference.decode`'s loop on the port: the plan, this rank's
+    block of the params, prefill and greedy decode steps on its rows; the
+    logits and tokens gathered over `data`, each step's collectives, and
+    the bytes this rank holds against the plan's."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.serve import sharded as SH
+
+    b, s = prompts.shape
+    plan = SH.plan_decode(model, params, mesh, batch_size=b)
+    prefill, step = SH.compile_decode(model, plan)
+    placed = SH.place_params(params, plan)
+    lo, hi = plan.rows
+
+    def whole(x):
+        return (shd.all_gather(x, plan.groups.data, 0) if plan.n_data > 1
+                else x).numpy()
+
+    logits, cache = prefill(placed, prompts[lo:hi])
+    out = {"logits/0": whole(logits),
+           "bytes": [shd.placed_bytes(placed), plan.param_bytes_per_device,
+                     shd.placed_bytes(cache), plan.cache_bytes_per_device]}
+    tok = torch.argmax(logits, dim=-1)
+    toks, comm = [], []
+    for t in range(new):
+        toks.append(tok)
+        pos = torch.full((hi - lo,), s + t, dtype=torch.long)
+        before = dict(shd.comm_calls)
+        logits, cache = step(placed, cache, tok, pos)
+        comm.append(_delta(before))
+        out[f"logits/{t + 1}"] = whole(logits)
+        tok = torch.argmax(logits, dim=-1)
+    out["tokens"] = whole(torch.stack(toks, dim=1))
+    out["comm"] = comm
+    out["budget"] = SH._decode_comm_budget(model)
+    return out
+
+
+def _engines(out: dict) -> None:
+    """ShardedEngine on the 4x1 mesh: three requests into a pool of 8,
+    EOS on the first token, the paged pool (with and without chunked
+    prefill) against the dense sharded pool with every mapped page on
+    its slot's shard, the cache bytes against the plan, and the
+    collectives of a decode step at 2x2."""
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import sharded as SH
+    from repro_torch.serve.paging import PagingConfig
+    from repro_torch.dist import sharding as shd
+
+    model = serve_model("qwen3_8b", max_seq=96)
+    params = model.init(0, device="cpu")
+    mesh = make_smoke_mesh(4, 1, "cpu")
+    eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh,
+                           device="cpu")
+    reqs = serve_requests(model.cfg, 3)
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_ticks=50)
+    out["engine_outputs"] = [r.output for r in reqs]
+    out["engine_done"] = all(r.done for r in reqs)
+    out["engine_drained"] = (all(s is None for s in eng._slots)
+                             and not bool(eng.active.any()))
+    out["engine_cache_bytes"] = [shd.placed_bytes(eng.cache),
+                                 eng.cache_bytes_per_device]
+
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(
+        0, model.cfg.vocab, 4))
+    probe = E.Request(uid=0, prompt=prompt, max_new=2)
+    eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh,
+                           device="cpu")
+    eng.submit(probe)
+    eng.tick()
+    first = probe.output[0]
+    eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh,
+                           device="cpu")
+    eos_req = E.Request(uid=1, prompt=prompt, max_new=8, eos=first)
+    tail = E.Request(uid=2, prompt=prompt, max_new=3)
+    eng.submit(eos_req)
+    eng.submit(tail)
+    eng.run(max_ticks=30)
+    out["eos"] = {"first": first, "eos_output": eos_req.output,
+                  "eos_done": eos_req.done, "tail_done": tail.done,
+                  "tail_len": len(tail.output),
+                  "drained": all(s is None for s in eng._slots)}
+
+    paging = PagingConfig(page_size=PAGE, n_pages=4 * N_PAGES)
+    for label, kw in (("dense", {}), ("paged", {"paging": paging}),
+                      ("paged_chunked", {"paging": paging,
+                                         "chunk_tokens": 4})):
+        reqs = paged_requests(model.cfg)
+        eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh,
+                               device="cpu", **kw)
+        for r in reqs:
+            eng.submit(r)
+        on_shard = True
+        for _ in range(60):
+            n = eng.tick()
+            if eng._pg is not None:
+                per = eng._pg.per_shard
+                for slot in range(eng.batch):
+                    shard = eng._slot_shard(slot)
+                    on_shard &= all(
+                        per * shard <= p < per * (shard + 1)
+                        for p in eng._tbl[slot][: eng._npages[slot]])
+            if n == 0 and not eng._queue:
+                break
+        rec = {"outputs": [r.output for r in reqs],
+               "done": all(r.done for r in reqs), "on_shard": on_shard,
+               "cache_bytes": [shd.placed_bytes(eng.cache),
+                               eng.cache_bytes_per_device]}
+        if eng._pg is not None:
+            eng._pg.check_invariants()
+            rec["allocated_after"] = eng._pg.allocated_pages()
+        out[f"pool_{label}"] = rec
+
+    mesh22 = make_smoke_mesh(2, 2, "cpu")
+    eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh22,
+                           device="cpu")
+    reqs = serve_requests(model.cfg, 3)
+    for r in reqs:
+        eng.submit(r)
+    comm = []
+    while eng.tick():
+        comm.append(dict(eng.last_step_comm))
+    out["engine_2x2_outputs"] = [r.output for r in reqs]
+    out["engine_2x2_comm"] = comm
+    out["engine_2x2_cache_bytes"] = [shd.placed_bytes(eng.cache),
+                                     eng.cache_bytes_per_device]
+
+
+def _guards(out: dict) -> None:
+    """What plan_decode refuses: an indivisible pool, tensor parallelism
+    for MoE and RWKV-6, a local shape the quant_matmul kernel cannot
+    take; and constrain on a wrong local shape."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import sharded as SH
+    from repro_torch.serve.paging import PagingConfig
+
+    model = serve_model("qwen3_8b")
+    params = model.init(0, device="cpu")
+    mesh = make_smoke_mesh(4, 1, "cpu")
+    mesh22 = make_smoke_mesh(2, 2, "cpu")
+
+    def refused(fn, exc):
+        try:
+            fn()
+        except exc as e:
+            return str(e)
+        return None
+
+    out["guard_indivisible"] = refused(
+        lambda: SH.plan_decode(model, params, mesh, batch_size=6),
+        shd.ShardingGuardError)
+    out["guard_paged_pages"] = refused(
+        lambda: SH.plan_decode(model, params, mesh, batch_size=8,
+                               paging=PagingConfig(2, 18)),
+        shd.ShardingGuardError)
+    packed = E.quantize_for_serving(params, 8)
+    out["guard_kernel"] = refused(
+        lambda: SH.plan_decode(model, packed, mesh,
+                               batch_size=4 * 65535 * 64 + 4 * 64),
+        shd.ShardingGuardError)
+    for name in ("olmoe_1b_7b", "rwkv6_3b"):
+        m = serve_model(name)
+        p = m.init(0, device="cpu")
+        out[f"guard_tp_{name}"] = refused(
+            lambda m=m, p=p: SH.plan_decode(m, p, mesh22, batch_size=8),
+            NotImplementedError)
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, m.cfg.vocab, (SERVE_B, 4)))
+        got = SH.sharded_generate(m, p, prompts, mesh=mesh, max_new=3)
+        want = E.generate(m, p, prompts, max_new=3, device="cpu")
+        out[f"data_mesh_{name}"] = bool(torch.equal(got, want))
+    with shd.activation_context(model.cfg, mesh22):
+        x = torch.zeros((2, 3, 4, 16))
+        out["constrain_ok"] = shd.constrain(
+            x[:, :, :2], "dp", None, "tp", None,
+            shape=(None, None, 4, 16)) is not None
+        out["constrain_refused"] = refused(
+            lambda: shd.constrain(x, "dp", None, "tp", None,
+                                  shape=(None, None, 4, 16)),
+            shd.ShardingGuardError)
+
+
+def _placement(out: dict) -> None:
+    """place: a split leaf's block is its own contiguous copy, an unsplit
+    leaf is kept as it is."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = make_smoke_mesh(2, 2, "cpu")
+    tree = {"a": torch.arange(32.).reshape(4, 8), "b": torch.ones(3)}
+    specs = {"a": ("data", "model"), "b": (None,)}
+    got = shd.place(tree, specs, mesh)
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    a = got["a"]
+    ok = (torch.equal(a, tree["a"][2 * d:2 * d + 2, 4 * m:4 * m + 4])
+          and a.is_contiguous()
+          and a.untyped_storage().data_ptr()
+          != tree["a"].untyped_storage().data_ptr()
+          and got["b"] is tree["b"])
+    out["place"] = _all_ranks_true(bool(ok))
+
+
+def _entry(out: dict) -> None:
+    """launch.serve --mesh 2x2 and the serve_lm example's sharded block,
+    through `main`, in this group."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve as launch_serve
+
+    rec = launch_serve.main(["--arch", "qwen3-8b", "--reduced", "--mesh",
+                             "2x2", "--quant-bits", "8", "--max-new", "6"],
+                            device="cpu")
+    if rec is not None:
+        rec.pop("placed")
+        out["launch_2x2"] = rec
+    demo = serve_lm.main(["--smoke"], device="cpu")
+    out["example_sharded"] = demo["sharded"]
+    out["example_outputs"] = demo["outputs"]
+
+
+def serving(inputs: dict) -> dict | None:
+    """The port's sharded serving on 4 ranks: each case's prefill and
+    decode logits and tokens on 4x1 and 2x2 (for the reference's), the
+    sampled generate on 4x1, the engines, the guards, placement and the
+    entry points."""
+    from repro_torch.serve import sharded as SH
+
+    out: dict = {}
+    prompts = torch.from_numpy(inputs["prompts"])
+    for tag, name, _ in SERVE_CASES:
+        model = serve_model(name)
+        params = convert.lm_params_from_numpy(inputs["params"][tag], "cpu")
+        for spec in SERVE_MESHES:
+            mesh = make_smoke_mesh(*(int(x) for x in spec.split("x")), "cpu")
+            out[f"{spec}/{tag}"] = _decode_run(model, params, prompts, mesh,
+                                               SERVE_NEW)
+            out[f"{spec}/{tag}/generate"] = SH.sharded_generate(
+                model, params, prompts, mesh=mesh,
+                max_new=SERVE_NEW).numpy()
+        if tag == "qwen3":
+            out["4x1/qwen3/sampled"] = SH.sharded_generate(
+                model, params, prompts, mesh=make_smoke_mesh(4, 1, "cpu"),
+                max_new=SERVE_NEW, greedy=False, key=SAMPLE_KEY,
+                temperature=0.8, top_k=20).numpy()
+    _engines(out)
+    _guards(out)
+    _placement(out)
+    _entry(out)
     return out if _spawn.rank() == 0 else None

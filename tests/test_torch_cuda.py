@@ -4,7 +4,8 @@ the training step on the card against the same step on the CPU, a
 checkpoint of a card state restored bit for bit, the training loop's
 wait for the card inside its step span, LM serving, and the paged cache,
 chunked prefill and serving frontend (paged decode equal to dense bit for
-bit).
+bit), and a packed layer's tensor-parallel halves in a world-1 NCCL
+group.
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -1029,3 +1030,54 @@ def test_no_gloo_fallback_on_the_card(cuda, monkeypatch):
         with _spawn.process_group("cuda"):
             pass
     assert not torch.distributed.is_initialized()
+
+
+def test_tp_halves_of_a_packed_layer_on_one_card(cuda):
+    """One qwen3-reduced 8-bit layer's column- and row-parallel halves —
+    the blocks a 2-way `model` split hands each rank: `w_up` by columns
+    with its scale's columns, `w_down` by rows, the partial products
+    summed — through the quant_matmul kernel in a world-1 NCCL group,
+    against the plain version of the whole projection; then
+    `launch.serve --mesh 1` at the reduced config equal to the unsharded
+    run."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import _spawn
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api
+    from repro_torch.serve import engine as E
+
+    cfg = dataclasses.replace(configs.reduced("qwen3_8b"), dtype="float32")
+    model = api.build_model(cfg, tp=1, max_seq=32)
+    params = E.quantize_for_serving(model.init(0, device=cuda), 8)
+    ffn = params["blocks"]["pos0"]["ffn"]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, cfg.d_model), generator=gen, device=cuda)
+    h = torch.randn((4, cfg.d_ff), generator=gen, device=cuda)
+
+    def half(t, dim, r):
+        n = t.shape[dim] // 2
+        return t.narrow(dim, r * n, n).contiguous()
+
+    with _spawn.process_group("cuda", timeout_s=120):
+        assert torch.distributed.get_backend() == "nccl"
+        before = tqm.launches
+        packed, scale = ffn["w_up"]["packed"][0], ffn["w_up"]["scale"][0]
+        col = torch.cat([ops.quant_matmul(x, half(packed, -1, r),
+                                          half(scale, -1, r), bits=8)
+                         for r in range(2)], dim=-1)
+        assert _rel_err(col, tqm.quant_matmul_plain(x, packed, scale,
+                                                    bits=8)) <= 1e-4
+        packed, scale = ffn["w_down"]["packed"][0], ffn["w_down"]["scale"][0]
+        row = sum(ops.quant_matmul(half(h, -1, r), half(packed, -2, r), scale,
+                                   bits=8) for r in range(2))
+        assert _rel_err(row, tqm.quant_matmul_plain(h, packed, scale,
+                                                    bits=8)) <= 1e-4
+        torch.cuda.synchronize()
+        assert tqm.launches == before + 4
+        argv = ["--arch", "qwen3-8b", "--reduced", "--quant-bits", "8"]
+        rec = launch_serve.main(argv + ["--mesh", "1"])
+    assert rec["backend"] == "nccl"
+    assert rec["param_bytes_placed"] == rec["param_bytes_per_device"]
+    assert rec["tokens"] == launch_serve.main(argv)["tokens"]

@@ -439,7 +439,7 @@ def test_launch_train_va_and_the_refused_flags(capsys):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--multi-pod",
                           spec], device="cpu")
-        assert "ROADMAP.md queue 1 item 8b" in capsys.readouterr().err
+        assert "ROADMAP.md queue 1 item 8c" in capsys.readouterr().err
 
 
 class _Kill(BaseException):

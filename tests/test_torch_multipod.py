@@ -280,7 +280,7 @@ def test_multi_pod_refuses_va_cnn_and_in_pod_axes(capsys):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--multi-pod",
                           spec], device="cpu")
-        assert "ROADMAP.md queue 1 item 8b" in capsys.readouterr().err
+        assert "ROADMAP.md queue 1 item 8c" in capsys.readouterr().err
 
 
 def test_multipod_step_requires_a_pod_axis_and_one_rank_a_pod():
@@ -290,7 +290,7 @@ def test_multipod_step_requires_a_pod_axis_and_one_rank_a_pod():
         ttrainer.make_multipod_train_step(
             lambda p, b: (0.0, {}), opt, cfg,
             tshd.MeshShape(("data", "model"), (1, 1)), {})
-    with pytest.raises(ValueError, match="item 8b"):
+    with pytest.raises(ValueError, match="item 8c"):
         ttrainer.make_multipod_train_step(
             lambda p, b: (0.0, {}), opt, cfg,
             tshd.MeshShape(("pod", "data", "model"), (2, 2, 1)), {})

@@ -128,7 +128,8 @@ def test_port_imports_no_jax():
     training path, the LM substrate and its serving, and the serving
     frontend with its launchers, and the distributed pieces (sharding
     rules, compression, meshes, the multi-pod trainer's launcher, the
-    dist and stream benchmarks) import neither jax nor anything of the JAX
+    dist and stream benchmarks, sharded serving) import neither jax nor
+    anything of the JAX
     package (checked in a fresh interpreter: this
     one has jax)."""
     code = (
@@ -148,7 +149,8 @@ def test_port_imports_no_jax():
         "repro_torch.dist.sharding, repro_torch.dist.compression, "
         "repro_torch.launch.mesh, repro_torch.launch.train, "
         "repro_torch.benchmarks.dist_compression, "
-        "repro_torch.benchmarks.stream_throughput\n"
+        "repro_torch.benchmarks.stream_throughput, "
+        "repro_torch.serve.sharded\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"

@@ -1,0 +1,285 @@
+"""PyTorch port vs JAX package: sharded LM serving over `data` and `model`
+(`serve.sharded`) — placement, the tensor-parallel layers (the packed
+`quant_matmul` on each rank's shard), `sharded_generate`, `ShardedEngine`
+(dense, paged, chunked), the plan's accounting and guards, and
+`launch.serve --mesh` / the `serve_lm` example's sharded block.
+
+One module fixture does the multi-rank work: a spawned gloo group of 4
+ranks runs the port (`tests/_torch_dist_ranks.py`, `serving`) while one
+subprocess a mesh (4x1, 2x2) runs the reference's plan, placement and
+compiled prefill and decode steps with 4 forced host devices
+(`tests/_dist_reference.py decode`), on the same numpy params (the
+port's draws; the 8-bit case packed by the port) and seeded prompts. The
+reduced qwen3-8b and recurrentgemma-2b in float32. Each spawn and
+subprocess has its own time limit.
+
+Tolerances, each for its reason:
+
+- a data-only mesh: each rank runs whole rows with the whole gathered
+  weights — tokens equal to the port's single-device `generate` and
+  `Engine` and to the reference's sharded run;
+- a 2x2 mesh: row-parallel layers sum partial products, so the logits of
+  the prefill and of every decode step are held within 1e-4 of
+  max|logit| of the reference's sharded run (`F32_REL`,
+  tests/test_torch_lm.py), the 8-bit packed path too; qwen3's greedy
+  tokens equal the reference's (tests/test_decode_multidevice.py);
+- the port against itself (paged against dense pools, the engine
+  against the single-device engine, sampled streams): exact.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_dist_ranks as ranks
+from repro_torch._tree import map_with_path, tree_map
+from repro_torch.launch import _spawn
+from repro_torch.launch import serve as tlaunch
+from repro_torch.serve import engine as TE
+
+REPO = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 59  # each spawn and subprocess
+F32_REL = 1e-4
+
+
+def _numpy(tree):
+    return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """(port record, {mesh: reference arrays}, {tag: (model, params)},
+    prompts)."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    built, params_np = {}, {}
+    for tag, name, bits in ranks.SERVE_CASES:
+        model = ranks.serve_model(name)
+        params = model.init(0, device="cpu")
+        if bits:
+            params = TE.quantize_for_serving(params, bits)
+        built[tag] = (model, params)
+        params_np[tag] = _numpy(params)
+    prompts = np.random.default_rng(1).integers(
+        0, 512, (ranks.SERVE_B, ranks.SERVE_S))
+    flat = {"prompts": prompts, "new": ranks.SERVE_NEW,
+            "max_seq": ranks.SERVE_MAX_SEQ,
+            "cases": np.array([(t, n, str(b))
+                               for t, n, b in ranks.SERVE_CASES])}
+    for tag, tree in params_np.items():
+        map_with_path(lambda path, p, tag=tag: flat.__setitem__(
+            f"{tag}/params/" + "/".join(path), p), tree)
+    np.savez(tmp / "in.npz", **flat)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    procs = {}
+    for spec in ranks.SERVE_MESHES:
+        log = open(tmp / f"ref_{spec}.log", "w")
+        procs[spec] = (subprocess.Popen(
+            [sys.executable, str(REPO / "tests" / "_dist_reference.py"),
+             "decode", spec, str(tmp / "in.npz"), str(tmp / f"ref_{spec}.npz")],
+            env=env, stdout=log, stderr=subprocess.STDOUT), log)
+    try:
+        port = _spawn.run(ranks.serving, 4, device="cpu",
+                          args=({"params": params_np, "prompts": prompts},),
+                          timeout_s=TIMEOUT_S)
+        ref = {}
+        for spec, (p, log) in procs.items():
+            p.wait(timeout=TIMEOUT_S)
+            log.close()
+            assert p.returncode == 0, (tmp / f"ref_{spec}.log").read_text()
+            ref[spec] = dict(np.load(tmp / f"ref_{spec}.npz"))
+    finally:
+        for p, log in procs.values():
+            if p.poll() is None:
+                p.kill()
+            log.close()
+    return port, ref, built, torch.from_numpy(prompts)
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("tag", ["qwen3", "qwen3_q8", "rg"])
+def test_data_mesh_generate_matches_single_device_and_reference(served, tag):
+    port, ref, built, prompts = served
+    model, params = built[tag]
+    want = TE.generate(model, params, prompts, max_new=ranks.SERVE_NEW,
+                       device="cpu").numpy()
+    np.testing.assert_array_equal(port[f"4x1/{tag}/generate"], want)
+    np.testing.assert_array_equal(port[f"4x1/{tag}"]["tokens"], want)
+    np.testing.assert_array_equal(ref["4x1"][f"{tag}/generate"], want)
+    np.testing.assert_array_equal(ref["4x1"][f"{tag}/tokens"], want)
+
+
+def test_data_mesh_sampled_generate_matches_single_device(served):
+    port, _, built, prompts = served
+    model, params = built["qwen3"]
+    want = TE.generate(model, params, prompts, max_new=ranks.SERVE_NEW,
+                       greedy=False, key=ranks.SAMPLE_KEY, temperature=0.8,
+                       top_k=20, device="cpu").numpy()
+    np.testing.assert_array_equal(port["4x1/qwen3/sampled"], want)
+    greedy = port["4x1/qwen3/generate"]
+    assert (want != greedy).any()  # the key was used
+
+
+@pytest.mark.parametrize("tag", ["qwen3", "qwen3_q8", "rg"])
+@pytest.mark.parametrize("spec", ranks.SERVE_MESHES)
+def test_logits_every_step_match_reference(served, spec, tag):
+    """The prefill's and each decode step's logits within F32_REL of the
+    reference's sharded run (recurrentgemma's one KV head is split
+    mid-head over `model` at 2x2)."""
+    port, ref, _, _ = served
+    for t in range(ranks.SERVE_NEW + 1):
+        got = port[f"{spec}/{tag}"][f"logits/{t}"]
+        want = ref[spec][f"{tag}/logits/{t}"]
+        assert got.shape == want.shape
+        assert _rel(got, want) <= F32_REL, (t, _rel(got, want))
+
+
+@pytest.mark.parametrize("tag", ["qwen3", "qwen3_q8"])
+def test_tp_mesh_greedy_tokens_match_reference(served, tag):
+    port, ref, _, _ = served
+    np.testing.assert_array_equal(port[f"2x2/{tag}"]["tokens"],
+                                  ref["2x2"][f"{tag}/tokens"])
+    np.testing.assert_array_equal(port[f"2x2/{tag}/generate"],
+                                  ref["2x2"][f"{tag}/generate"])
+
+
+def _single_engine(model, params, reqs, batch_size):
+    eng = TE.Engine(model, params, batch_size=batch_size, device="cpu")
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_ticks=50)
+    return [r.output for r in reqs]
+
+
+def test_sharded_engine_matches_single_device_engine(served):
+    """Three requests into two slots on one device, and into a pool of 8
+    on the 4x1 and 2x2 meshes: the same outputs (greedy on qwen3)."""
+    port, _, _, _ = served
+    model = ranks.serve_model("qwen3_8b", max_seq=96)
+    params = model.init(0, device="cpu")
+    want = _single_engine(model, params,
+                          ranks.serve_requests(model.cfg, 3), 2)
+    assert port["engine_outputs"] == want
+    assert port["engine_done"] and port["engine_drained"]
+    assert port["engine_2x2_outputs"] == want
+
+
+def test_sharded_engine_eos_on_first_token(served):
+    eos = served[0]["eos"]
+    assert eos["eos_done"] and eos["eos_output"] == [eos["first"]]
+    assert eos["tail_done"] and eos["tail_len"] == 3 and eos["drained"]
+
+
+@pytest.mark.parametrize("pool", ["paged", "paged_chunked"])
+def test_sharded_paged_matches_sharded_dense(served, pool):
+    """tests/test_paged_properties.py's 12 requests on the 4x1 mesh: the
+    paged pool (pages over the same data axis as their slots), with and
+    without chunked prefill, equals the dense sharded pool; every mapped
+    page stays on its slot's shard; nothing leaks."""
+    port, _, _, _ = served
+    dense, paged = port["pool_dense"], port[f"pool_{pool}"]
+    assert dense["done"] and paged["done"]
+    assert paged["outputs"] == dense["outputs"]
+    assert paged["on_shard"] and paged["allocated_after"] == 0
+    model = ranks.serve_model("qwen3_8b", max_seq=96)
+    want = _single_engine(model, model.init(0, device="cpu"),
+                          ranks.paged_requests(model.cfg), 8)
+    assert dense["outputs"] == want
+
+
+@pytest.mark.parametrize("spec", ranks.SERVE_MESHES)
+@pytest.mark.parametrize("tag", ["qwen3", "qwen3_q8", "rg"])
+def test_placed_bytes_equal_plan(served, spec, tag):
+    """Rank 0's placed params and cache hold exactly the plan's
+    per-device bytes."""
+    placed_p, plan_p, placed_c, plan_c = served[0][f"{spec}/{tag}"]["bytes"]
+    assert placed_p == plan_p and placed_c == plan_c
+
+
+def test_engine_placed_bytes_equal_plan(served):
+    port = served[0]
+    for key in ("engine_cache_bytes", "engine_2x2_cache_bytes"):
+        placed, plan = port[key]
+        assert placed == plan, key
+    for pool in ("dense", "paged", "paged_chunked"):
+        placed, plan = port[f"pool_{pool}"]["cache_bytes"]
+        assert placed == plan, pool
+
+
+@pytest.mark.parametrize("tag", ["qwen3", "qwen3_q8", "rg"])
+def test_decode_step_within_comm_budget(served, tag):
+    """Each decode step's collectives, by kind, within
+    `_decode_comm_budget`; 2x2 uses both axes' collectives."""
+    port = served[0]
+    for spec in ranks.SERVE_MESHES:
+        run = port[f"{spec}/{tag}"]
+        for step in run["comm"]:
+            assert all(v <= run["budget"].get(k, 0) for k, v in step.items())
+        assert run["comm"][0].get("all-gather", 0) > 0
+    assert port[f"2x2/{tag}"]["comm"][0].get("all-reduce", 0) > 0
+    for step in port["engine_2x2_comm"]:
+        assert all(v <= run["budget"].get(k, 0) for k, v in step.items())
+
+
+def test_plan_guards(served):
+    """An indivisible pool or page count raises `ShardingGuardError`, as
+    does a local shape the quant_matmul kernel's grid cannot take."""
+    port = served[0]
+    assert "not divisible" in port["guard_indivisible"]
+    assert "n_pages" in port["guard_paged_pages"]
+    assert "quant_matmul" in port["guard_kernel"]
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "rwkv6_3b"])
+def test_moe_and_rwkv_data_mesh_only(served, name):
+    """MoE and RWKV-6 serve on a data-only mesh through the FSDP gather
+    (tokens equal the single-device generate); at model = 2 they raise,
+    naming ROADMAP item 8c."""
+    port = served[0]
+    assert port[f"data_mesh_{name}"]
+    assert "item 8c" in port[f"guard_tp_{name}"]
+
+
+def test_constrain_and_place(served):
+    port = served[0]
+    assert port["constrain_ok"] and "implies 2" in port["constrain_refused"]
+    assert port["place"]
+
+
+def test_launch_serve_mesh_main(served):
+    """launch.serve --mesh 2x2 on 4 ranks through `main`: the
+    single-device run's tokens, placed bytes equal to the plan's, each
+    decode step within the budget."""
+    rec = served[0]["launch_2x2"]
+    want = tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--quant-bits",
+                         "8", "--max-new", "6"], device="cpu")
+    assert rec["tokens"] == want["tokens"]
+    assert rec["backend"] == "gloo" and rec["world"] == 4
+    assert rec["param_bytes_placed"] == rec["param_bytes_per_device"]
+    assert rec["cache_bytes_placed"] == rec["cache_bytes_per_device"]
+    assert rec["param_bytes_per_device"] < rec["param_bytes_total"]
+    for step in rec["decode_comm"]:
+        assert all(v <= rec["comm_budget"][k] for k, v in step.items())
+
+
+def test_serve_lm_example_sharded_block(served):
+    port = served[0]
+    sharded = port["example_sharded"]
+    assert sharded["n_devices"] == 4 and sharded["same"]
+    assert sharded["outputs"] == port["example_outputs"]
+
+
+def test_mesh_refusals():
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--mesh", "2",
+                      "--listen", "127.0.0.1:0"], device="cpu")
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--arch", "va-cnn", "--mesh", "2"], device="cpu")

@@ -8,9 +8,10 @@ olmoe-1b-7b and rwkv6-3b, and whisper-tiny's prefill and decode), the
 paged cache, chunked prefill and the serving frontend (launch.serve and
 launch.stream --listen / --connect), LM training (launch.train at
 recurrentgemma-2b's full width, examples.train_lm), and the pod and data
-axes over NCCL (launch.train --multi-pod 1x1 at recurrentgemma-2b's full
-CONFIG, the multi-pod step card against CPU, the data-sharded fleet
-runner) on one CUDA card.
+axes over NCCL (launch.train --multi-pod 1x1x1 at recurrentgemma-2b's
+full CONFIG through the unified multi-pod step that places params over
+data and model, the multi-pod step card against CPU, the data-sharded
+fleet runner) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,8 @@ toolkit. Phases, each printing JSON lines:
    at 350 on the same checkpoint directory (resumed at 300, LATEST 350,
    at most 3 step directories); fault.run_training at CONFIG with faults
    at steps 7 and 13 against a clean run (2 failures, step 20, final
-   params within STEP_RTOL); a card state's checkpoint restored onto the
+   params within STEP_RTOL; each VA layer's convolution gradients equal
+   bit for bit over CONV_REPEATS calls); a card state's checkpoint restored onto the
    card bit for bit, its save timed;
    lm_serve — quant_matmul at qwen3-8b's four projection shapes (K, N) =
    (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096) at 4, 64 and
@@ -136,12 +138,16 @@ toolkit. Phases, each printing JSON lines:
    (functional) from the same warm state for every reduced decoder-only
    family and whisper-tiny's full CONFIG in float32 (params, m and v
    within STEP_RTOL); none of the four kernels launched over the phase;
-   dist — launch.train --multi-pod 1x1 --scheme gather at
+   dist — launch.train --multi-pod 1x1x1 --scheme gather at
    recurrentgemma-2b's full CONFIG (3.55 B parameters; params, grads, m,
-   v and the error buffer: 71 GB of float32) in a world-1 NCCL group:
-   each step's wall, one more step under the profiler, the compression's
+   v and the error buffer: 71 GB of float32) in a world-1 NCCL group,
+   through the one multi-pod step every PxDxM runs (stage A in the
+   activation context with the param specs, the whole-leaf gather, the
+   ZeRO-1 update; its in-pod collectives bypassed at world 1): each
+   step's wall, one more step under the profiler, the compression's
    share of the wall (its span), peak memory, the bytes and calls handed
-   to the collectives a step, no kernel launched; each scheme's
+   to the collectives a step, no in-pod collective (`dist.sharding`'s
+   comm_calls stay 0 over the phase), no kernel launched; each scheme's
    multi-pod step (gather, two_stage, f32) on the card against the CPU
    (gloo) from the same warm state; the kernel-path FleetRunner on a
    1-card NCCL data mesh, 7 nm_spmm launches a bucket, predictions equal
@@ -326,10 +332,11 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ = 1, 16
 # lm_train's launch.train runs at recurrentgemma-2b's full width and
 # LM_TRAIN_LAYERS of its 26 layers: the full CONFIG trains in dist_train
 LM_TRAIN_LAYERS = 8
-# the pod axis over NCCL at world 1: launch.train --multi-pod 1x1 at
+# the pod axis over NCCL at world 1: launch.train --multi-pod 1x1x1 at
 # recurrentgemma-2b's full CONFIG (params, grads, m, v and the gather
-# scheme's error buffer: 71 GB of float32), one more step profiled
-DIST_TRAIN = ("--arch", "recurrentgemma-2b", "--multi-pod", "1x1",
+# scheme's error buffer: 71 GB of float32) through the unified step, one
+# more step profiled
+DIST_TRAIN = ("--arch", "recurrentgemma-2b", "--multi-pod", "1x1x1",
               "--scheme", "gather", "--steps", "4", "--log-every", "0")
 # make_multipod_train_step at world 1, card (NCCL) against CPU (gloo), the
 # reduced qwen3-8b in float32 at batch 8 x seq 16, AdamW 3e-3: each scheme
@@ -1611,18 +1618,21 @@ def span_seconds(tel) -> dict:
 
 
 def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
-    """launch.train.main --multi-pod 1x1 --scheme gather at
-    recurrentgemma-2b's full CONFIG in a world-1 NCCL group (the pod
-    group's collectives: int8 codes and scales all-gathered, metrics
-    all-reduced): each step's wall, one more step under the profiler
-    (device ms, kernels), the compression's share of the steps' wall (the
-    train/reduce span, telemetry on), peak memory below the card's, the
-    bytes and calls handed to the collectives a step, every loss and grad
-    norm finite and nonzero, the error buffer carrying a residual, and no
-    kernel launched."""
+    """launch.train.main --multi-pod 1x1x1 --scheme gather at
+    recurrentgemma-2b's full CONFIG in a world-1 NCCL group, through the
+    multi-pod step of every PxDxM (the pod group's collectives: int8
+    codes and scales all-gathered, metrics all-reduced; the in-pod ones
+    bypassed at world 1): each step's wall, one more step under the
+    profiler (device ms, kernels), the compression's share of the steps'
+    wall (the train/reduce span, telemetry on), peak memory below the
+    card's, the bytes and calls handed to the collectives a step, no
+    in-pod collective (`dist.sharding.comm_calls` 0 over the phase),
+    every loss and grad norm finite and nonzero, the error buffer
+    carrying a residual, and no kernel launched."""
     from repro_torch import obs
     from repro_torch._tree import leaves
     from repro_torch.dist import compression as C
+    from repro_torch.dist import sharding as shd
     from repro_torch.launch import _spawn
     from repro_torch.launch import train as launch_train
 
@@ -1632,6 +1642,7 @@ def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     tel = obs.configure(enabled=True)  # the train/* spans
     C.reset_wire()
+    shd.reset_comm()
     try:
         with _spawn.process_group("cuda", timeout_s=600):
             backend = torch.distributed.get_backend()
@@ -1641,6 +1652,7 @@ def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
             run_s = time.perf_counter() - t0
             hist, state = run["history"], run["state"]
             wire = {"bytes": dict(C.wire_bytes), "calls": dict(C.wire_calls)}
+            inpod_comm = dict(shd.comm_calls)
             spans = span_seconds(tel)
             peak = torch.cuda.max_memory_allocated(dev)
             n_steps = len(hist)
@@ -1674,6 +1686,7 @@ def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
            "collective_calls_per_step": {
                k: v / n_steps for k, v in wire["calls"].items()},
            "metrics_all_reduce_per_step": 1,
+           "inpod_comm_calls": inpod_comm,
            "err_s1_abs_sum": s1_abs}
     del run, state
     free_card(torch, dev)
@@ -1688,6 +1701,8 @@ def dist_train(torch, dev, smi, launches_now, reset_launches) -> dict:
     check(s1_abs > 0, "dist_train: the error buffer carries no residual")
     check(wire["calls"].get("all_gather", 0) > 0,
           f"dist_train: no collective: {wire}")
+    check(not inpod_comm,
+          f"dist_train: an in-pod collective at world 1: {inpod_comm}")
     check(not any(out["launches"].values()),
           f"dist_train: a kernel launched: {out['launches']}")
     return out
@@ -1715,7 +1730,7 @@ def _dist_run(torch, device, steps: int, state=None):
                             device="cpu")
     out = {}
     with _spawn.process_group(device, timeout_s=300):
-        mesh = make_multipod_mesh("1x1", device)
+        mesh = make_multipod_mesh("1x1x1", device)
         for mode, compress in DIST_MODES:
             scheme = mode if compress else "gather"
             opt = optim.adamw(3e-3)
@@ -2851,11 +2866,12 @@ def main() -> int:
           "bit_identical": all(torch.equal(a, b) for a, b in zip(
               leaves(f_state["params"]), leaves(c_state["params"]))),
           "tol": STEP_RTOL})
-    # where a replay can differ: each VA layer's convolution backward
-    # (spe.conv1d_same, batch 64) CONV_REPEATS times on the same inputs,
-    # each gradient against the first bit for bit, and the device kernels
-    # those backwards ran that are not PyTorch's own, by name, from one
-    # profile (a sleep kernel after each layer marks where it ends)
+    # what a replay rests on: each VA layer's convolution backward
+    # (spe.conv1d_same under cuDNN's deterministic algorithms, batch 64)
+    # CONV_REPEATS times on the same inputs, each gradient equal to the
+    # first bit for bit, and the device kernels those backwards ran that
+    # are not PyTorch's own, by name, from one profile (a sleep kernel
+    # after each layer marks where it ends)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2903,6 +2919,9 @@ def main() -> int:
     check(int(f_state["step"]) == 20, f"fault replay: step {int(f_state['step'])}")
     check(replay_rel <= STEP_RTOL,
           f"fault replay: final params {replay_rel} apart")
+    varied = [r["layer"] for r in conv_det if not (
+        r["grad_x_repeats_identical"] and r["grad_w_repeats_identical"])]
+    check(not varied, f"conv determinism: gradients varied in {varied}")
     clock("fault_replay")
 
     # a checkpoint of a card state, saved and restored onto the card bit

@@ -19,8 +19,8 @@ ranks (one rank a pod: gloo ranks on the CPU, one NCCL rank a card):
     plus the wall time of a call (on the CPU: gloo over loopback,
     structural sanity, not a data-centre network).
   * convergence — short compressed-DP training runs of the reduced
-    config (`trainer.make_dp_step_compressed` over a pod group of every
-    rank) per scheme, recording the loss curve.
+    config (`trainer.make_multipod_train_step` on a Px1 mesh: a pod
+    group of every rank) per scheme, recording the loss curve.
 
 Checked here (`check`), as the reference states it:
   * the two-stage egress ratio against f32 is ~4x and independent of the
@@ -193,8 +193,9 @@ def convergence(arch: str, steps: int,
             state["params"], mesh, scheme=scheme, compress=compress)
         step = tel.probe.track(
             f"train.dp_step.{mode}",
-            trainer.make_dp_step_compressed(
-                model.loss, opt, mesh, scheme=scheme, compress=compress),
+            trainer.make_multipod_train_step(
+                model.loss, opt, cfg, mesh, state, scheme=scheme,
+                compress=compress)[0],
         )
         stream = lm.TokenStream(batch=8, seq_len=16, vocab=cfg.vocab,
                                 seed=0, device=dev)

@@ -176,24 +176,33 @@ def im2col(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:
     return win.permute(0, 1, 3, 2).reshape(b, t_out, ksize * c)
 
 
+def _cudnn_flags():
+    return torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                      allow_tf32=False)
+
+
 class _Conv1dF32(torch.autograd.Function):
-    """`F.conv1d` (NCW, no padding) with cuDNN's TF32 switched off in the
-    forward and in the backward. Autograd runs the backward after a `with`
-    block around the forward has closed, where cuDNN's TF32 default would
-    cut the gradients to a 10-bit mantissa; the backward is the same
-    `convolution_backward` autograd would call, under the same flags."""
+    """`F.conv1d` (NCW, no padding) with cuDNN's TF32 switched off and its
+    deterministic algorithms chosen, in the forward and in the backward.
+    Autograd runs the backward after a `with` block around the forward has
+    closed, where cuDNN's TF32 default would cut the gradients to a 10-bit
+    mantissa; the backward is the same `convolution_backward` autograd
+    would call, under the same flags. cuDNN's default gradient algorithms
+    sum in an order that varies between calls on the same inputs, so a
+    training step replayed from a checkpoint (`train.fault`) would not
+    reproduce the one it replaces."""
 
     @staticmethod
     def forward(ctx, x, w, stride):
         ctx.save_for_backward(x, w)
         ctx.stride = stride
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with _cudnn_flags():
             return F.conv1d(x, w, stride=stride)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with _cudnn_flags():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, [ctx.stride], [0], [1], False, [0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
@@ -205,7 +214,8 @@ def conv1d_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """(B, T, C_in) * (ks, C_in, C_out) -> (B, T_out, C_out), SAME padding,
     full float32 forward and backward: cuDNN would run a float32
     convolution and its gradients in TF32 by default, so TF32 is switched
-    off for this call and its backward only."""
+    off, and its deterministic algorithms chosen, for this call and its
+    backward only."""
     ks = w.shape[0]
     _, pad_l, pad_r = same_padding(x.shape[1], ks, stride)
     xc = F.pad(x.transpose(1, 2), (pad_l, pad_r))  # (B, C_in, T + pad)

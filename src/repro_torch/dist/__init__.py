@@ -6,7 +6,8 @@ accumulation, compressed cross-pod collectives.
                 block under a spec (`shard_local`, `place`); the
                 activation context a sharded layer reads its groups
                 from, the FSDP gather (`gather_block`), the counted
-                collectives and the logical `constrain` checks;
+                collectives with their adjoints (training through the
+                placement) and the logical `constrain` checks;
   accumulate  — micro-batch gradient accumulation;
   compression — int8 + error-feedback gradient reduction over the pod
                 group (`torch.distributed`: NCCL on the card, gloo on

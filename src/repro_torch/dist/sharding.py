@@ -35,7 +35,7 @@ leaf's block once into its own storage.
 Where the reference lets GSPMD insert the collectives a placement needs,
 the port runs one process a device and makes them explicit.
 `activation_context(cfg, mesh, specs=)` is where a layer learns them: the
-data and model groups of the mesh (`launch.mesh.serving_groups`), this
+data and model groups of the mesh (`mesh_groups`), this
 rank's coordinate in each, and the parameters' spec tree. Inside it:
 
   * `gather_block` hands a block its parameters as the layers take them:
@@ -43,14 +43,45 @@ rank's coordinate in each, and the parameters' spec tree. Inside it:
     in one collective, and every linear whose weight is split over
     `model` marked `"tp": "col"` (its output columns) or `"tp": "row"`
     (its input rows), which `models.layers` reads;
-  * `all_reduce` / `all_gather` run a collective over a group and count
-    it by kind in `comm_calls` (the budget of a decode
-    step reads them);
+  * `all_reduce` / `all_gather` / `reduce_scatter` run a collective over
+    a group and count it by kind in `comm_calls` (the budgets of a
+    decode step and of a train step read them);
   * `constrain(x, *logical, shape=)` keeps the reference's layout hints:
     on a rank-local tensor it checks that each dim is the block the
     logical axis implies of the global `shape` (a logical axis whose
     size does not divide the dim is dropped, as in the reference), and
     raises otherwise. It never moves data.
+
+The mesh is ("data", "model") or, for multi-pod training, ("pod",
+"data", "model"): the batch is split over ("pod", "data"), the groups
+are this rank's pod's, and no layer enters the pod axis (the trainer
+reduces over it, `dist.compression`).
+
+Training differentiates through the collectives. Each one the layers
+reach is a `torch.autograd.Function` whose backward is the adjoint that
+keeps every gradient whole where its tensor is replicated (the
+collectives of the backward are counted too, by kind):
+
+  forward                                   backward
+  `reduce_model`  partial sums -> replicated   identity
+  `gather_model`  local blocks -> replicated   this rank's block (slice)
+  `model_block`   replicated -> local block    all-gather over `model`
+  `enter_model`   identity (replicated x       all-reduce over `model`
+                  entering local compute)      (Megatron's "f")
+  `gather_block`  FSDP all-gather over `data`  reduce-scatter (sum)
+
+The rule behind the table: a tensor replicated over `model` that feeds a
+rank-local computation (a column-parallel linear, local heads or
+channels, a replicated scale applied to local heads) gets only that
+computation's partial gradient on each rank, so it goes through
+`enter_model` on that branch alone; `model_block`'s all-gather makes its
+own branch whole, so the two are never stacked. Without it `dx` and
+every replicated leaf's gradient would differ between `model` ranks.
+`torch.distributed.nn.functional.all_reduce` is not used: its backward
+all-reduces again, which multiplies replicated gradients by the model
+size. The FSDP reduce-scatter sums over `data`; the trainer divides by
+the data size (`train.trainer`). Without gradients (serving) each is
+its bare collective.
 
 Outside a context `constrain` is the identity and nothing is gathered,
 so model code runs unsharded by default.
@@ -440,6 +471,31 @@ def place(tree: Any, specs: Any, mesh) -> Any:
     return tree_map(one, tree, specs)
 
 
+def unplace(tree: Any, specs: Any, mesh) -> Any:
+    """The global tensors of a tree of this rank's blocks under `specs`
+    on the `DeviceMesh` `mesh` (`place`'s inverse), replicated on every
+    rank: for each mesh axis, innermost first, the leaves it splits
+    all-gathered over its group in one collective. Leaves no spec splits
+    are kept as they are."""
+    sizes = axis_sizes(mesh)
+    out = dict(enumerate(leaves(tree)))
+    spec_list = []
+    tree_map(spec_list.append, specs)
+    for axis in reversed(tuple(sizes)):
+        if sizes[axis] == 1:
+            continue
+        found = [(i, d) for i, spec in enumerate(spec_list)
+                 for d, e in enumerate(spec) if axis in _names(e)]
+        if found:
+            got = all_gather_many([out[i] for i, _ in found],
+                                  [d for _, d in found],
+                                  mesh.get_group(axis))
+            for (i, _), x in zip(found, got):
+                out[i] = x
+    it = iter(out[i] for i in range(len(out)))
+    return tree_map(lambda _: next(it), tree)
+
+
 def placed_bytes(tree: Any) -> int:
     """Bytes of the tensors of a (placed) tree on this rank."""
     return sum(x.numel() * x.element_size() for x in leaves(tree)
@@ -481,6 +537,105 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim)
 
 
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's part of the sum of `x` over `group`: `x` is (n *
+    numel,) laid out rank block by rank block; the result (numel,)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((x.numel() // n,), dtype=x.dtype, device=x.device)
+    _count("reduce-scatter")
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out
+
+
+class _ReduceSum(torch.autograd.Function):
+    """Sum of partial products over a group -> replicated; backward: the
+    identity (each rank's partial contributes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Local blocks joined along `dim` -> replicated; backward: this
+    rank's block of the (replicated, whole) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, rank):
+        ctx.dim, ctx.rank, ctx.part = dim, rank, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.part, ctx.part), None, \
+            None, None
+
+
+class _Block(torch.autograd.Function):
+    """This rank's block of a replicated tensor along `dim`; backward:
+    every rank's block gradient all-gathered (the other blocks' gradients
+    are the other ranks')."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, rank, n):
+        ctx.group, ctx.dim = group, dim
+        part = x.shape[dim] // n
+        return x.narrow(dim, rank * part, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity on a replicated tensor that enters rank-local compute;
+    backward: the partial gradients all-reduced over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _GatherMany(torch.autograd.Function):
+    """`all_gather_many` (the FSDP gather of a block's leaves); backward:
+    each leaf's gradient summed over the group into this rank's block, in
+    one reduce-scatter a dtype."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *xs):
+        ctx.group, ctx.dims = group, dims
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(all_gather_many(list(xs), list(dims), group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = dist.get_world_size(ctx.group)
+        out: list = [None] * len(gs)
+        for dt in dict.fromkeys(g.dtype for g in gs):
+            idx = [i for i, g in enumerate(gs) if g.dtype == dt]
+            # (n, numel) a leaf: row r is rank r's block of its gradient
+            rows = [torch.stack(gs[i].chunk(n, dim=ctx.dims[i])).reshape(
+                n, -1) for i in idx]
+            mine = reduce_scatter(torch.cat(rows, dim=1).reshape(-1),
+                                  ctx.group)
+            off = 0
+            for i in idx:
+                size = math.prod(ctx.shapes[i])
+                out[i] = mine[off:off + size].view(ctx.shapes[i])
+                off += size
+        return (None, None, *out)
+
+
 def all_gather_many(xs: list, dims: list, group) -> list:
     """`all_gather(x, group, dim)` of every x in `xs` in one collective:
     their bytes packed into one buffer (each at a 16-byte offset), the
@@ -513,10 +668,45 @@ def all_gather_many(xs: list, dims: list, group) -> list:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """A mesh's in-pod sub-groups through this rank: `data` (the ranks
+    sharing its pod and model coordinates: FSDP gathers, the pool's rows,
+    tokens) and `model` (the ranks sharing its pod and data coordinates:
+    tensor-parallel partial sums and gathers), each None where its axis
+    has size 1; the axes' sizes and this rank's coordinate on each."""
+
+    data: Any
+    model: Any
+    n_data: int
+    data_rank: int
+    tp: int
+    model_rank: int
+
+
+def mesh_groups(mesh) -> MeshGroups:
+    """The data and model sub-groups of a ("data", "model") or ("pod",
+    "data", "model") `DeviceMesh` (an axis the mesh lacks counts as size
+    1)."""
+    names = tuple(mesh.mesh_dim_names or ())
+
+    def axis(name: str) -> tuple:
+        if name not in names:
+            return None, 1, 0
+        n = mesh.size(names.index(name))
+        if n == 1:
+            return None, 1, 0
+        return mesh.get_group(name), n, mesh.get_local_rank(name)
+
+    data, n_data, d = axis("data")
+    model, tp, m = axis("model")
+    return MeshGroups(data, model, n_data, d, tp, m)
+
+
+@dataclasses.dataclass(frozen=True)
 class Activations:
     """What a layer reads inside `activation_context`: the config, the
     mesh, the parameters' global spec tree (None: nothing is gathered),
-    and the mesh's serving groups (`launch.mesh.ServingGroups`)."""
+    and the mesh's groups (`MeshGroups`)."""
 
     cfg: Any
     mesh: Any
@@ -543,20 +733,15 @@ def activation_context(cfg, mesh, *, specs: Any = None):
     (`param_specs`), which `gather_block` reads. Nestable; the innermost
     context wins. Every rank of the mesh enters it (building the groups
     is collective the first time)."""
-    from repro_torch.launch.mesh import serving_groups
-
-    if cfg.use_tp:
-        bad = [a for a in data_axes(cfg, mesh) if a != "data"]
-    else:
-        bad = [a for a in axis_names(mesh) if a != "data"
-               and axis_sizes(mesh)[a] > 1]
+    bad = [a for a in data_axes(cfg, mesh) if a not in ("pod", "data")
+           and axis_sizes(mesh)[a] > 1]
     if bad:
         raise ShardingGuardError(
             f"activation_context: the batch would shard over {bad}; the "
-            f"port serves over a ('data', 'model') mesh with use_tp"
+            f"port runs over a ('data', 'model') or ('pod', 'data', "
+            f"'model') mesh with use_tp"
         )
-    _ACTIVATION_CTX.append(Activations(cfg, mesh, specs,
-                                       serving_groups(mesh)))
+    _ACTIVATION_CTX.append(Activations(cfg, mesh, specs, mesh_groups(mesh)))
     try:
         yield
     finally:
@@ -576,28 +761,40 @@ def tp_size() -> int:
 
 def model_block(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """This rank's block of the model-replicated `x` along `dim` (a view):
-    the block a tensor split over `model` holds."""
+    the block a tensor split over `model` holds. Backward: all-gather."""
     ctx = current()
     if ctx is None or ctx.tp == 1:
         return x
-    part = x.shape[dim] // ctx.tp
-    return x.narrow(dim, ctx.groups.model_rank * part, part)
+    g = ctx.groups
+    return _Block.apply(x, g.model, dim % x.ndim, g.model_rank, g.tp)
 
 
 def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """The model group's blocks of `x` joined along `dim`."""
+    """The model group's blocks of `x` joined along `dim`. Backward: this
+    rank's block."""
     ctx = current()
     if ctx is None or ctx.tp == 1:
         return x
-    return all_gather(x, ctx.groups.model, dim)
+    g = ctx.groups
+    return _Gather.apply(x, g.model, dim % x.ndim, g.model_rank)
 
 
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """The sum of the model group's partial `x`."""
+    """The sum of the model group's partial `x`. Backward: identity."""
     ctx = current()
     if ctx is None or ctx.tp == 1:
         return x
-    return all_reduce(x, ctx.groups.model)
+    return _ReduceSum.apply(x, ctx.groups.model)
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """`x` (replicated over `model`) as it enters rank-local compute: the
+    identity, whose backward all-reduces the partial gradients over
+    `model`. Call it on that branch alone (see the module docstring)."""
+    ctx = current()
+    if ctx is None or ctx.tp == 1:
+        return x
+    return _Enter.apply(x, ctx.groups.model)
 
 
 def _linear_weight(node: dict) -> Optional[str]:
@@ -611,7 +808,8 @@ def gather_block(tree: Any, specs: Any) -> Any:
     """A block's rank-local parameters as its layers take them, inside an
     activation context: the leaves `specs` splits over `data` all-gathered
     over the data group (one collective for the block; the gathered
-    tensors are the caller's to drop after the block), and every linear
+    tensors are the caller's to drop after the block; the backward
+    reduce-scatters their gradients), and every linear
     whose weight `specs` splits over `model` marked `"tp": "col"` (the
     out-features, last dim) or `"tp": "row"` (the in-features). Outside a
     context, or on a 1x1 mesh, `tree` itself."""
@@ -634,8 +832,9 @@ def gather_block(tree: Any, specs: Any) -> Any:
     map_with_path(visit, tree, specs)
     gathered = {}
     if found:
-        xs = all_gather_many([x for _, x, _ in found],
-                              [d for _, _, d in found], ctx.groups.data)
+        xs = _GatherMany.apply(ctx.groups.data,
+                               tuple(d for _, _, d in found),
+                               *(x for _, x, _ in found))
         gathered = {path: x for (path, _, _), x in zip(found, xs)}
 
     def rebuild(node, spec, path):

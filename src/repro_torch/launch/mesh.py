@@ -14,16 +14,13 @@ default group — one rank a device, the card's `"cuda"` or the CPU's
 Every rank of the default group calls the same function (building a
 mesh creates its process groups, a collective); a rank outside a mesh of
 fewer ranks gets a mesh whose `get_coordinate()` is None.
-`launch._spawn.run` brings the ranks up. `serving_groups` names a
-serving mesh's data and model sub-groups and this rank's place in each:
-the groups sharded serving's collectives run over (`dist.sharding`).
+`launch._spawn.run` brings the ranks up; `dist.sharding.mesh_groups`
+names a mesh's data and model sub-groups and this rank's place in each.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
-from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -120,40 +117,6 @@ def make_serving_mesh(spec: str,
     n_data, n_model = parse_mesh_spec(spec)
     _check_cards("--mesh", spec, n_data * n_model, device)
     return make_smoke_mesh(n_data, n_model, device)
-
-
-@dataclasses.dataclass(frozen=True)
-class ServingGroups:
-    """A ("data", "model") mesh's sub-groups through this rank: `data`
-    (the ranks sharing its model coordinate: FSDP gathers, the pool's
-    rows, tokens) and `model` (the ranks sharing its data coordinate:
-    tensor-parallel partial sums and gathers), each None where its axis
-    has size 1; the axes' sizes and this rank's coordinate on each."""
-
-    data: Any
-    model: Any
-    n_data: int
-    data_rank: int
-    tp: int
-    model_rank: int
-
-
-def serving_groups(mesh: DeviceMesh) -> ServingGroups:
-    """The data and model sub-groups of `make_serving_mesh`'s mesh (an
-    axis the mesh lacks counts as size 1)."""
-    names = tuple(mesh.mesh_dim_names or ())
-
-    def axis(name: str) -> tuple:
-        if name not in names:
-            return None, 1, 0
-        n = mesh.size(names.index(name))
-        if n == 1:
-            return None, 1, 0
-        return mesh.get_group(name), n, mesh.get_local_rank(name)
-
-    data, n_data, d = axis("data")
-    model, tp, m = axis("model")
-    return ServingGroups(data, model, n_data, d, tp, m)
 
 
 def make_data_mesh(n_devices: int,

@@ -21,22 +21,28 @@ synthetic `data.lm.TokenStream`; whisper-family configs also get frames
 drawn from a generator keyed by the step. `--arch va-cnn` trains the
 paper's VA detector on the IEGM stream instead.
 
-`--multi-pod PxD[xM]` switches to compressed multi-pod data parallelism
+`--multi-pod PxD[xM]` switches to compressed multi-pod training
 (`trainer.make_multipod_train_step`) over a ("pod", "data", "model")
-`DeviceMesh`, one rank a pod: the pod axis reduces gradients through
+`DeviceMesh` of P·D·M ranks, one a device, in the mesh's coordinate
+order: within a pod the params are placed over `data` (FSDP) and
+`model` (TP) by `dist.sharding.param_specs`, the AdamW moments mirror
+them (ZeRO-1), and the batch (`--batch` must divide by P·D) is split
+over pod and data; the pod axis reduces the gradients through
 `dist.compression` — `--scheme gather` (default; (8/n)x egress, best
 below 8 pods) or `--scheme two_stage` (n-independent ~4x),
 `--no-compress` for the f32 ablation baseline. The error-feedback
 buffers ride in the checkpointed state, so kill-and-resume reproduces
-the uninterrupted run bit for bit. The ranks come from
-`launch._spawn.run`: spawned here over gloo with `device="cpu"`, NCCL on
-the cards (one rank a card), or `torchrun`'s. Every rank draws the same
-params and takes rank 0's by broadcast; only rank 0 logs, prints and
-writes checkpoints. In-pod axes (D or M > 1: FSDP and TP) are refused,
-naming ROADMAP.md queue 1 item 8c.
+the uninterrupted run bit for bit, and a checkpoint restores on another
+in-pod layout. The ranks come from `launch._spawn.run`: spawned here
+over gloo with `device="cpu"`, NCCL on the cards (one rank a card), or
+`torchrun`'s. Every rank draws the same params and takes rank 0's by
+broadcast, then keeps its blocks (`dist.sharding.place`); only rank 0
+logs and prints, and the rank at coordinate 0 writes checkpoints. MoE
+and RWKV-6 at M > 1, the QAT flags at M > 1 and whisper at D·M > 1 are
+refused, naming ROADMAP.md queue 1 item 8c.
 
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
-        --multi-pod 1x1 --scheme gather --steps 4
+        --multi-pod 1x1x1 --scheme gather --steps 4
 
 `main(argv, device="cpu")` runs the same paths on the CPU (multi-pod:
 P gloo ranks); with no `device` it needs a card.
@@ -58,6 +64,7 @@ from repro_torch import _device, configs, obs
 from repro_torch._tree import leaves, tree_map
 from repro_torch.data import iegm, lm
 from repro_torch.data.iegm import _stream_seed
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import _spawn
 from repro_torch.launch.mesh import make_multipod_mesh, parse_multipod_spec
 from repro_torch.models import api
@@ -147,10 +154,11 @@ def train_lm_multipod(args, device: _device.DeviceLike = None):
     mesh = make_multipod_mesh(args.multi_pod, dev)
     if mesh.get_coordinate() is None:
         return None
-    n_pod = mesh.size(0)
-    if args.batch % n_pod:
+    n_pod, n_data = mesh.size(0), mesh.size(1)
+    if args.batch % (n_pod * n_data):
         raise SystemExit(
-            f"--batch {args.batch} must divide by {n_pod} pods"
+            f"--batch {args.batch} must divide by {n_pod} pods x {n_data} "
+            f"data ranks"
         )
     compress = not args.no_compress
     lead = _spawn.rank() == 0
@@ -158,9 +166,13 @@ def train_lm_multipod(args, device: _device.DeviceLike = None):
         obs.configure(enabled=True)
     model = api.build_model(cfg, tp=1, max_seq=args.seq)
     params = model.init(args.seed, device=dev)
-    pods = mesh.get_group("pod")
-    for p in leaves(params):  # every pod starts from pod 0's draw
-        dist.broadcast(p, src=dist.get_global_rank(pods, 0), group=pods)
+    for axis, n in zip(mesh.mesh_dim_names, mesh.shape):
+        if n == 1:
+            continue
+        group = mesh.get_group(axis)  # every rank ends with rank 0's draw
+        for p in leaves(params):
+            dist.broadcast(p, src=dist.get_global_rank(group, 0),
+                           group=group)
     if lead:
         logging.info(
             "arch=%s params=%.3fM mesh=%s scheme=%s compress=%s",
@@ -172,15 +184,24 @@ def train_lm_multipod(args, device: _device.DeviceLike = None):
         linear_warmup_cosine(args.lr, args.warmup, args.steps),
         weight_decay=0.01,
     )
+    # the global state's shapes (no storage) give the specs; the error
+    # buffers are whole leaves, the params and moments this rank's blocks
+    shapes = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
+    err = trainer.init_dp_err(params, mesh, scheme=args.scheme,
+                              compress=compress)
+    step, s_shard = trainer.make_multipod_train_step(
+        model.loss, opt, cfg, mesh,
+        {"params": shapes, "opt": opt.init(shapes),
+         "step": torch.empty((), dtype=torch.int32, device="meta"),
+         "err": err},
+        scheme=args.scheme, compress=compress, clip_norm=1.0,
+        n_micro=args.grad_accum,
+    )
+    params = shd.place(params, tree_map(lambda s: s.spec, s_shard["params"]),
+                       mesh)
     state = trainer.init_state(params, opt, device=dev)
     del params
-    state["err"] = trainer.init_dp_err(
-        state["params"], mesh, scheme=args.scheme, compress=compress
-    )
-    step, s_shard = trainer.make_multipod_train_step(
-        model.loss, opt, cfg, mesh, state, scheme=args.scheme,
-        compress=compress, clip_norm=1.0, n_micro=args.grad_accum,
-    )
+    state["err"] = err
     step_fn = obs.get().probe.track("train.step", step)
     stream = lm.TokenStream(
         batch=args.batch, seq_len=args.seq, vocab=cfg.vocab, seed=args.seed,
@@ -289,8 +310,9 @@ def main(
     )
     ap.add_argument(
         "--multi-pod", type=str, default=None, metavar="PxD[xM]",
-        help="compressed multi-pod DP over a (pod, data, model) mesh, "
-             "e.g. 2x1 (one rank a pod; D = M = 1 until ROADMAP.md item 8c)",
+        help="compressed multi-pod training over a (pod, data, model) "
+             "mesh of P*D*M ranks, e.g. 2x1 or 1x2x2 (params over data "
+             "(FSDP) and model (TP), moments mirroring them)",
     )
     ap.add_argument(
         "--scheme", choices=("gather", "two_stage"), default="gather",
@@ -302,15 +324,13 @@ def main(
         help="f32 cross-pod reduction (ablation baseline)",
     )
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        _, n_data, n_model = parse_multipod_spec(args.multi_pod)
-        if n_data * n_model > 1:
-            ap.error(
-                f"--multi-pod {args.multi_pod}: in-pod data x model = "
-                f"{n_data * n_model}; placing parameters over 'data' and "
-                f"'model' (FSDP, TP) is not ported yet (ROADMAP.md queue 1 "
-                f"item 8c): use PxD with D = 1"
-            )
+    if args.multi_pod and args.arch != "va-cnn":
+        sizes = parse_multipod_spec(args.multi_pod)
+        try:
+            trainer.check_inpod(_lm_cfg(args), shd.MeshShape(
+                ("pod", "data", "model"), sizes))
+        except NotImplementedError as e:
+            ap.error(f"--multi-pod {args.multi_pod}: {e}")
     _device.resolve(device)
     if args.multi_pod:
         return _run_multipod(args, device)

@@ -23,7 +23,10 @@ Port of `repro.models.layers`. Conventions (whole substrate):
     partial products over the model group, the bias added once after.
     The packed branch runs `quant_matmul` on the rank's shard either
     way. The embedding with its vocab rows over `model` looks up its
-    rows masked and all-reduces.
+    rows masked and all-reduces. Training differentiates through it: a
+    column-parallel linear's whole x passes `dist.sharding.enter_model`
+    (once for the linears that share it, `col_inputs`), whose backward
+    sums the ranks' partial `dx` over `model`.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ def linear_apply(
     spe: Optional[SPEConfig] = None,
     dtype: torch.dtype = torch.bfloat16,
     x_local: bool = False,
+    entered: bool = False,
 ) -> torch.Tensor:
     """y = x @ W (+ b). Dispatches on the param format:
 
@@ -98,7 +102,8 @@ def linear_apply(
     scale to each partial (per output column, so the all-reduced sum is
     the scaled sum) and all-reduces in float32 for the packed path, in
     `dtype` for the dense one. A linear that is not row-parallel given a
-    local x gathers x over `model` first.
+    local x gathers x over `model` first. A "col" linear's whole x enters
+    `model` (`shd.enter_model`) unless the caller did (`entered`).
     """
     tp = params.get("tp")
     if tp == "row":
@@ -106,6 +111,8 @@ def linear_apply(
             x = shd.model_block(x)
     elif x_local:
         x = shd.gather_model(x)
+    if tp == "col" and not entered:
+        x = shd.enter_model(x)
     scale = params.get("scale")
     if tp == "col" and scale is not None:
         scale = shd.model_block(scale)
@@ -151,6 +158,14 @@ def linear_apply(
 def col_local(params: dict) -> bool:
     """True where a linear emits this rank's block of its columns."""
     return params.get("tp") == "col"
+
+
+def col_inputs(x: torch.Tensor, *linears: dict) -> list:
+    """x for each of `linears` that share it, to be applied with
+    `entered=True`: entered into `model` once (one all-reduce in the
+    backward) for the column-parallel ones, x itself for the others."""
+    xe = shd.enter_model(x) if any(map(col_local, linears)) else x
+    return [xe if col_local(p) else x for p in linears]
 
 
 def compile_linear_quant(params: dict, bits: int) -> dict:
@@ -343,8 +358,11 @@ def ffn_apply(
 ) -> torch.Tensor:
     local = col_local(params["w_up"])  # d_ff split over model
     if act in ("swiglu", "geglu"):
-        g = linear_apply(params["w_gate"], x, spe=spe, dtype=dtype)
-        u = linear_apply(params["w_up"], x, spe=spe, dtype=dtype)
+        xg, xu = col_inputs(x, params["w_gate"], params["w_up"])
+        g = linear_apply(params["w_gate"], xg, spe=spe, dtype=dtype,
+                         entered=True)
+        u = linear_apply(params["w_up"], xu, spe=spe, dtype=dtype,
+                         entered=True)
         g = silu(g) if act == "swiglu" else gelu(g)
         return linear_apply(params["w_down"], g * u, spe=spe, dtype=dtype,
                             x_local=local)

@@ -27,6 +27,10 @@ every channel, so `w_x`'s local output is gathered over `model` first
 (the depthwise conv then runs on all channels, as the cache's `conv`
 holds them), and the new `h` is gathered back whole, as the cache keeps
 it (`cache_specs` replicates recurrent state over `model`).
+
+In training the whole `u` enters `model` (`dist.sharding.enter_model`)
+on its way into the gates' local columns only: its other use, this
+rank's channels (`model_block`), makes its own gradient whole.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.core.spe import SPEConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import (
     _randn,
+    col_inputs,
     col_local,
     gelu,
     linear_apply,
@@ -110,8 +115,10 @@ def rglru_apply(
 ) -> tuple[torch.Tensor, dict]:
     """Returns (y (B,S,D), {"h": (B,R) float32, "conv": (B,W-1,R)}), the
     new state as new tensors (the caller writes it into its cache)."""
-    gate = gelu(linear_apply(p["w_gate"], x, spe=spe, dtype=dtype))
-    u = linear_apply(p["w_x"], x, spe=spe, dtype=dtype)
+    xg, xx = col_inputs(x, p["w_gate"], p["w_x"])
+    gate = gelu(linear_apply(p["w_gate"], xg, spe=spe, dtype=dtype,
+                             entered=True))
+    u = linear_apply(p["w_x"], xx, spe=spe, dtype=dtype, entered=True)
     if col_local(p["w_x"]):  # the conv and the gates read every channel
         u = shd.gather_model(u)
     conv_prev = cache["conv"] if cache is not None else None
@@ -125,8 +132,9 @@ def rglru_apply(
     if col_local(p["w_gate"]) != local:
         gate = mine(gate) if local else shd.gather_model(gate)
     uf = u.to(torch.float32)
-    r = sigmoid(uf @ p["w_a"]["w"] + mine(p["b_a"]))
-    i = sigmoid(uf @ p["w_i"]["w"] + mine(p["b_i"]))
+    ue = shd.enter_model(uf) if local else uf  # into the gates' columns
+    r = sigmoid(ue @ p["w_a"]["w"] + mine(p["b_a"]))
+    i = sigmoid(ue @ p["w_i"]["w"] + mine(p["b_i"]))
     log_a = -LRU_C * F.softplus(mine(p["lam"])) * r  # (B,S,R) f32
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (

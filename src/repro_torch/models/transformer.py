@@ -58,6 +58,14 @@ vocab-split logits are gathered over `model`, so every rank holds whole
 rows. The reference's `constrain` call sites are kept as checks of the
 local shapes; its sequence-parallel hints (S over `model`) are `None`
 here: the port does not split S.
+
+Training over `data` and `model` (`train.trainer.make_sharded_train_step`,
+`make_multipod_train_step`) runs `loss_fn` the same way on placed
+parameters and this rank's rows, and differentiates through the
+collectives (`dist.sharding`'s adjoints): a replicated activation or
+scale that enters a rank-local computation (the column-parallel q/k/v,
+the qk-norm scale on local heads, whole K/V read by local query heads,
+a vocab-split tied head) passes `enter_model`.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models.layers import (
     apply_rope,
+    col_inputs,
     col_local,
     embed_apply,
     embed_init,
@@ -185,18 +194,29 @@ def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return y.reshape(b, s, -1, hd)
 
 
+def _qk_norm(scale_p: dict, t: torch.Tensor, n: int) -> torch.Tensor:
+    """The replicated qk-norm scale on `t`'s heads; on this rank's heads
+    alone (`n` the global count) the scale enters `model`."""
+    if t.shape[2] != n:
+        scale_p = {"scale": shd.enter_model(scale_p["scale"])}
+    return norm_apply("rmsnorm", scale_p, t)
+
+
 def _qkv(p, x, pos, cfg, dims, spe, dtype):
     hd = cfg.hd
-    q = _heads(linear_apply(p["wq"], x, spe=spe, dtype=dtype),
+    xq, xk, xv = col_inputs(x, p["wq"], p["wk"], p["wv"])
+    q = _heads(linear_apply(p["wq"], xq, spe=spe, dtype=dtype, entered=True),
                dims.n_heads, hd)
-    k = _heads(linear_apply(p["wk"], x, spe=spe, dtype=dtype), dims.n_kv, hd)
-    v = _heads(linear_apply(p["wv"], x, spe=spe, dtype=dtype), dims.n_kv, hd)
+    k = _heads(linear_apply(p["wk"], xk, spe=spe, dtype=dtype, entered=True),
+               dims.n_kv, hd)
+    v = _heads(linear_apply(p["wv"], xv, spe=spe, dtype=dtype, entered=True),
+               dims.n_kv, hd)
     q = constrain(q, "dp", None, "tp", None, shape=(None, None, dims.n_heads, hd))
     k = constrain(k, "dp", None, "tp", None, shape=(None, None, dims.n_kv, hd))
     v = constrain(v, "dp", None, "tp", None, shape=(None, None, dims.n_kv, hd))
     if cfg.qk_norm:
-        q = norm_apply("rmsnorm", p["q_norm"], q)
-        k = norm_apply("rmsnorm", p["k_norm"], k)
+        q = _qk_norm(p["q_norm"], q, dims.n_heads)
+        k = _qk_norm(p["k_norm"], k, dims.n_kv)
     q = apply_rope(q, pos, theta=cfg.rope_theta, sections=cfg.mrope_sections)
     k = apply_rope(k, pos, theta=cfg.rope_theta, sections=cfg.mrope_sections)
     return q, k, v
@@ -248,6 +268,9 @@ def attn_apply_train(
     dims: Dims, kind: str, *, spe, dtype,
 ) -> torch.Tensor:
     q, k, v = _qkv(p, x, pos, cfg, dims, spe, dtype)
+    if q.shape[2] != dims.n_heads and k.shape[2] == dims.n_kv:
+        # whole K/V (gathered mid-head) read by this rank's query heads
+        k, v = shd.enter_model(k), shd.enter_model(v)
     sel = _kv_select(q.shape[2], k.shape[2], dims, q.device)
     out = A.attention(
         q, _take_heads(k, sel), _take_heads(v, sel), kind=kind,
@@ -639,6 +662,8 @@ def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig, dtype,
     (V_padded) lets `constrain` check the block."""
     if cfg.tie_embeddings:
         local = params["embed"].get("tp") == "row"
+        if local:  # the vocab rows' block: a column-parallel head
+            h = shd.enter_model(h)
         logits = h @ params["embed"]["w"].to(dtype).T
     else:
         local = col_local(params["lm_head"])
@@ -676,6 +701,17 @@ def _block_params(params: dict, where: tuple) -> dict:
     return shd.gather_block(p, specs)
 
 
+def _group_params(gp: dict) -> dict:
+    """One stacked group's parameters (`_unbind`'s `gp`, every pattern
+    position) through `gather_block` inside a sharded activation
+    context: one collective for the group."""
+    ctx = shd.current()
+    if ctx is None or ctx.specs is None or (ctx.n_data == 1 and ctx.tp == 1):
+        return gp
+    specs = tree_map(lambda spec: spec[1:], ctx.specs["blocks"])
+    return shd.gather_block(gp, specs)
+
+
 def _unbind(tree: Any, n: int) -> list:
     """The `n` groups of a stacked subtree, each leaf taken apart once on
     its leading axis (`torch.unbind`: its backward stacks the groups'
@@ -697,19 +733,30 @@ def forward_train(
     *,
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
+    tops: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V_padded) f32, moe_aux) — or the post-norm
-    hidden states (B,S,D) when return_hidden (the chunked-CE path)."""
+    hidden states (B,S,D) when return_hidden (the chunked-CE path).
+    `tops`: the embedding, final norm and head as `_top_params` gives
+    them (taken here where None).
+
+    Inside a sharded activation context each group's parameters are
+    gathered inside its checkpointed body (`_group_params`), so the
+    gathered weights are dropped after the forward and gathered again in
+    the recompute, as FSDP does; the tail's through `_block_params`."""
     dtype = compute_dtype(cfg)
     spe = spe_config(cfg)
     b, s = tokens.shape
     pos = positions if positions is not None else _positions(
         cfg, b, s, tokens.device)
-    h = embed_apply(params["embed"], tokens, dtype=dtype,
+    if tops is None:
+        tops = _top_params(params)
+    h = embed_apply(tops["embed"], tokens, dtype=dtype,
                     scale=cfg.scale_embed)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def group_body(h, aux, gp):
+        gp = _group_params(gp)
         for p_idx, kind in enumerate(cfg.pattern):
             h, a, _ = block_apply(gp[f"pos{p_idx}"], h, pos, cfg, dims, kind,
                                   spe=spe, dtype=dtype)
@@ -723,13 +770,13 @@ def forward_train(
         else:
             h, aux = group_body(h, aux, gp)
     for i, kind in enumerate(cfg.tail):
-        h, a, _ = block_apply(params["tail"][f"pos{i}"], h, pos, cfg, dims,
-                              kind, spe=spe, dtype=dtype)
+        h, a, _ = block_apply(_block_params(params, ("tail", f"pos{i}", None)),
+                              h, pos, cfg, dims, kind, spe=spe, dtype=dtype)
         aux = aux + a
-    h = norm_apply(cfg.norm, params["final_norm"], h)
+    h = norm_apply(cfg.norm, tops["final_norm"], h)
     if return_hidden:
         return h, aux
-    return _logits(params, h, cfg, dtype), aux
+    return _logits(tops, h, cfg, dtype), aux
 
 
 def _chunk_nll_sum(params: dict, hc: torch.Tensor, tc: torch.Tensor,
@@ -750,19 +797,27 @@ def loss_fn(
     per chunk and are recomputed in the backward, so live logits are
     (B, chunk, V) instead of (B, S, V), as in the reference's scan —
     without the checkpoint autograd would keep every chunk's log-probs.
+
+    On placed parameters (inside `dist.sharding.activation_context` with
+    the spec tree) this is this rank's rows' loss: the embedding, final
+    norm and head come through `_top_params` once, each group's blocks
+    through `gather_block` in `forward_train`. The MoE aux loss is a
+    mean of per-row terms, so the mean of the ranks' losses over `data`
+    (equal rows each) is the whole batch's loss, aux included.
     """
     tgt = batch["targets"].long()
+    tops = _top_params(params)  # gathered once for the embedding and CE
     if not cfg.loss_chunk:
         logits, aux = forward_train(
             params, batch["tokens"], cfg, dims,
-            positions=batch.get("positions"),
+            positions=batch.get("positions"), tops=tops,
         )
         logp = F.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, tgt[..., None]).mean()
     else:
         h, aux = forward_train(
             params, batch["tokens"], cfg, dims,
-            positions=batch.get("positions"), return_hidden=True,
+            positions=batch.get("positions"), return_hidden=True, tops=tops,
         )
         dtype = compute_dtype(cfg)
         b, s, _ = h.shape
@@ -775,7 +830,7 @@ def loss_fn(
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(0, s + pad, c):
             total = total - checkpoint(
-                _chunk_nll_sum, params, hp[:, i:i + c], tp_[:, i:i + c],
+                _chunk_nll_sum, tops, hp[:, i:i + c], tp_[:, i:i + c],
                 mask[:, i:i + c], cfg, dtype, use_reentrant=False,
             )
         nll = total / (b * s)

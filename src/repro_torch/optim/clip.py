@@ -25,10 +25,13 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(tree: Any, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(tree: Any, max_norm: float, *,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """`clip_by_global_norm` written into `tree`'s leaves in place (the
-    same products, bit for bit); returns the pre-clip norm."""
-    norm = global_norm(tree)
+    same products, bit for bit); returns the pre-clip norm. A `norm`
+    given (one reduced over shards) stands for `global_norm(tree)`."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for x in leaves(tree):
         x.mul_(scale)

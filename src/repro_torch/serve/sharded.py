@@ -67,7 +67,6 @@ from repro_torch import _device
 from repro_torch._tree import leaves, map_with_path
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels import quant_matmul as QM
-from repro_torch.launch.mesh import serving_groups
 from repro_torch.models.api import Model, block_kinds
 from repro_torch.serve import seating
 from repro_torch.serve.engine import (
@@ -114,7 +113,7 @@ class DecodePlan:
     n_data: int  # pool rows per device = batch / n_data
     tp: int
     rows: tuple  # this rank's block [lo, hi) of the pool's slots
-    groups: Any  # launch.mesh.ServingGroups of this rank
+    groups: Any  # dist.sharding.MeshGroups of this rank
     params: Any  # spec tree of the parameters
     cache: Any  # spec tree of the decode cache
     param_bytes_per_device: int
@@ -214,7 +213,7 @@ def plan_decode(
     pspecs = shd.param_specs(params, cfg, mesh)
     cspecs = shd.cache_specs(cache_shapes, cfg, mesh, strict=strict)
     _check_kernel_shapes(params, pspecs, mesh, batch_size // n_data)
-    groups = serving_groups(mesh)
+    groups = shd.mesh_groups(mesh)
     per = batch_size // n_data
     return DecodePlan(
         mesh=mesh, batch=batch_size, n_devices=n_dev, n_data=n_data, tp=tp,

@@ -22,13 +22,17 @@ invisible partial, not a listed-but-unloadable step (see `_gc`).
 Arrays are saved gathered to the host with their logical paths.
 `restore(..., device=...)` puts every leaf on one device. Across ranks
 (`shardings=`, a tree of `dist.sharding.NamedSharding`s mirroring the
-state, as `trainer.make_multipod_train_step` returns it): `save` gathers
-every leaf a spec shards (the per-pod error buffers) over its mesh axis
-into the global array, in the reference's layout (n_pod, *leaf); rank 0
-writes, and every rank waits at a barrier after. `restore` reads the
-global array and keeps this rank's block of it (`dist.sharding.
-shard_local`); a global shape other than the saved one (another pod
-count) raises.
+state, as `trainer.make_multipod_train_step` and
+`make_sharded_train_step` return it): `save` gathers every leaf a spec
+shards into the global array — params and moments over `data` and
+`model` (ZeRO-1), the per-pod error buffers over `pod` in the reference's
+layout (n_pod, *leaf), a dim split over several axes over each, the
+innermost first; the rank at coordinate 0 of every axis writes, and every
+rank waits at a barrier after. `restore` reads the global array and keeps
+this rank's block of it (`dist.sharding.shard_local`). So a checkpoint
+is elastic across in-pod layouts: saved on 1x2x2, it restores on 1x4x1
+or unsharded in one process; a global shape other than the saved one
+(another pod count, for the error buffers) raises.
 """
 
 from __future__ import annotations
@@ -59,21 +63,19 @@ def _gather(leaf: torch.Tensor, sharding) -> torch.Tensor:
     if sharding is None:
         return out.cpu()
     for dim, axis in enumerate(sharding.spec):
-        names = axis if isinstance(axis, (tuple, list)) else (axis,)
-        if axis is None or shd._axis_size(axis, sharding.mesh) == 1:
-            continue
-        if len(names) != 1:
-            raise ValueError(
-                f"save: dim {dim} sharded over several axes {names}: not "
-                f"ported yet (ROADMAP.md queue 1 item 8c)")
-        group = sharding.mesh.get_group(names[0])
-        n = dist.get_world_size(group)
-        part = out.movedim(dim, 0).contiguous()
-        full = torch.empty(n * part.numel(), dtype=part.dtype,
-                           device=part.device)
-        dist.all_gather_into_tensor(full, part.reshape(-1), group=group)
-        full = full.reshape((n * part.shape[0],) + tuple(part.shape[1:]))
-        out = full.movedim(0, dim)
+        # a dim split over several axes: its block index is the first
+        # axis's coordinate outermost, so the innermost is gathered first
+        for name in reversed(shd._names(axis)):
+            if shd._axis_size(name, sharding.mesh) == 1:
+                continue
+            group = sharding.mesh.get_group(name)
+            n = dist.get_world_size(group)
+            part = out.movedim(dim, 0).contiguous()
+            full = torch.empty(n * part.numel(), dtype=part.dtype,
+                               device=part.device)
+            dist.all_gather_into_tensor(full, part.reshape(-1), group=group)
+            full = full.reshape((n * part.shape[0],) + tuple(part.shape[1:]))
+            out = full.movedim(0, dim)
     return out.cpu()
 
 

@@ -26,20 +26,37 @@ SPE constraints have no `setup_context`, which `torch.func` needs. A
 parameter the loss does not use gets a zero gradient, as `jax.grad`
 gives.
 
-Multi-pod (`make_multipod_train_step`, `make_dp_step_compressed`): one
-rank a pod on a ("pod", "data", "model") `DeviceMesh` with data = model
-= 1; every rank draws the same global batch and takes its pod's rows,
-reduces its gradients over the pod group through `dist.compression`, and
-applies the same update, so the params stay equal on every rank. The
-per-pod error-feedback buffers ride in state["err"] (`init_dp_err`): each
-rank holds its own (1, *leaf) block, and a checkpoint gathers them into
-the reference's (n_pod, *leaf) layout (`checkpoint.save(...,
-shardings=)`). The in-pod placements over data and model for training
-(FSDP, TP) are ROADMAP.md queue 1 item 8c.
+Over `data` and `model` (`make_sharded_train_step` on a ("data",
+"model") mesh, and stage A of `make_multipod_train_step`): the params and
+their moments are placed by `dist.sharding.param_specs` (FSDP over
+`data`, TP over `model`; the moments mirror them: ZeRO-1), each rank
+holding its blocks (`dist.sharding.place`). Every rank is handed the
+same global batch and takes its rows (its coordinate over ("pod",
+"data")); the loss runs inside `dist.sharding.activation_context`, whose
+collectives carry their adjoints (stated in `dist.sharding`), so the
+gradients come out in each rank's blocks: summed over `data` by the
+FSDP reduce-scatter for the leaves `data` splits, all-reduced over
+`data` for the others, then divided by the data size. The sharded step
+reduces the global norm over the shards and updates the blocks in place.
+
+Multi-pod (`make_multipod_train_step`): one code path for every PxDxM,
+1x1x1 included (its collectives bypassed at world 1). Stage A as above
+over this pod's rows, its mean gradients then all-gathered into whole
+leaves replicated over `data` and `model` (so the error buffers' shapes
+depend on the pod count alone, and checkpoints move across in-pod
+layouts); stage B reduces them over this rank's pod group through
+`dist.compression`; stage C clips the whole mean and updates each rank's
+blocks (ZeRO-1). The per-pod error-feedback buffers ride in state["err"]
+(`init_dp_err`): each rank holds its pod's (1, *leaf) block, and a
+checkpoint gathers them into the reference's (n_pod, *leaf) layout
+(`checkpoint.save(..., shardings=)`). MoE and RWKV-6 at `model` > 1, the paper's QAT at `model` > 1, and the
+encoder-decoder over the in-pod axes raise, naming ROADMAP.md queue 1
+item 8c.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -146,6 +163,34 @@ def make_train_step(
     return train_step
 
 
+ITEM_8C = "ROADMAP.md queue 1 item 8c"
+
+
+def check_inpod(cfg, mesh) -> None:
+    """Raise NotImplementedError for what in-pod training does not cover:
+    the encoder-decoder over data x model > 1 (use_tp=False, fsdp=False),
+    and at `model` > 1 MoE, RWKV-6 and the paper's QAT (its per-column
+    scales would see a row-parallel block only)."""
+    sizes = shd.axis_sizes(mesh)
+    n_data, n_model = sizes.get("data", 1), sizes.get("model", 1)
+    if n_data * n_model > 1 and cfg.is_enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder over the in-pod axes (data x "
+            f"model = {n_data * n_model}) is not ported ({ITEM_8C}); use "
+            f"PxD with D = 1")
+    if n_model <= 1:
+        return
+    kinds = tuple(cfg.pattern) + tuple(cfg.tail or ())
+    if cfg.moe is not None or "rwkv" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism (model={n_model}) for MoE and "
+            f"RWKV-6 is not ported ({ITEM_8C}); train it with M = 1")
+    if cfg.spe_bits or cfg.spe_sparse:
+        raise NotImplementedError(
+            f"{cfg.name}: the co-design QAT at model={n_model} is not "
+            f"ported ({ITEM_8C}); train it with M = 1")
+
+
 def state_specs(state_shapes: Any, cfg, mesh) -> dict:
     """Specs for a {"params", "opt", "step"} state tree: opt moments
     mirror the param specs (ZeRO-1); step is replicated."""
@@ -155,6 +200,149 @@ def state_specs(state_shapes: Any, cfg, mesh) -> dict:
         for k, sub in state_shapes["opt"].items()
     }
     return {"params": p_specs, "opt": o_specs, "step": ()}
+
+
+def _split(spec, axis: str, mesh) -> bool:
+    return any(axis in shd._names(e) for e in spec) and \
+        shd.axis_sizes(mesh).get(axis, 1) > 1
+
+
+def _rows(batch: Any, mesh) -> Any:
+    """This rank's rows of the global batch: its coordinate over the
+    mesh's ("pod", "data") axes, outer first (B not divisible raises)."""
+    axes = tuple(a for a in ("pod", "data") if a in shd.axis_sizes(mesh))
+    n = math.prod(shd.axis_sizes(mesh)[a] for a in axes)
+    leading = leaves(batch)[0].shape[0]
+    if leading % n:
+        raise ValueError(
+            f"batch {leading} not divisible by the {n} ranks of {axes}")
+    if n == 1:
+        return batch
+    rows = leading // n
+    lo = shd._coordinate(axes, mesh) * rows
+    return tree_map(lambda x: x[lo:lo + rows], batch)
+
+
+def _all_reduce_many_(xs: list, group) -> None:
+    """Each of the float tensors `xs` summed over `group` in place, in one
+    all-reduce of their bytes packed as float32."""
+    if not xs:
+        return
+    buf = shd.all_reduce(torch.cat([x.reshape(-1).to(torch.float32)
+                                    for x in xs]), group)
+    off = 0
+    for x in xs:
+        x.copy_(buf[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+
+
+def _block_grads(grad_fn, params, batch, cfg, mesh, p_specs, n_micro):
+    """Stage A's gradients on this rank's rows, in this rank's blocks of
+    `p_specs`: the loss in the activation context (the FSDP leaves'
+    gradients reduce-scattered over `data` by `gather_block`'s backward),
+    the leaves `data` does not split all-reduced over `data`, every leaf
+    divided by the data size, the metrics averaged over `data`."""
+    with shd.activation_context(cfg, mesh, specs=p_specs):
+        grads, metrics = accumulate_grads(grad_fn, params, batch, n_micro)
+    grads = _own_storage(grads)
+    groups = shd.mesh_groups(mesh)
+    if groups.n_data > 1:
+        _all_reduce_many_([g for g, spec in _with_specs(grads, p_specs)
+                           if not _split(spec, "data", mesh)], groups.data)
+        for g in leaves(grads):
+            g.div_(groups.n_data)
+        metrics = _pmean(metrics, groups.data)
+    return grads, metrics
+
+
+def _with_specs(tree: Any, specs: Any) -> list:
+    """(leaf, spec) pairs of a tree and its spec tree."""
+    out: list = []
+    tree_map(lambda x, spec: out.append((x, spec)), tree, specs)
+    return out
+
+
+def _sharded_norm(grads: Any, p_specs: Any, mesh) -> torch.Tensor:
+    """The global norm of gradients held in blocks: each block's squares
+    counted on the ranks at coordinate 0 of the axes its spec does not
+    split, the sum all-reduced over `data` and `model`."""
+    groups = shd.mesh_groups(mesh)
+    sq = torch.zeros((), dtype=torch.float32, device=leaves(grads)[0].device)
+    for g, spec in _with_specs(grads, p_specs):
+        if ((groups.data_rank and not _split(spec, "data", mesh))
+                or (groups.model_rank and not _split(spec, "model", mesh))):
+            continue
+        sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+    for group in (groups.data, groups.model):
+        if group is not None:
+            sq = shd.all_reduce(sq, group)
+    return torch.sqrt(sq)
+
+
+def _blocks(grads: Any, p_specs: Any, mesh) -> Any:
+    """This rank's block of each whole gradient under `p_specs` (ZeRO-1:
+    the update's part), contiguous; the leaf itself where unsplit."""
+    return tree_map(
+        lambda g, spec: g if shd.spec_shard_factor(spec, mesh) == 1
+        else shd.shard_local(g, spec, mesh).contiguous(), grads, p_specs)
+
+
+def make_sharded_train_step(
+    loss_fn: Callable,
+    optimizer: Optimizer,
+    cfg,
+    mesh,
+    state_shapes: Any,
+    batch_shapes: Any,
+    *,
+    clip_norm: float = 1.0,
+    n_micro: int = 1,
+    donate: bool = True,
+):
+    """One in-pod train step on a ("data", "model") `DeviceMesh` with the
+    params and moments placed by `state_specs` (FSDP over `data`, TP over
+    `model`, the moments mirroring the params: ZeRO-1). Returns (step,
+    state_shardings, batch_shardings): the `NamedSharding` trees of
+    `state_shapes` (global shapes: tensors, or "meta" ones) and of
+    `batch_shapes`.
+
+    `step(state, batch) -> (state, metrics)` takes a state of this rank's
+    blocks (`dist.sharding.place` under `state_shardings`' specs) and the
+    global batch, of which it runs this rank's `data` rows; the gradients
+    stay in each rank's blocks (the mean over `data`), the global norm is
+    reduced over the shards (so clipping equals the replicated step's),
+    and `Optimizer.update_` writes the update into the local blocks of
+    params and moments (`donate=False` updates a copy, leaving the
+    caller's state valid). The metrics are the mean over `data`. Span: `train/grads`,
+    `train/update`.
+    """
+    check_inpod(cfg, mesh)
+    s_specs = state_specs(state_shapes, cfg, mesh)
+    b_specs = shd.batch_specs(batch_shapes, cfg, mesh)
+    p_specs = s_specs["params"]
+    grad_fn = _grad_fn(loss_fn)
+
+    def step(state: dict, batch: Any) -> tuple[dict, dict]:
+        tel = obs.get()
+        with tel.span("train/grads", cat="train"):
+            grads, metrics = _block_grads(
+                grad_fn, state["params"], _rows(batch, mesh), cfg, mesh,
+                p_specs, n_micro)
+            tel.block(leaves(grads)[:1])
+        with tel.span("train/update", cat="train"):
+            gnorm = _sharded_norm(grads, p_specs, mesh)
+            if clip_norm:
+                clip_by_global_norm_(grads, clip_norm, norm=gnorm)
+            if not donate:
+                state = tree_map(lambda x: None if x is None else x.clone(),
+                                 state)
+            optimizer.update_(grads, state["opt"], state["params"],
+                              state["step"])
+            state["step"].add_(1)
+            tel.block(gnorm)
+        return state, {**metrics, "grad_norm": gnorm}
+
+    return step, shd.named(s_specs, mesh), shd.named(b_specs, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -228,65 +416,82 @@ def _pmean(metrics: dict, group) -> dict:
     return {k: vals[i] for i, k in enumerate(keys)}
 
 
-def make_dp_step_compressed(
+def make_multipod_train_step(
     loss_fn: Callable,
     optimizer: Optimizer,
+    cfg,
     mesh,
+    state_shapes: Any,
     *,
-    axis: str = "pod",
-    clip_norm: float = 1.0,
-    compress: bool = True,
     scheme: str = "gather",
+    compress: bool = True,
+    clip_norm: float = 1.0,
     n_micro: int = 1,
 ):
-    """Data-parallel train step over the mesh axis `axis` with quantized
-    error-feedback gradient reduction (`dist.compression`). Params
-    replicated over `axis`; the batch sharded: every rank is handed the
-    same global batch (B, ...) and takes the rows [p·B/n, (p+1)·B/n) of
-    its coordinate p on `axis` (B not divisible by n raises). State is
-    {"params", "opt", "step", "err"} with `err` from `init_dp_err`.
+    """Compressed multi-pod training over a ("pod", "data", "model")
+    mesh, one rank a device, for every PxDxM. Three stages a step, as the
+    reference's:
 
-    `scheme` picks the wire layout: "gather" (full-leaf int8 all-gather,
-    (8/n)x egress) or "two_stage" (quantized reduce-scatter + all-gather,
-    n-independent ~4x). `compress=False` runs the finite-guarded f32 mean
-    (stateless, err stays {}). Then clip, update, and the metrics
-    averaged over the pods; without clipping `grad_norm` is the norm of
-    the mean gradient.
+      A. this rank's rows of its pod's part of the global batch (B must
+         divide by P·D), with the params in its blocks under
+         `param_specs` (FSDP over `data`, TP over `model`): the gradients
+         in its blocks, the mean over `data` (`make_sharded_train_step`'s
+         stage, with `accumulate_grads` over `n_micro` micro-batches),
+         then all-gathered into whole leaves replicated over `data` and
+         `model`, as the reference's stage A exits;
+      B. the cross-pod reduction of the whole leaves through the selected
+         `dist.compression` scheme over this rank's pod group;
+      C. clip on the whole mean gradients, then the ZeRO-1 update of this
+         rank's blocks (`shard_local` of the mean; donated:
+         `Optimizer.update_`); the metrics averaged over pod and data.
 
-    The step is donated, as the reference's jitted steps are: it writes
-    into `state` in place (the error buffers receive the residuals, the
-    gradient buffers the mean, `Optimizer.update_` the update), as the
-    single-device `make_train_step(donate=True)`, and returns it. Spans:
-    `train/grads`, `train/reduce`, `train/update` (each waits for the
-    card when telemetry is on).
+    At D = M = 1 (1x1x1 on one card included) stage A's collectives are
+    bypassed: the step is plain data parallelism over the pods.
+    `state_shapes` is the global state tree (tensors or "meta" ones)
+    including "err"; where nothing is split, a state built on the whole
+    params serves as its own shapes.
+
+    Returns (step, state_shardings): `step(state, batch) -> (state,
+    metrics)` is what `fault.run_training` drives, on a state of this
+    rank's blocks (`dist.sharding.place` under the params' and moments'
+    specs) with "err" from `init_dp_err` on the whole params;
+    `state_shardings` (`NamedSharding`s mirroring `state_shapes`) covers
+    params and moments under `state_specs` and the error buffers under
+    ("pod",), which `checkpoint.save` / `restore` read. Spans: `train/grads`, `train/reduce`, `train/update` (each
+    waits for the card when telemetry is on).
     """
+    sizes = shd.axis_sizes(mesh)
+    if "pod" not in sizes:
+        raise ValueError(
+            f"make_multipod_train_step needs a 'pod' mesh axis, got "
+            f"{tuple(sizes)} (launch.mesh.make_multipod_mesh)"
+        )
+    check_inpod(cfg, mesh)
     if compress and scheme not in _SCHEMES:
         raise ValueError(f"scheme {scheme!r}: expected one of {_SCHEMES}")
-    group = mesh.get_group(axis)
-    n = dist.get_world_size(group)
-    pod = mesh.get_local_rank(axis)
+    core = {k: state_shapes[k] for k in ("params", "opt", "step")}
+    specs = {**state_specs(core, cfg, mesh),
+             "err": tree_map(lambda _: ("pod",), state_shapes["err"])}
+    shardings = shd.named(specs, mesh)
+    p_specs = specs["params"]
+    group = mesh.get_group("pod")
+    pod = mesh.get_local_rank("pod")
     if dist.get_rank(group) != pod:
         # the two-stage all-to-all sends row j to the j-th rank of the
         # group: that rank must be pod j
         raise RuntimeError(
             f"rank {dist.get_rank()}: position {dist.get_rank(group)} in "
-            f"the {axis!r} group differs from its coordinate {pod}"
+            f"the 'pod' group differs from its coordinate {pod}"
         )
     grad_fn = _grad_fn(loss_fn)
 
     def step(state: dict, batch: Any) -> tuple[dict, dict]:
         tel = obs.get()
-        leading = leaves(batch)[0].shape[0]
-        if leading % n:
-            raise ValueError(
-                f"multi-pod batch {leading} not divisible by {n} pods"
-            )
-        rows = leading // n
-        local = tree_map(lambda x: x[pod * rows:(pod + 1) * rows], batch)
+        local = _rows(batch, mesh)
         with tel.span("train/grads", cat="train"):
-            grads, metrics = accumulate_grads(grad_fn, state["params"],
-                                              local, n_micro)
-            grads = _own_storage(grads)
+            grads, metrics = _block_grads(grad_fn, state["params"], local,
+                                          cfg, mesh, p_specs, n_micro)
+            grads = shd.unplace(grads, p_specs, mesh)
             tel.block(leaves(grads)[:1])  # one stream: one wait
         with tel.span("train/reduce", cat="train"):
             _reduce_grads(grads, state["err"], group, compress=compress,
@@ -295,71 +500,10 @@ def make_dp_step_compressed(
         with tel.span("train/update", cat="train"):
             gnorm = (clip_by_global_norm_(grads, clip_norm) if clip_norm
                      else global_norm(grads))
-            optimizer.update_(grads, state["opt"], state["params"],
-                              state["step"])
+            optimizer.update_(_blocks(grads, p_specs, mesh), state["opt"],
+                              state["params"], state["step"])
             state["step"].add_(1)
             tel.block(gnorm)
         return state, {**_pmean(metrics, group), "grad_norm": gnorm}
 
-    return step
-
-
-def make_multipod_train_step(
-    loss_fn: Callable,
-    optimizer: Optimizer,
-    cfg,
-    mesh,
-    state_shapes: Any = None,
-    *,
-    scheme: str = "gather",
-    compress: bool = True,
-    clip_norm: float = 1.0,
-    n_micro: int = 1,
-):
-    """Compressed multi-pod data-parallel training over a
-    ("pod", "data", "model") mesh with data = model = 1. Three stages a
-    step, as the reference's:
-
-      A. this pod's gradients over its rows of the global batch, with
-         `accumulate_grads` over `n_micro` micro-batches;
-      B. the cross-pod reduction through the selected
-         `dist.compression` scheme over the pod group;
-      C. clip and update (donated: `clip_by_global_norm_`,
-         `Optimizer.update_`); the metrics averaged over the pods.
-
-    Returns (step, state_shardings): `step(state, batch) -> (state,
-    metrics)` is what `fault.run_training` drives; `state_shardings`
-    (`NamedSharding`s mirroring `state_shapes`, a state tree including
-    "err"; None without it) tells `checkpoint.save` / `restore` that the
-    error buffers are per-pod blocks ("pod" on their leading dim) and the
-    rest replicated.
-
-    An in-pod axis larger than 1 raises: placing the params and the
-    batch over data and model (FSDP, TP) is ROADMAP.md queue 1 item 8c.
-    """
-    sizes = shd.axis_sizes(mesh)
-    if "pod" not in sizes:
-        raise ValueError(
-            f"make_multipod_train_step needs a 'pod' mesh axis, got "
-            f"{tuple(sizes)} (launch.mesh.make_multipod_mesh)"
-        )
-    in_pod = sizes.get("data", 1) * sizes.get("model", 1)
-    if in_pod > 1:
-        raise ValueError(
-            f"multi-pod with in-pod data x model = {in_pod}: the placement "
-            f"of parameters over 'data' and 'model' is not ported yet "
-            f"(ROADMAP.md queue 1 item 8c); use PxD with D = 1"
-        )
-    if compress and scheme not in _SCHEMES:
-        raise ValueError(f"scheme {scheme!r}: expected one of {_SCHEMES}")
-    shardings = None
-    if state_shapes is not None:
-        core = {k: state_shapes[k] for k in ("params", "opt", "step")}
-        specs = {**state_specs(core, cfg, mesh),
-                 "err": tree_map(lambda _: ("pod",), state_shapes["err"])}
-        shardings = shd.named(specs, mesh)
-    step = make_dp_step_compressed(
-        loss_fn, optimizer, mesh, axis="pod", clip_norm=clip_norm,
-        compress=compress, scheme=scheme, n_micro=n_micro,
-    )
     return step, shardings

@@ -27,6 +27,33 @@ decode step on a DxM `make_smoke_mesh`, greedy, for each case of IN
 float32 or packed params, `prompts`, `new`): the prefill's and every
 decode step's logits and the tokens; also `sharded_generate`'s tokens.
 One process a mesh.
+
+    ... python tests/_dist_reference.py inpod PROC IN.npz OUT.npz
+
+`inpod`: 3 steps of `trainer.make_multipod_train_step` on a PxDxM mesh
+with D·M > 1 (the parameters placed over `data` and `model` by
+`param_specs`, the moments mirroring them) for each case of IN of the
+process (`cases`: tag, config name, mode — gather, two_stage or f32 —,
+"multipod" or "sharded", the mesh, the process that runs it: PROC, and
+W, the warm-up steps); "sharded" runs `make_sharded_train_step` on a 2x2
+("data", "model") smoke mesh; `<tag>/params/<path>` the float32 params
+(and where W > 0 `<tag>/opt/{m,v}/<path>` and `<tag>/step`, the state W
+steps left on one process), `batch/<i>/<key>` the batches, of which a
+case takes W to W + 2; each step's metrics, the first step's error
+buffers and the final state gathered. A few cases a process, so that they compile
+at once.
+
+    ... python tests/_dist_reference.py spread
+
+`spread`: the reference against itself, the measurement behind the
+in-pod test's warm start for recurrentgemma. The reduced recurrentgemma
+in float32 from its own draw (`init(PRNGKey(0))`) and its own
+`TokenStream(batch=8, seq_len=16, seed=0)`, AdamW 3e-3:
+`make_multipod_train_step` on 1x1x1 and on 1x2x2, 3 steps each, from the
+draw (batches 0-2) and from the state 3 single-device steps leave
+(batches 3-5). Prints, for each start, the largest difference between
+the two layouts' params, m and v after the 3 steps, over each tree's
+max.
 """
 
 import os
@@ -205,10 +232,119 @@ def decode(spec: str, inp: str, outp: str) -> None:
     np.savez(outp, **out)
 
 
+def _params_from(data: dict, prefix: str, shapes):
+    paths, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    return jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(data[prefix + "/".join(str(k.key) for k in kp)])
+        for kp, _ in paths])
+
+
+def inpod(proc: str, inp: str, outp: str) -> None:
+    from repro import configs, optim
+    from repro.launch.mesh import make_multipod_mesh, make_smoke_mesh
+    from repro.models import api
+    from repro.train import trainer
+
+    data = dict(np.load(inp))
+    out = {}
+    for case in data["cases"]:
+        tag, name, mode, kind, spec, where, warm = (str(x) for x in case)
+        if where != proc:
+            continue
+        cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+        model = api.build_model(cfg, tp=1, max_seq=32)
+        shapes = jax.eval_shape(
+            lambda model=model: model.init(jax.random.PRNGKey(0)))
+        params = _params_from(data, f"{tag}/params/", shapes)
+        batches = [{k.split("/")[-1]: jnp.asarray(v) for k, v in data.items()
+                    if k.startswith(f"batch/{i}/")}
+                   for i in range(int(warm), int(warm) + STEPS)]
+        opt = optim.adamw(3e-3)
+        state = trainer.init_state(params, opt)
+        if int(warm):  # the warm state's moments and step
+            state["opt"] = {k: _params_from(data, f"{tag}/opt/{k}/", shapes)
+                            for k in ("m", "v")}
+            state["step"] = jnp.asarray(data[f"{tag}/step"], jnp.int32)
+        if kind == "sharded":
+            mesh = make_smoke_mesh(2, 2)
+            step, s_shard, b_shard = trainer.make_sharded_train_step(
+                model.loss, opt, cfg, mesh, jax.eval_shape(lambda: state),
+                jax.eval_shape(lambda: batches[0]), clip_norm=1.0)
+            state = jax.device_put(state, s_shard)
+            batches = [jax.device_put(b, b_shard) for b in batches]
+        else:
+            compress = mode != "f32"
+            scheme = mode if compress else "gather"
+            mesh = make_multipod_mesh(spec)
+            state["err"] = trainer.init_dp_err(
+                params, mesh, scheme=scheme, compress=compress)
+            step, s_shard = trainer.make_multipod_train_step(
+                model.loss, opt, cfg, mesh, jax.eval_shape(lambda: state),
+                scheme=scheme, compress=compress)
+            state = jax.device_put(state, s_shard)
+        for i, batch in enumerate(batches):
+            state, m = step(state, batch)
+            for k, v in m.items():
+                out[f"{tag}/metrics/{k}/{i}"] = np.asarray(v)
+            if i == 0 and "err" in state:
+                _flat(f"{tag}/step0/err", state["err"], out)
+        _flat(f"{tag}/state", state, out)
+    np.savez(outp, **out)
+
+
+def spread() -> None:
+    import json
+
+    from repro import configs, optim
+    from repro.data import lm
+    from repro.launch.mesh import make_multipod_mesh
+    from repro.models import api
+    from repro.train import trainer
+
+    cfg = dataclasses.replace(configs.reduced("recurrentgemma_2b"),
+                              dtype="float32")
+    model = api.build_model(cfg, tp=1, max_seq=32)
+    opt = optim.adamw(3e-3)
+    stream = lm.TokenStream(batch=8, seq_len=16, vocab=cfg.vocab, seed=0)
+    cold = trainer.init_state(model.init(jax.random.PRNGKey(0)), opt)
+    warm = jax.tree.map(jnp.copy, cold)
+    one = jax.jit(trainer.make_train_step(model.loss, opt))
+    for i in range(STEPS):
+        warm, _ = one(warm, stream.batch_at(i))
+    for name, start, first in (("draw", cold, 0), ("warm", warm, STEPS)):
+        finals = {}
+        for spec in ("1x1x1", "1x2x2"):
+            mesh = make_multipod_mesh(spec)
+            state = jax.tree.map(jnp.copy, start)
+            state["err"] = trainer.init_dp_err(state["params"], mesh,
+                                               compress=False)
+            step, sh = trainer.make_multipod_train_step(
+                model.loss, opt, cfg, mesh, jax.eval_shape(lambda: state),
+                compress=False)
+            state = jax.device_put(state, sh)
+            for i in range(first, first + STEPS):
+                state, _ = step(state, stream.batch_at(i))
+            finals[spec] = state
+        rec = {"start": name}
+        for part, get in (("params", lambda s: s["params"]),
+                          ("m", lambda s: s["opt"]["m"]),
+                          ("v", lambda s: s["opt"]["v"])):
+            a = [np.asarray(x) for x in jax.tree.leaves(get(finals["1x1x1"]))]
+            b = [np.asarray(x) for x in jax.tree.leaves(get(finals["1x2x2"]))]
+            top = max(float(np.abs(y).max()) for y in b)
+            rec[part] = max(float(np.abs(x - y).max())
+                            for x, y in zip(a, b)) / top
+        print(json.dumps(rec))
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "compression":
         compression(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "decode":
         decode(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif sys.argv[1] == "inpod":
+        inpod(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif sys.argv[1] == "spread":
+        spread()
     else:
         multipod(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])

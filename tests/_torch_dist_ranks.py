@@ -574,3 +574,323 @@ def serving(inputs: dict) -> dict | None:
     _placement(out)
     _entry(out)
     return out if _spawn.rank() == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Training over data and model (make_multipod_train_step at D·M > 1,
+# make_sharded_train_step)
+# ---------------------------------------------------------------------------
+
+# tag, config, mode (gather | two_stage | f32), step, mesh, reference
+# process (tests/_dist_reference.py inpod), warm-up steps: the held steps
+# start from the state that many steps on one process leave (the
+# batches after them), else from the draw
+INPOD_CASES = (
+    ("qwen3_f32", "qwen3_8b", "f32", "multipod", "1x2x2", "a", 0),
+    ("qwen3_sharded", "qwen3_8b", "f32", "sharded", "2x2", "a", 0),
+    ("rg_f32", "recurrentgemma_2b", "f32", "multipod", "1x2x2", "b", 3),
+    ("qwen3_gather", "qwen3_8b", "gather", "multipod", "2x2x1", "c", 0),
+    ("qwen3_two_stage", "qwen3_8b", "two_stage", "multipod", "2x1x2", "d",
+     0),
+    ("olmoe_f32", "olmoe_1b_7b", "f32", "multipod", "1x4x1", "e", 0),
+)
+TRAIN_COMM_ENVELOPE = 512  # the reference's _TRAIN_COMM_ENVELOPE, a kind
+
+
+def _meta(tree):
+    return tree_map(lambda x: torch.empty_like(x, device="meta"), tree)
+
+
+def warm_state(name: str, batches: list) -> dict:
+    """The numpy state (params, AdamW's m and v, step) that one process's
+    donated steps on `batches` leave from the reduced config's draw (seed
+    0) in float32, AdamW 3e-3."""
+    cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+    model = api.build_model(cfg, tp=1, max_seq=32)
+    opt = optim.adamw(3e-3)
+    state = trainer.init_state(model.init(0, device="cpu"), opt,
+                               device="cpu")
+    step = trainer.make_train_step(model.loss, opt, clip_norm=1.0,
+                                   donate=True)
+    for b in batches:
+        state, _ = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+    return tree_map(lambda x: np.array(x.numpy()), {
+        "params": state["params"], "opt": state["opt"],
+        "step": state["step"]})
+
+
+def inpod_setup(name: str, params_np: dict, spec: str, mode: str,
+                kind: str = "multipod", warm: dict | None = None,
+                **overrides):
+    """(cfg, model, opt, step, shardings, state of this rank's blocks,
+    mesh) for one in-pod case from the global float32 params (and the
+    `warm` moments and step, where given; `overrides` replace config
+    fields), as `launch.train` builds it; the mesh's ranks only (others
+    get None)."""
+    from repro_torch.dist import sharding as shd
+
+    cfg = dataclasses.replace(configs.reduced(name), dtype="float32",
+                              **overrides)
+    model = api.build_model(cfg, tp=1, max_seq=32)
+    opt = optim.adamw(3e-3)
+    params = convert.lm_params_from_numpy(params_np, device="cpu")
+    shapes = {"params": _meta(params), "opt": opt.init(_meta(params)),
+              "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if kind == "sharded":
+        mesh = make_smoke_mesh(*(int(x) for x in spec.split("x")), "cpu")
+        if mesh.get_coordinate() is None:
+            return None
+        batch = {"tokens": torch.zeros((8, 16), dtype=torch.int32),
+                 "targets": torch.zeros((8, 16), dtype=torch.int32)}
+        step, sh, _ = trainer.make_sharded_train_step(
+            model.loss, opt, cfg, mesh, shapes, batch)
+        err = None
+    else:
+        mesh = make_multipod_mesh(spec, "cpu")
+        if mesh.get_coordinate() is None:
+            return None
+        compress = mode != "f32"
+        scheme = mode if compress else "gather"
+        err = trainer.init_dp_err(params, mesh, scheme=scheme,
+                                  compress=compress)
+        step, sh = trainer.make_multipod_train_step(
+            model.loss, opt, cfg, mesh, {**shapes, "err": err},
+            scheme=scheme, compress=compress)
+    placed = shd.place(params, tree_map(lambda s: s.spec, sh["params"]), mesh)
+    state = trainer.init_state(placed, opt, device="cpu")
+    if warm is not None:
+        moments = {k: convert.lm_params_from_numpy(v, device="cpu")
+                   for k, v in warm["opt"].items()}
+        state["opt"] = shd.place(moments, tree_map(lambda s: s.spec,
+                                                   sh["opt"]), mesh)
+        state["step"] = torch.tensor(int(warm["step"]), dtype=torch.int32)
+    if err is not None:
+        state["err"] = err
+    return cfg, model, opt, step, sh, state, mesh
+
+
+def _inpod_runs(inputs: dict, out: dict) -> None:
+    """Each case of INPOD_CASES: 3 steps on its mesh from the reference's
+    params and batches; the metrics, the first step's error buffers and
+    the final state, gathered to the global layout."""
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in inputs["batches"]]
+    for tag, name, mode, kind, spec, _, warm in INPOD_CASES:
+        got = inpod_setup(name, inputs["params"][tag], spec, mode, kind,
+                          inputs["warm"].get(tag))
+        if got is None:
+            continue
+        _, _, _, step, sh, state, _ = got
+        for i, b in enumerate(batches[warm:warm + STEPS]):
+            state, m = step(state, b)
+            for k, v in m.items():
+                out[f"{tag}/metrics/{k}/{i}"] = float(v)
+            if i == 0 and "err" in state:
+                for k, v in ckpt._flatten({"err": state["err"]},
+                                          {"err": sh["err"]}).items():
+                    out[f"{tag}/step0/{k}"] = v
+        for k, v in ckpt._flatten(state, sh).items():
+            out[f"{tag}/state/{k}"] = v
+
+
+def _adjoints(out: dict) -> None:
+    """Each collective's gradient on a 2x2 ("data", "model") mesh, in
+    float64, against the adjoint worked out by hand (the table in
+    `dist.sharding`): the largest difference from it, per collective."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = make_smoke_mesh(2, 2, "cpu")
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    cfg = configs.reduced("qwen3_8b")
+    gen = torch.Generator().manual_seed(11)
+    # every rank draws the same numbers and picks its own by coordinate
+    w = torch.randn((2, 2, 4, 6), generator=gen, dtype=torch.float64)
+    x = torch.randn((2, 2, 4, 6), generator=gen, dtype=torch.float64)
+
+    def grad(fn, x0, specs=None):
+        x0 = x0.clone().requires_grad_(True)
+        with shd.activation_context(cfg, mesh, specs=specs):
+            (g,) = torch.autograd.grad(fn(x0), x0)
+        return g
+
+    def gap(a, b) -> float:
+        return float((a - b).abs().max())
+
+    err = {}
+    # reduce_model: partials -> their sum; each partial's gradient is the
+    # replicated upstream gradient
+    g = grad(lambda t: (shd.reduce_model(t) * w[d, 0]).sum(), x[d, m])
+    err["reduce_model"] = gap(g, w[d, 0])
+    # gather_model: this rank's block of the replicated upstream gradient
+    up = w[d, 0].repeat(1, 2)  # (4, 12), the same on both model ranks
+    g = grad(lambda t: (shd.gather_model(t, -1) * up).sum(), x[d, m])
+    err["gather_model"] = gap(g, up[:, 6 * m:6 * m + 6])
+    # model_block: every rank's block gradient, all-gathered whole
+    g = grad(lambda t: (shd.model_block(t, -1) * w[d, m, :, :3]).sum(),
+             x[d, 0])
+    err["model_block"] = gap(g, torch.cat([w[d, r, :, :3] for r in (0, 1)],
+                                          dim=-1))
+    # enter_model: the ranks' partial gradients summed over model
+    g = grad(lambda t: (shd.enter_model(t) * w[d, m]).sum(), x[d, 0])
+    err["enter_model"] = gap(g, w[d, 0] + w[d, 1])
+    # gather_block: an FSDP leaf's gradient summed over data into this
+    # rank's block (a leaf split on its rows, one on its columns)
+    specs = {"a": {"w": ("data", None)}, "b": {"w": (None, "data")}}
+    wa = [w[r].reshape(8, 6) for r in (0, 1)]  # data rank r's upstream
+    wb = [w[r].reshape(4, 12) for r in (0, 1)]
+
+    def gb(t):
+        got = shd.gather_block({"a": {"w": t}, "b": {"w": 2 * t}}, specs)
+        return (got["a"]["w"] * wa[d]).sum() + (got["b"]["w"] * wb[d]).sum()
+
+    g = grad(gb, x[d, m], specs)
+    want = (wa[0] + wa[1])[4 * d:4 * d + 4] + \
+        2 * (wb[0] + wb[1])[:, 6 * d:6 * d + 6]
+    err["gather_block"] = gap(g, want)
+    out["adjoint_err"] = err
+
+
+def _keyed(tree) -> dict:
+    """'/'-joined path -> leaf (None leaves skipped), `ckpt._flatten`'s
+    keys."""
+    from repro_torch._tree import map_with_path
+
+    got: dict = {}
+    map_with_path(lambda path, x: got.__setitem__("/".join(path), x)
+                  if x is not None else None, tree)
+    return got
+
+
+def _replicated_grads_and_whole(inputs: dict, out: dict) -> None:
+    """On 1x2x2: stage A's gradients (trainer._block_grads) — every leaf
+    that no axis splits equal on all 4 ranks bit for bit, and the blocks
+    gathered whole against one process's gradient on the whole batch;
+    the collectives of the step's forward and backward, by kind. Also
+    qwen3 with its CE chunked over S (4 positions a chunk)."""
+    from repro_torch.dist import sharding as shd
+
+    for tag, src, extra in (("qwen3_f32", "qwen3_f32", {}),
+                            ("rg_f32", "rg_f32", {}),
+                            ("qwen3_chunked", "qwen3_f32",
+                             {"loss_chunk": 4})):
+        name = dict((t, n) for t, n, *_ in INPOD_CASES)[src]
+        cfg, model, _, _, sh, state, mesh = inpod_setup(
+            name, inputs["params"][src], "1x2x2", "f32", "multipod",
+            inputs["warm"].get(src), **extra)
+        specs = tree_map(lambda s: s.spec, sh["params"])
+        batch = {k: torch.from_numpy(v) for k, v in
+                 inputs["batches"][0].items()}
+        shd.reset_comm()
+        grads, _ = trainer._block_grads(
+            trainer._grad_fn(model.loss), state["params"],
+            trainer._rows(batch, mesh), cfg, mesh, specs, 1)
+        out[f"{tag}/comm"] = dict(shd.comm_calls)
+        same = True
+        for g, spec in zip(leaves(grads), leaves(specs)):
+            if shd.spec_shard_factor(spec, mesh) == 1:
+                ref = g.clone()
+                dist.broadcast(ref, src=0)
+                same &= bool(torch.equal(ref, g))
+        out[f"{tag}/replicated_equal"] = _all_ranks_true(same)
+        whole = shd.unplace(grads, specs, mesh)
+        params = convert.lm_params_from_numpy(inputs["params"][src], "cpu")
+        one, _ = trainer._grad_fn(model.loss)(params, batch)
+        out[f"{tag}/whole_vs_one"] = max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(leaves(whole), leaves(one)))
+
+
+def _kill_resume_inpod(inputs: dict, tmp: str, out: dict) -> None:
+    """1x2x2 (two_stage) under fault.run_training with restore_shardings:
+    killed after 5 steps and resumed against the uninterrupted 8; then
+    its checkpoint restored on 1x4x1 and (rank 0) unsharded, each equal
+    bit for bit to the saved global arrays."""
+    from repro_torch.data import lm
+    from repro_torch.dist import sharding as shd
+
+    params_np = inputs["params"]["qwen3_f32"]
+    cfg, model, opt, step, sh, state0, mesh = inpod_setup(
+        "qwen3_8b", params_np, "1x2x2", "two_stage")
+    stream = lm.TokenStream(batch=8, seq_len=16, vocab=cfg.vocab, seed=0,
+                            device="cpu")
+    fresh = lambda: tree_map(torch.clone, state0)  # noqa: E731
+    d1, d2 = (os.path.join(tmp, x) for x in ("inpod_a", "inpod_b"))
+    kw = dict(ckpt_every=3, log_every=0, restore_shardings=sh)
+    final1, hist1 = fault.run_training(
+        step, fresh(), stream.batch_at, num_steps=8, ckpt_dir=d1, **kw)
+    fault.run_training(
+        step, fresh(), stream.batch_at, num_steps=5, ckpt_dir=d2, **kw)
+    final2, hist2 = fault.run_training(
+        step, fresh(), stream.batch_at, num_steps=8, ckpt_dir=d2, **kw)
+    ok = (hist2[0]["step"] == 5
+          and [h["loss"] for h in hist1 if h["step"] >= 5]
+          == [h["loss"] for h in hist2]
+          and _runs_equal(final1, final2))
+    out["inpod_kill_resume_bitwise"] = _all_ranks_true(ok)
+    out["inpod_kill_resume_losses"] = [h["loss"] for h in hist1]
+    out["inpod_ckpt_dir"] = d1
+
+    saved = dict(np.load(os.path.join(d1, "step_00000008", "arrays.npz")))
+    got = inpod_setup("qwen3_8b", params_np, "1x4x1", "two_stage")
+    _, _, _, _, sh4, like4, mesh4 = got
+    back, s = ckpt.restore(d1, like4, shardings=sh4)
+    specs4 = tree_map(lambda x: x.spec, sh4)
+    # each rank's block is the saved array's block under the 1x4x1 specs
+    blocks = ckpt._flatten(back)
+    same = s == 8 and sorted(blocks) == sorted(saved) and all(
+        np.array_equal(blocks[k], np.asarray(shd.shard_local(
+            saved[k], spec, mesh4)))
+        for k, spec in _keyed(specs4).items())
+    gathered = ckpt._flatten(back, sh4)
+    same &= all(np.array_equal(gathered[k], saved[k]) for k in saved)
+    out["inpod_elastic_1x4x1"] = _all_ranks_true(bool(same))
+    if _spawn.rank() == 0:
+        whole = {"params": convert.lm_params_from_numpy(params_np, "cpu")}
+        whole["opt"] = opt.init(whole["params"])
+        whole["step"] = torch.zeros((), dtype=torch.int32)
+        whole["err"] = tree_map(torch.zeros_like, state0["err"])
+        back, s = ckpt.restore(d1, whole)
+        flat = ckpt._flatten(back)
+        out["inpod_elastic_unsharded"] = s == 8 and sorted(flat) == sorted(
+            saved) and all(np.array_equal(flat[k], saved[k]) for k in saved)
+
+
+def _entry_inpod(out: dict) -> None:
+    """launch.train --multi-pod 1x2x2 / 2x2x1 / 2x1x2 through `main` in
+    this group: each rank's final state holds its blocks."""
+    from repro_torch.launch import train as launch_train
+
+    base = ["--arch", "qwen3-8b", "--reduced", "--steps", "2", "--batch",
+            "8", "--seq", "16", "--log-every", "0"]
+    for spec, extra in (("1x2x2", ["--no-compress"]),
+                        ("2x2x1", ["--scheme", "gather"]),
+                        ("2x1x2", ["--scheme", "two_stage"])):
+        rec = launch_train.main([*base, "--multi-pod", spec, *extra],
+                                device="cpu")
+        if rec is not None:
+            st = rec["state"]
+            out[f"launch_{spec}"] = {
+                "losses": [h["loss"] for h in rec["history"]],
+                "grad_norms": [h["grad_norm"] for h in rec["history"]],
+                "step": int(st["step"]),
+                "err_keys": sorted(st["err"]),
+                "wq": tuple(st["params"]["blocks"]["pos0"]["mix"]["wq"][
+                    "w"].shape),
+                "m_wq": tuple(st["opt"]["m"]["blocks"]["pos0"]["mix"]["wq"][
+                    "w"].shape),
+                "err_wq": tuple(st["err"]["s1"]["blocks"]["pos0"]["mix"][
+                    "wq"]["w"].shape) if st["err"] else None}
+
+
+def inpod(inputs: dict, tmp: str) -> dict | None:
+    """The in-pod training on 4 ranks: the cases held against the
+    reference, the adjoints, the replicated gradients, the step's
+    collectives, kill-and-resume, the elastic restores and the
+    launcher."""
+    out: dict = {}
+    _inpod_runs(inputs, out)
+    _adjoints(out)
+    _replicated_grads_and_whole(inputs, out)
+    _kill_resume_inpod(inputs, tmp, out)
+    _entry_inpod(out)
+    return out if _spawn.rank() == 0 else None

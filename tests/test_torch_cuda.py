@@ -1081,3 +1081,38 @@ def test_tp_halves_of_a_packed_layer_on_one_card(cuda):
     assert rec["backend"] == "nccl"
     assert rec["param_bytes_placed"] == rec["param_bytes_per_device"]
     assert rec["tokens"] == launch_serve.main(argv)["tokens"]
+
+
+def test_sharded_train_step_on_one_card_equals_the_donated_step(cuda):
+    """`trainer.make_sharded_train_step` on a 1x1 ("data", "model") mesh
+    in a world-1 NCCL group (the activation context, the spec tree, the
+    sharded norm; every in-pod collective bypassed) against the donated
+    single-card step from the same warm state on the same batch: loss,
+    grad norm, params, m and v within 1e-6 (each computes its own
+    gradients), and no in-pod collective handed over."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import _spawn
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    model, opt, _, state, batch_at = _lm_train_setup("qwen3_8b", cuda)
+    batch = {k: v.to(cuda) for k, v in batch_at(3).items()}
+    donated = trainer.make_train_step(model.loss, opt, clip_norm=1.0,
+                                      donate=True)
+    want, m_want = donated(tree_map(lambda v: v.to(cuda), state), batch)
+    with _spawn.process_group("cuda", timeout_s=120):
+        mesh = make_smoke_mesh(1, 1, "cuda")
+        on_card = tree_map(lambda v: v.to(cuda), state)
+        step, sh, _ = trainer.make_sharded_train_step(
+            model.loss, opt, model.cfg, mesh, on_card, batch)
+        shd.reset_comm()
+        got, m_got = step(on_card, batch)
+        torch.cuda.synchronize()
+        assert shd.comm_calls == {}
+    assert sh["params"]["embed"]["w"].spec == ("model", "data")
+    for key in ("loss", "grad_norm"):
+        assert float(m_got[key]) == pytest.approx(float(m_want[key]),
+                                                  rel=1e-6)
+    assert int(got["step"]) == 4
+    assert _rel_tree(got["params"], want["params"]) <= 1e-6
+    for k in ("m", "v"):
+        assert _rel_tree(got["opt"][k], want["opt"][k]) <= 1e-6

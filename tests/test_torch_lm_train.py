@@ -433,11 +433,12 @@ def test_launch_train_va_and_the_refused_flags(capsys):
                         "--log-every", "0"], device="cpu")
     assert len(out["history"]) == 3
     assert all(np.isfinite(h["loss"]) for h in out["history"])
-    # --multi-pod, --scheme and --no-compress are ported (test_torch_multipod.py);
-    # in-pod axes larger than 1 still refuse
-    for spec in ("2x2x2", "2x2"):
+    # --multi-pod, --scheme and --no-compress are ported
+    # (test_torch_multipod.py), in-pod axes too (test_torch_inpod_train.py);
+    # MoE at model > 1 and whisper over the in-pod axes still refuse
+    for arch, spec in (("olmoe-1b-7b", "2x2x2"), ("whisper-tiny", "2x2")):
         with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--multi-pod",
+            tlaunch.main(["--arch", arch, "--reduced", "--multi-pod",
                           spec], device="cpu")
         assert "ROADMAP.md queue 1 item 8c" in capsys.readouterr().err
 

@@ -11,7 +11,9 @@ recurrentgemma-2b's full width, examples.train_lm), and the pod and data
 axes over NCCL (launch.train --multi-pod 1x1x1 at recurrentgemma-2b's
 full CONFIG through the unified multi-pod step that places params over
 data and model, the multi-pod step card against CPU, the data-sharded
-fleet runner) on one CUDA card.
+fleet runner), sharded serving (launch.serve --mesh 1) and the frontends
+over a mesh (launch.serve --listen --mesh 1, the rank-coordinated stream
+frontend on a data mesh) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -107,7 +109,8 @@ toolkit. Phases, each printing JSON lines:
    bfloat16, --page-size 16 --chunk-tokens 16) in a server process and
    launch.serve --connect offering 6 requests at 4 req/s from this one
    (6 completed, 16 tokens each, SIGINT stops the server with exit
-   status 0; latency per request and tokens/s recorded); lm_paged —
+   status 0; latency per request, tokens/s and the server's peak memory
+   recorded); lm_paged —
    qwen3-8b's full width cut to 8 layers, at 8 bits, a dense and a paged
    Engine (both chunked) on the same 8 requests, prompts either side of
    the page boundaries: identical tokens and schedules, every decode
@@ -160,6 +163,18 @@ toolkit. Phases, each printing JSON lines:
    budget, peak below the card's; the decode step's wall, device ms and
    kernels (LM_PROFILE_STEPS steps under the profiler), the sharded
    prefill against the unsharded one on the same params;
+   lm_frontend_mesh — launch.serve --listen --mesh 1 (lm_frontend's
+   flags: the sharded engine on a world-1 NCCL mesh behind the socket,
+   rank 0's driver records over a gloo control group) and --connect
+   offering 6 requests at 4 req/s: all completed with 16 tokens, the
+   tokens lm_frontend gave each uid, no collective, a record a
+   tick or more, latency, peak memory, SIGINT to status 0 and no process
+   left; stream_frontend_mesh — the rank-coordinated stream frontend in
+   process on a 1-rank NCCL ("data",) mesh (kernel-path FleetRunner,
+   RankRecords), 64 x 4 segments in 4 waves through an InProcClient:
+   every segment
+   acked, enqueued == packed, nm_spmm launched 7 a flushed bucket, each
+   bucket's predictions equal the unsharded runner's;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -287,14 +302,20 @@ LM_PLAIN_F32_RTOL = 1e-3
 REDUCED_RTOL = 1e-4  # reduced float32 config, card against CPU, of max|logit|
 # the serving frontend: launch.serve --listen at qwen3-8b's full CONFIG
 # (dense bfloat16, as the reference's --listen serves it; max_seq 66
-# rounded up to 80: 5 pages a slot, 21 in the pool), and the client (6
-# requests: cut from 12 to pay for the lm_train phase)
+# rounded up to 80: 5 pages a slot, 21 in the pool), and the client: 6
+# requests (cut from 12 to pay for lm_train), the same uids lm_frontend_mesh
+# serves, so that all of its tokens are held against these
 LM_FRONTEND_SERVER = ("--arch", "qwen3-8b", "--listen", "127.0.0.1:0",
                       "--batch", "4", "--prompt-len", "48", "--max-new", "16",
                       "--page-size", "16", "--chunk-tokens", "16")
 LM_FRONTEND_CLIENT = ("--arch", "qwen3-8b", "--load-requests", "6",
                       "--offered-rate", "4", "--prompt-len", "48",
                       "--max-new", "16")
+# the same server over a 1-rank mesh (NCCL, world 1: the sharded engine
+# behind the socket, rank 0's driver records), offered lm_frontend's
+# requests; each must get lm_frontend's tokens
+LM_FRONTEND_MESH_SERVER = LM_FRONTEND_SERVER + ("--mesh", "1")
+LM_FRONTEND_MESH_CLIENT = LM_FRONTEND_CLIENT
 # dense against paged Engine at qwen3-8b's full width (d_model 4096,
 # vocab 151936) cut to PAGED_LAYERS of its 36 layers to pay for the lm_train
 # and lm_sharded phases, 8 bits: prompt lengths either side of the page
@@ -311,6 +332,10 @@ STREAM_FRONTEND_SERVER = ("--listen", "127.0.0.1:0", "--path", "kernel",
                           "--patients", "256")
 STREAM_FRONTEND_CLIENT = ("--patients", "256", "--segments", "8",
                           "--offered-rate", "2000")
+# the rank-coordinated stream frontend on a 1-rank NCCL ("data",) mesh, in
+# process: patients x segments, launch.stream's default buckets
+STREAM_MESH_PATIENTS, STREAM_MESH_SEGMENTS = 64, 4
+STREAM_BUCKETS = (8, 32, 128, 256)
 # LM training: launch.train at recurrentgemma-2b's full CONFIG (the
 # reference's defaults: batch 16, seq 64, AdamW, warmup 20, clip 1.0, the
 # config's bfloat16 compute over float32 masters, block remat; the step
@@ -1161,6 +1186,7 @@ def lm_frontend(torch, dev, smi) -> dict:
     out = {"phase": "lm_frontend", "entry": "repro_torch.launch.serve",
            "server_argv": list(LM_FRONTEND_SERVER),
            "client_argv": ["--connect", addr, *LM_FRONTEND_CLIENT], "card": smi,
+           "tokens": {r["uid"]: r["tokens"] for r in rec["results"]},
            "n_layers": full.n_layers, "d_model": full.d_model,
            "server_start_s": start_s, "client_s": client_s,
            "completed": rec["completed"], "rejected": rec["rejected"],
@@ -1169,6 +1195,7 @@ def lm_frontend(torch, dev, smi) -> dict:
            "latency_s_per_request": [r["latency_s"] for r in rec["results"]],
            "latency_s_median": statistics.median(lat), "latency_s_max": lat[-1],
            "server_stats": stats, "server_tail": seen[-4:],
+           "peak_device_bytes": stats.get("peak_device_bytes"),
            "seconds": time.perf_counter() - t0}
     emit(out)
     check(rec["completed"] == n_req and rec["rejected"] == 0,
@@ -1178,6 +1205,98 @@ def lm_frontend(torch, dev, smi) -> dict:
           "lm_frontend: a request came back short")
     check(stats.get("lm_completed") == n_req and stats.get("lm_pending") == 0,
           f"lm_frontend: the server's stats {stats}")
+    return out
+
+
+def _children(pid: int) -> set:
+    """The pids whose parent is `pid` (read from /proc)."""
+    import os
+
+    out = set()
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.add(int(d))
+            except (OSError, ValueError, IndexError):
+                pass
+    return out
+
+
+def lm_frontend_mesh(torch, dev, smi, unsharded: dict) -> dict:
+    """launch.serve --listen --mesh 1 at qwen3-8b's full CONFIG (dense
+    bfloat16, lm_frontend's flags) in a server process: the sharded engine
+    on a world-1 NCCL mesh behind the socket, its driver sending a record
+    a pass over the gloo control group; launch.serve --connect offers
+    LM_FRONTEND_MESH_CLIENT's requests (lm_frontend's). Every request
+    completes with its max_new tokens, each equal to those lm_frontend's
+    server gave the same uid (`unsharded`); no collective at world 1;
+    SIGINT stops it with status 0 and leaves none of its processes."""
+    import os
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+
+    free_card(torch, dev)
+    t0 = time.perf_counter()
+    proc, addr, seen, lines, start_s = start_server(
+        "repro_torch.launch.serve", LM_FRONTEND_MESH_SERVER,
+        "launch.serve --listen --mesh 1")
+    kids = _children(proc.pid)
+    try:
+        t1 = time.perf_counter()
+        rec = launch_serve.main(["--connect", addr, *LM_FRONTEND_MESH_CLIENT])
+        client_s = time.perf_counter() - t1
+        kids |= _children(proc.pid)
+    finally:
+        stats = stop_server(proc, seen, lines,
+                            "launch.serve --listen --mesh 1")
+    time.sleep(1.0)
+    left = sorted(p for p in kids if os.path.exists(f"/proc/{p}"))
+    args = LM_FRONTEND_MESH_CLIENT
+    n_req = int(args[args.index("--load-requests") + 1])
+    max_new = int(args[args.index("--max-new") + 1])
+    full = configs.get("qwen3-8b")
+    lat = sorted(r["latency_s"] for r in rec["results"])
+    tokens = {r["uid"]: r["tokens"] for r in rec["results"]}
+    same = {uid: tokens.get(uid) == toks
+            for uid, toks in unsharded["tokens"].items()}
+    same.update({uid: False for uid in tokens if uid not in same})
+    ticks = stats.get("ticks", 0)
+    out = {"phase": "lm_frontend_mesh", "entry": "repro_torch.launch.serve",
+           "server_argv": list(LM_FRONTEND_MESH_SERVER),
+           "client_argv": ["--connect", addr, *args], "card": smi,
+           "n_layers": full.n_layers, "d_model": full.d_model,
+           "server_start_s": start_s, "client_s": client_s,
+           "completed": rec["completed"], "rejected": rec["rejected"],
+           "reasons": rec["reasons"], "wall_s": rec["wall_s"],
+           "tok_per_s": rec["tok_per_s"],
+           "latency_s_per_request": [r["latency_s"] for r in rec["results"]],
+           "latency_s_median": statistics.median(lat),
+           "latency_s_max": lat[-1],
+           "tokens_equal_lm_frontend": same,
+           "records": stats.get("records"), "ticks": ticks,
+           "records_per_tick": stats.get("records", 0) / max(ticks, 1),
+           "comm_calls": stats.get("comm_calls"),
+           "peak_device_bytes": stats.get("peak_device_bytes"),
+           "server_processes_left": left,
+           "server_stats": stats, "server_tail": seen[-4:],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(rec["completed"] == n_req and rec["rejected"] == 0,
+          f"lm_frontend_mesh: {rec['completed']} of {n_req} completed, "
+          f"rejected {rec['reasons']}")
+    check(all(len(r["tokens"]) == max_new for r in rec["results"]),
+          "lm_frontend_mesh: a request came back short")
+    check(same and all(same.values()),
+          f"lm_frontend_mesh: tokens differ from lm_frontend's: {same}")
+    check(stats.get("lm_completed") == n_req and stats.get("lm_pending") == 0
+          and stats.get("records", 0) >= ticks > 0,
+          f"lm_frontend_mesh: the server's stats {stats}")
+    check(stats.get("comm_calls") == {},
+          f"lm_frontend_mesh: collectives at world 1: {stats}")
+    check(not left, f"lm_frontend_mesh: processes left: {left}")
     return out
 
 
@@ -2052,6 +2171,100 @@ def stream_frontend(torch, dev, smi) -> dict:
     check(launched == expected and launched > 0,
           f"stream_frontend in process: {launched} nm_spmm launches, "
           f"expected {expected}")
+    return out
+
+
+def stream_frontend_mesh(torch, dev, smi) -> dict:
+    """The rank-coordinated stream frontend in process on a 1-rank NCCL
+    ("data",) mesh (built explicitly, as dist_fleet builds it:
+    make_data_mesh(1) is None): a kernel-path FleetRunner over the mesh,
+    rank 0's driver records over the gloo control group (RankRecords), an
+    InProcClient offering STREAM_MESH_PATIENTS x STREAM_MESH_SEGMENTS
+    segments. Every segment acked, enqueued == packed; nm_spmm launches,
+    counted from 0 after warm(), 7 a flushed bucket; every bucket's
+    predictions equal the unsharded runner's on the same signals."""
+    import asyncio
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import compiler, vadetect
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import _spawn
+    from repro_torch.serve import frontend
+    from repro_torch.stream import FleetRunner
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    program = compiler.compile_model(
+        vadetect.init(torch.Generator().manual_seed(SEED), device=dev))
+    n_pat, n_seg = STREAM_MESH_PATIENTS, STREAM_MESH_SEGMENTS
+    total = n_pat * n_seg
+    with _spawn.process_group("cuda", timeout_s=300):
+        backend = torch.distributed.get_backend()
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        records = frontend.RankRecords(timeout_s=300)
+        runner = FleetRunner(program, path="kernel", device=dev, mesh=mesh,
+                             record=True)
+        fe = frontend.Frontend(
+            n_patients=n_pat, runner=runner, records=records,
+            cfg=frontend.FrontendConfig(stream_buckets=STREAM_BUCKETS,
+                                        stream_max_wait_s=0.256))
+        fe.warm()
+        torch.cuda.synchronize()
+        runner.recorded.clear()
+        K.launches = 0
+
+        async def go():
+            await fe.start(host=None)
+            client = frontend.InProcClient(fe)
+            futs = []
+            for s in range(n_seg):  # a wave a seq, past the max wait
+                futs += [await client.send_segment(patient=p, seq=s,
+                                                   urgent=p < n_pat // 8)
+                         for p in range(n_pat)]
+                await asyncio.sleep(0.3)
+            acks = [await asyncio.wait_for(f, 60.0) for f in futs]
+            drained = (await client.drain(timeout=300.0))["stats"]
+            await fe.stop()
+            return acks, drained
+
+        t0 = time.perf_counter()
+        acks, drained = asyncio.run(go())
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = K.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        stats = fe.stats()
+        buckets = [(x, torch.argmax(y, dim=-1).to(torch.int32))
+                   for x, y in runner.recorded]
+    one = FleetRunner(program, path="kernel", device=dev)
+    same = [bool(torch.equal(one.classify(x), p)) for x, p in buckets]
+    sparse = sum(program.layers[m["name"]].sparse for m in program.layer_meta)
+    out = {"phase": "stream_frontend_mesh", "card": smi, "backend": backend,
+           "n_devices": runner.n_devices, "patients": n_pat,
+           "segments": n_seg, "acked": len(acks), "stats": stats,
+           "records": stats.get("records"), "batches": drained["batches"],
+           "bucket_sizes": [int(x.shape[0]) for x, _ in buckets],
+           "nm_spmm_launches": launched,
+           "expected_launches": sparse * drained["batches"],
+           "predictions_equal_unsharded": same, "seconds_run": run_s,
+           "segments_per_s": total / run_s, "peak_device_bytes": peak,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    check(backend == "nccl", f"stream_frontend_mesh: backend {backend}")
+    check(all(a["status"] == "enqueued" for a in acks) and len(acks) == total
+          and drained["sched_enqueued_total"]
+          == drained["sched_packed_total"] == total,
+          f"stream_frontend_mesh: {drained}")
+    check(launched == sparse * drained["batches"] and launched > 0,
+          f"stream_frontend_mesh: {launched} nm_spmm launches, expected "
+          f"{sparse * drained['batches']}")
+    check(len(buckets) == drained["batches"] and all(same),
+          f"stream_frontend_mesh: predictions differ from the unsharded "
+          f"runner's: {same}")
+    check(stats.get("records", 0) >= drained["batches"],
+          f"stream_frontend_mesh: records {stats}")
     return out
 
 
@@ -2965,7 +3178,7 @@ def main() -> int:
     clock("lm_serve")
 
     # -- the paged cache, chunked prefill and the serving frontend ----------
-    lm_frontend(torch, dev, smi)
+    front = lm_frontend(torch, dev, smi)
     clock("lm_frontend")
     paged = lm_paged(torch, dev, smi, launches_now, reset_launches)
     clock("lm_paged")
@@ -2990,6 +3203,12 @@ def main() -> int:
     sharded = lm_sharded(torch, dev, smi, launches_now, reset_launches,
                          lm["runs"][8]["tokens"])
     clock("lm_sharded")
+
+    # -- the frontends over a mesh ------------------------------------------
+    lm_frontend_mesh(torch, dev, smi, front)
+    clock("lm_frontend_mesh")
+    stream_mesh = stream_frontend_mesh(torch, dev, smi)
+    clock("stream_frontend_mesh")
 
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
@@ -3204,6 +3423,7 @@ def main() -> int:
         "launches": fleet_launches, "launches_service": main_launches,
         "launches_frontend": stream_front["inproc"]["nm_spmm_launches"],
         "launches_dist_fleet": fleet_dist["nm_spmm_launches"],
+        "launches_frontend_mesh": stream_mesh["nm_spmm_launches"],
         "max_abs_err": max(max_abs_err, fleet_err),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3213,7 +3433,9 @@ def main() -> int:
               "the 1000-patient fleet's kernel-path run (launches_service: "
               "over the service run; launches_frontend: the stream "
               "frontend's in-process run; launches_dist_fleet: one bucket "
-              "through the FleetRunner on a 1-device NCCL data mesh)",
+              "through the FleetRunner on a 1-device NCCL data mesh; "
+              "launches_frontend_mesh: the rank-coordinated stream "
+              "frontend's run on that mesh)",
     }, {
         "name": SC.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",

@@ -40,9 +40,11 @@ rank's coordinate in each, and the parameters' spec tree. Inside it:
 
   * `gather_block` hands a block its parameters as the layers take them:
     every leaf split over `data` (FSDP) all-gathered over the data group
-    in one collective, and every linear whose weight is split over
-    `model` marked `"tp": "col"` (its output columns) or `"tp": "row"`
-    (its input rows), which `models.layers` reads;
+    in one collective, every linear whose weight is split over `model`
+    marked `"tp": "col"` (its output columns) or `"tp": "row"` (its input
+    rows), which `models.layers` reads, and an MoE dict whose bare expert
+    arrays split their hidden axis over `model` marked `"tp": "hidden"`,
+    which `models.moe` reads;
   * `all_reduce` / `all_gather` / `reduce_scatter` run a collective over
     a group and count it by kind in `comm_calls` (the budgets of a
     decode step and of a train step read them);
@@ -811,8 +813,10 @@ def gather_block(tree: Any, specs: Any) -> Any:
     tensors are the caller's to drop after the block; the backward
     reduce-scatters their gradients), and every linear
     whose weight `specs` splits over `model` marked `"tp": "col"` (the
-    out-features, last dim) or `"tp": "row"` (the in-features). Outside a
-    context, or on a 1x1 mesh, `tree` itself."""
+    out-features, last dim) or `"tp": "row"` (the in-features); an MoE
+    dict whose bare expert arrays split their hidden axis F over `model`
+    is marked `"tp": "hidden"`. Outside a context, or on a 1x1 mesh,
+    `tree` itself."""
     ctx = current()
     if ctx is None or (ctx.n_data == 1 and ctx.tp == 1):
         return tree
@@ -848,6 +852,9 @@ def gather_block(tree: Any, specs: Any) -> Any:
                 out["tp"] = "col"
             elif len(s) > 1 and split(s[-2], "model"):
                 out["tp"] = "row"
+        elif (ctx.tp > 1 and isinstance(node.get("w_gate"), torch.Tensor)
+              and split(spec["w_gate"][-1], "model")):
+            out["tp"] = "hidden"  # bare MoE experts: F over model
         return out
 
     return rebuild(tree, specs, ())

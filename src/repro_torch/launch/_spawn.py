@@ -19,10 +19,15 @@ the CPU, a pod slice on a TPU); the port runs one process per device:
 The backend is gloo for `device="cpu"` and NCCL for the card, one rank a
 card with `torch.cuda.set_device(local rank)` before the group comes up.
 There is no fallback: where NCCL or the card is missing, this raises. A
-rank that dies or hangs fails the caller within `timeout_s`: it bounds
-`init_process_group` and every collective, and the whole of a spawned
-run, whose ranks are terminated then; a spawned rank that exits without
-reporting fails the caller at once.
+rank that dies or hangs fails the caller: `timeout_s` bounds
+`init_process_group` and every collective, and a bound of the whole of a
+spawned run (`RUN_TIMEOUT_S` by default) terminates its ranks; a run
+`until_stopped` (a server, which ends on SIGINT) has no bound of the
+whole. A spawned rank that exits without reporting fails the caller at
+once. While spawned ranks run, the caller's first SIGINT is forwarded to
+rank 0, which stops the run (a frontend over a mesh: rank 0 stops every
+rank), and the caller waits for the ranks as it would have; a second
+SIGINT raises `KeyboardInterrupt` here, and the ranks are killed.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ import datetime
 import io
 import os
 import queue as queue_mod
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable
@@ -42,7 +49,8 @@ import torch.distributed as dist
 
 from repro_torch import _device
 
-TIMEOUT_S = 3600.0  # init, each collective, the whole of a spawned run
+TIMEOUT_S = 3600.0  # init and each collective
+RUN_TIMEOUT_S = 3600.0  # the whole of a spawned run that ends by itself
 
 
 def backend(device: _device.DeviceLike) -> str:
@@ -138,6 +146,25 @@ def _rank_main(fn, args, kwargs, rank_, world, store, be, device,
         results.put((rank_, False, traceback.format_exc()))
 
 
+def _forward_sigint(lead) -> Callable[[], None]:
+    """Forward the first SIGINT this process gets to the process `lead`;
+    a second raises `KeyboardInterrupt` (the stop did not end the run:
+    the caller kills the ranks). Returns the undo. A no-op off the main
+    thread, where no handler can be set."""
+    if threading.current_thread() is not threading.main_thread():
+        return lambda: None
+    sent = []
+
+    def forward(signum, frame) -> None:
+        if sent:
+            raise KeyboardInterrupt
+        sent.append(True)
+        os.kill(lead.pid, signal.SIGINT)
+
+    old = signal.signal(signal.SIGINT, forward)
+    return lambda: signal.signal(signal.SIGINT, old)
+
+
 def spawns(world: int) -> bool:
     """True where `run` would spawn the ranks (no group here, no
     `torchrun` environment, and more than one rank)."""
@@ -147,12 +174,17 @@ def spawns(world: int) -> bool:
 
 def run(fn: Callable, world: int, *, device: _device.DeviceLike = "cpu",
         args: tuple = (), kwargs: dict | None = None,
-        timeout_s: float | None = None) -> Any:
+        timeout_s: float | None = None, until_stopped: bool = False) -> Any:
     """`fn(*args, **kwargs)` on `world` ranks; returns rank 0's result
     (this rank's, where a group already exists). `fn` must be importable
-    by module path where ranks are spawned."""
+    by module path where ranks are spawned. `timeout_s` (default
+    `TIMEOUT_S`) bounds init and each collective, and the whole of a
+    spawned run (default `RUN_TIMEOUT_S`) unless it runs `until_stopped`
+    (a server, which ends on SIGINT)."""
     kwargs = kwargs or {}
     t = TIMEOUT_S if timeout_s is None else timeout_s
+    whole = (None if until_stopped
+             else RUN_TIMEOUT_S if timeout_s is None else timeout_s)
     if not spawns(world):
         with process_group(device, timeout_s=t):
             have = dist.get_world_size()
@@ -184,8 +216,9 @@ def run(fn: Callable, world: int, *, device: _device.DeviceLike = "cpu",
         ]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + t
+        deadline = None if whole is None else time.monotonic() + whole
         out, failures, done, reported = None, [], False, set()
+        restore = _forward_sigint(procs[0])
         try:
             while len(reported) < world:
                 try:
@@ -193,10 +226,11 @@ def run(fn: Callable, world: int, *, device: _device.DeviceLike = "cpu",
                 except queue_mod.Empty:
                     dead = [i for i, p in enumerate(procs)
                             if i not in reported and not p.is_alive()]
-                    if dead or time.monotonic() > deadline:
+                    if dead or (deadline is not None
+                                and time.monotonic() > deadline):
                         raise RuntimeError(
-                            f"spawned ranks did not finish within {t:.0f} s"
-                            f" or exited without reporting: {dead}"
+                            f"spawned ranks did not finish within "
+                            f"{whole} s or exited without reporting: {dead}"
                         ) from None
                     continue
                 reported.add(r)
@@ -208,6 +242,7 @@ def run(fn: Callable, world: int, *, device: _device.DeviceLike = "cpu",
             else:
                 done = True
         finally:
+            restore()
             # after a failure the other ranks may wait in a collective:
             # end them at once
             for p in procs:

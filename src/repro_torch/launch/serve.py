@@ -27,11 +27,16 @@ admission control at `--admission-rate`, the paged cache at
 `--chunk-tokens`; it prints the bound address and serves until SIGINT.
 `--connect HOST:PORT` drives it open-loop from another process:
 `--load-requests` requests at `--offered-rate` req/s on `--arrival-process`
-arrivals.
+arrivals. With `--mesh`, the server fronts the sharded engine
+(`serve.sharded.ShardedEngine`, the paged pool `(batch / D) x span + 1`
+pages a device, as in the reference) on ranks spawned as for generate:
+rank 0 owns the socket and prints the address, and the other ranks
+replay its driver's records (`serve.frontend.Frontend.follow`); SIGINT to
+the launcher stops every rank.
 
     python -m repro_torch.launch.serve --arch qwen3-8b --listen 127.0.0.1:0 \
         --batch 4 --prompt-len 48 --max-new 16 --page-size 16 \
-        --chunk-tokens 16
+        --chunk-tokens 16 [--mesh 1]
     python -m repro_torch.launch.serve --arch qwen3-8b --connect HOST:PORT \
         --load-requests 12 --offered-rate 4 --prompt-len 48 --max-new 16
 
@@ -50,14 +55,15 @@ from `--seed`, keeps its block (`place_params`) and frees the rest; rank
 
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
 `device` it needs a card. The reference's frontend-sweep and load-sweep
-flags, and `--mesh` with `--listen`, are refused with the ROADMAP.md item
-that ports them.
+flags are refused with the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -249,7 +255,11 @@ def _build_lm_engine(args, device: _device.DeviceLike = None):
     `--reduced`) with max_seq = prompt + max_new + 2, rounded up to a
     multiple of `--page-size`; dense params drawn on `device` from
     `--seed`; and a maker of the slot engine with the paged pool and
-    chunked prefill the flags ask for."""
+    chunked prefill the flags ask for. With `--mesh`, the engine is the
+    sharded one on this rank of `make_serving_mesh` (every rank of the
+    mesh calls this), built here once, so only this rank's blocks of the
+    params are kept, and the maker returns it; its paged pool is
+    `(batch / D) x span + 1` pages a device."""
     from repro_torch.serve.paging import PagingConfig, validate_page_size
 
     dev = _device.resolve(device)
@@ -264,6 +274,10 @@ def _build_lm_engine(args, device: _device.DeviceLike = None):
         max_seq += (-max_seq) % page
     model = api.build_model(cfg, tp=1, max_seq=max_seq)
     params = model.init(args.seed, device=dev)
+    spec = getattr(args, "mesh", None)
+    mesh = make_serving_mesh(spec, dev) if spec else None
+    n_data = (shd._axis_size(shd.data_axes(cfg, mesh), mesh)
+              if mesh is not None else 1)
     paging = None
     if page:
         per_dev = args.pages_per_device
@@ -271,8 +285,15 @@ def _build_lm_engine(args, device: _device.DeviceLike = None):
             # the dense pool's worth of pages (+1 scratch): paged then
             # never refuses what dense would have seated
             span = validate_page_size(page, model.attn_capacities())
-            per_dev = args.batch * span + 1
-        paging = PagingConfig(page, per_dev)
+            per_dev = (args.batch // n_data) * span + 1
+        paging = PagingConfig(page, per_dev * n_data)
+    if mesh is not None:
+        # built here, so the maker holds this rank's blocks, not the tree
+        sharded = SH.ShardedEngine(
+            model, params, batch_size=args.batch, mesh=mesh, paging=paging,
+            chunk_tokens=args.chunk_tokens, device=dev)
+        del params
+        return cfg, lambda: sharded
 
     def make_engine():
         return E.Engine(model, params, batch_size=args.batch, paging=paging,
@@ -281,42 +302,112 @@ def _build_lm_engine(args, device: _device.DeviceLike = None):
     return cfg, make_engine
 
 
-def serve_listen(args, device: _device.DeviceLike = None) -> dict:
-    """Serve LM requests over the frontend's socket transport
-    (`serve.frontend`), with admission control at --admission-rate (shed
-    with typed rejections past it), until SIGINT. Returns the frontend's
-    stats; raises when its driver thread died."""
+def serve_frontend(fe, listen: str, tag: str, what: str, *,
+                   leads_ranks: bool = False, stats=None) -> None:
+    """Serve `fe` (built and warmed) on the socket at `listen` until
+    SIGINT: print the bound address, and on SIGINT the frontend's stats
+    (`stats()`, default `fe.stats()`). Raises when its driver thread
+    died. The first SIGINT begins the stop, which is never cut short: a
+    later one is a no-op (a terminal's Ctrl-C reaches a rank 0 both
+    directly and through the launcher); where the frontend leads ranks
+    (`leads_ranks`) that holds until the process ends, so the stop
+    reaches every rank."""
+    stats = stats or fe.stats
     import asyncio
 
-    from repro_torch.serve.frontend import Frontend, FrontendConfig
-
-    cfg, make_engine = _build_lm_engine(args, device)
-    fe = Frontend(
-        engine=make_engine(),
-        cfg=FrontendConfig(admission_rate_rps=args.admission_rate),
-    )
-    fe.warm(args.prompt_len)
-    host, port = _hostport(args.listen)
+    host, port = _hostport(listen)
+    stop = threading.Event()
 
     async def amain() -> None:
         bound = await fe.start(host, port)
-        print(f"[serve] frontend listening on {bound[0]}:{bound[1]} "
-              f"(admission rate: {args.admission_rate or 'unbounded'})",
-              flush=True)
+        print(f"[{tag}] frontend listening on {bound[0]}:{bound[1]} "
+              f"({what})", flush=True)
         try:
-            while fe.driver_alive():
+            while fe.driver_alive() and not stop.is_set():
                 await asyncio.sleep(0.2)
         finally:
             await fe.stop()  # raises when the driver died
 
+    old = signal.signal(signal.SIGINT, lambda *_: stop.set())
     try:
         asyncio.run(amain())
-    except KeyboardInterrupt:
-        print(f"[serve] frontend stopped: {json.dumps(fe.stats())}",
+    finally:
+        if not leads_ranks:
+            signal.signal(signal.SIGINT, old)
+    if stop.is_set():
+        print(f"[{tag}] frontend stopped: {json.dumps(stats())}",
               flush=True)
-    stats = fe.stats()
+
+
+def follow(fe, records) -> None:
+    """A rank other than 0 of a frontend over a mesh: replay rank 0's
+    records until its stop. SIGINT is ignored here: rank 0 stops the
+    ranks."""
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    fe.follow(records)
+
+
+def _listen_rank(args, device: _device.DeviceLike = None) -> Optional[dict]:
+    """`--listen` on this rank (every rank of the mesh calls it with
+    `--mesh`): the engine, the record group (`RankRecords`) and the
+    warm-up on every rank in lockstep; rank 0 serves the socket until
+    SIGINT and returns the stats, the others follow and return None."""
+    from repro_torch.serve.frontend import (
+        Frontend,
+        FrontendConfig,
+        RankRecords,
+    )
+
+    cfg, make_engine = _build_lm_engine(args, device)
+    records = None
+    if args.mesh:
+        n_data, n_model = parse_mesh_spec(args.mesh)
+        if _spawn.world_size() != n_data * n_model:
+            raise SystemExit(f"--listen --mesh {args.mesh} runs on exactly "
+                             f"{n_data * n_model} ranks, not "
+                             f"{_spawn.world_size()}")
+        records = RankRecords(_spawn.TIMEOUT_S)
+    lead = _spawn.rank() == 0
+    engine = make_engine()
+    fe = Frontend(engine=engine,
+                  cfg=FrontendConfig(admission_rate_rps=args.admission_rate),
+                  records=records if lead else None)
+    fe.warm(args.prompt_len)
+    if not lead:
+        follow(fe, records)
+        return None
+    shd.reset_comm()  # the collectives of the serving, the warm-up's not
+
+    def stats() -> dict:
+        out = fe.stats()
+        if records is not None:
+            out["comm_calls"] = dict(shd.comm_calls)
+        if engine.device.type == "cuda":
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                engine.device)
+        return out
+
+    serve_frontend(fe, args.listen, "serve", "admission rate: "
+                   f"{args.admission_rate or 'unbounded'}"
+                   + (f", mesh {args.mesh}" if args.mesh else ""),
+                   leads_ranks=records is not None, stats=stats)
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "vocab": cfg.vocab, "stats": stats}
+            "d_model": cfg.d_model, "vocab": cfg.vocab, "mesh": args.mesh,
+            "stats": stats()}
+
+
+def serve_listen(args, device: _device.DeviceLike = None) -> dict:
+    """Serve LM requests over the frontend's socket transport
+    (`serve.frontend`), with admission control at --admission-rate (shed
+    with typed rejections past it), until SIGINT. Returns the frontend's
+    stats; raises when its driver thread died. With `--mesh` the ranks
+    are spawned (or are the group's) and rank 0's record comes back."""
+    if not args.mesh:
+        return _listen_rank(args, device)
+    n_data, n_model = parse_mesh_spec(args.mesh)
+    dev = "cpu" if _device.resolve(device).type == "cpu" else device
+    return _spawn.run(_listen_rank, n_data * n_model, device=dev,
+                      args=(args, dev), until_stopped=True)
 
 
 def serve_connect(args) -> dict:
@@ -464,8 +555,10 @@ def main(
                     help="chunked prefill: split prompts longer than "
                          "this into chunks interleaved with decode ticks")
     ap.add_argument("--mesh", default=None, metavar="D|DxM",
-                    help="sharded generate on a data x model mesh, one "
-                         "process a device (e.g. 4, or 2x2)")
+                    help="sharded generate (or, with --listen, the "
+                         "sharded engine behind the socket) on a data x "
+                         "model mesh, one process a device (e.g. 4, or "
+                         "2x2)")
     for flag, what in _NOT_PORTED.items():
         kw = ({"action": "store_true"} if flag in _SWITCHES
               else {"default": None})
@@ -486,15 +579,15 @@ def main(
         ap.error("the serving frontend fronts the LM slot engine; "
                  "for the stream side use repro_torch.launch.stream "
                  "--listen/--connect")
-    if args.mesh and (args.listen or args.connect):
-        ap.error("--mesh with --listen/--connect (the frontends over a "
-                 "mesh) is not ported yet (ROADMAP.md queue 1 item 8c)")
+    if args.mesh and args.connect:
+        ap.error("--connect is the socket client: the server takes --mesh "
+                 "(--listen --mesh)")
     if args.mesh and args.arch == "va-cnn":
         ap.error("--mesh shards the LM; va-cnn serves on one device")
-    if args.mesh:
-        out = serve_lm_mesh(args, device)
-    elif args.listen:
+    if args.listen:
         out = serve_listen(args, device)
+    elif args.mesh:
+        out = serve_lm_mesh(args, device)
     elif args.connect:
         out = serve_connect(args)
     elif args.arch == "va-cnn":

@@ -25,15 +25,19 @@ offers `--patients` x `--segments` segments at `--offered-rate` seg/s
 `--devices N` splits every bucket over N ranks of a ("data",) mesh
 (`make_data_mesh`; `launch._spawn.run` spawns gloo ranks with
 `device="cpu"`, one NCCL rank a card on the card): each rank classifies
-its bucket/N rows and all-gathers the predictions, every rank runs the
-same scheduler and vote, and rank 0 reports.
+its bucket/N rows and all-gathers the predictions. In the simulation
+every rank runs the same scheduler and vote, and rank 0 reports; behind
+`--listen`, rank 0 owns the socket, the scheduler and the vote, and the
+other ranks replay its driver's records, classifying their rows of each
+flushed bucket (`serve.frontend.Frontend.follow`); SIGINT to the
+launcher stops every rank.
 
     python -m repro_torch.launch.stream --devices 4 --patients 256
+    python -m repro_torch.launch.stream --listen 127.0.0.1:0 --devices 4
 
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
 `device` it needs a card. The open-loop sweep (`--load-sweep` and its
-flags) is ROADMAP.md queue 1 item 9; a frontend over a mesh (`--listen`
-with `--devices` > 1) is item 8c.
+flags) is ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -63,45 +67,49 @@ _NOT_PORTED = {
 _SWITCHES = ("--load-sweep",)
 
 
-def stream_listen(args, program, buckets, device) -> dict:
+def stream_listen(args, program, buckets, device, *, mesh=None,
+                  records=None) -> Optional[dict]:
     """Accept patient segments over the serving frontend's socket
     transport until SIGINT. Returns the frontend's stats; raises when its
-    driver thread died."""
-    import asyncio
-
-    from repro_torch.launch.serve import _hostport
+    driver thread died. With a data `mesh` and `records` (every rank of
+    the mesh calls it), rank 0 serves and the other ranks follow its
+    records, returning None."""
+    from repro_torch.launch.serve import follow, serve_frontend
     from repro_torch.serve.frontend import Frontend, FrontendConfig
 
+    lead = _spawn.rank() == 0
+    runner = FleetRunner(program, path=args.path, device=device, mesh=mesh)
     fe = Frontend(
         n_patients=args.patients,
-        runner=FleetRunner(program, path=args.path, device=device),
+        runner=runner,
         cfg=FrontendConfig(
             stream_rate_rps=args.stream_rate,
             stream_buckets=buckets,
             stream_max_wait_s=args.max_wait,
         ),
+        records=records if lead else None,
     )
     fe.warm()
-    host, port = _hostport(args.listen)
-
-    async def amain() -> None:
-        bound = await fe.start(host, port)
-        print(f"[stream] frontend listening on "
-              f"{bound[0]}:{bound[1]} ({args.patients} patients, "
-              f"routine rate: {args.stream_rate or 'unbounded'})",
-              flush=True)
-        try:
-            while fe.driver_alive():
-                await asyncio.sleep(0.2)
-        finally:
-            await fe.stop()  # raises when the driver died
-
-    try:
-        asyncio.run(amain())
-    except KeyboardInterrupt:
-        print(f"[stream] frontend stopped: {json.dumps(fe.stats())}",
-              flush=True)
+    if not lead:
+        follow(fe, records)
+        return None
+    serve_frontend(fe, args.listen, "stream",
+                   f"{args.patients} patients, routine rate: "
+                   f"{args.stream_rate or 'unbounded'}, devices "
+                   f"{runner.n_devices}", leads_ranks=records is not None)
     return {"stats": fe.stats()}
+
+
+def _listen_rank(args, device):
+    """`--listen --devices N` on this rank of the data mesh: the program,
+    the mesh and the record group on every rank, then `stream_listen`."""
+    from repro_torch.serve.frontend import RankRecords
+
+    dev = _device.resolve(device)
+    mesh = make_data_mesh(args.devices, dev)
+    records = RankRecords(_spawn.TIMEOUT_S)
+    return stream_listen(args, _program(args, dev), _buckets(args), dev,
+                         mesh=mesh, records=records)
 
 
 def stream_connect(args) -> dict:
@@ -207,9 +215,6 @@ def main(
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             ap.error(f"{flag} is not ported yet ({what})")
-    if args.devices > 1 and args.listen:
-        ap.error("--listen with --devices > 1 (a frontend over a data mesh) "
-                 "is not ported yet (ROADMAP.md queue 1 item 8c)")
     dev = _device.resolve(device)
     if args.trace_out:
         # before the runner is built, so its cells register with the probe
@@ -217,13 +222,15 @@ def main(
 
     if args.connect:
         return stream_connect(args)
-    if args.listen:
-        return stream_listen(args, _program(args, dev), _buckets(args), dev)
     if args.devices > 1:
         return _spawn.run(
-            _simulate_main, args.devices, device=dev.type,
+            _listen_rank if args.listen else _simulate_main, args.devices,
+            device=dev.type,
             args=(args, dev.type if dev.type == "cpu" else None),
+            until_stopped=bool(args.listen),
         )
+    if args.listen:
+        return stream_listen(args, _program(args, dev), _buckets(args), dev)
     return _simulate_main(args, dev)
 
 

@@ -39,7 +39,8 @@ over gloo with `device="cpu"`, NCCL on the cards (one rank a card), or
 broadcast, then keeps its blocks (`dist.sharding.place`); only rank 0
 logs and prints, and the rank at coordinate 0 writes checkpoints. MoE
 and RWKV-6 at M > 1, the QAT flags at M > 1 and whisper at D·M > 1 are
-refused, naming ROADMAP.md queue 1 item 8c.
+refused, naming ROADMAP.md queue 1 item 8c's training side (MoE and
+RWKV-6 serve at M > 1: `launch.serve --mesh DxM`).
 
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --multi-pod 1x1x1 --scheme gather --steps 4

@@ -134,7 +134,8 @@ def linear_apply(
         if tp is not None:
             raise NotImplementedError(
                 "tensor-parallel SPE (values_q) linears are not served "
-                "(ROADMAP.md queue 1 item 8c)"
+                "(ROADMAP.md queue 1 item 8c, with the paper's QAT at "
+                "model > 1)"
             )
         meta = params["meta"]
         group, keep = int(meta["group"]), int(meta["keep"])

@@ -10,10 +10,21 @@ The expert weights are bare (E, d, f) float32 arrays, so
 `serve.engine.quantize_for_serving` leaves them dense; `moe_apply` casts
 them to the compute dtype on every call and runs its own einsums, as the
 reference does. The shared expert (llama4) is an `ffn_init` block and is
-packed like any other FFN. The reference's `constrain` call sites are
-kept as checks of the local shapes (`dist.sharding.constrain`); sharded
-serving runs MoE on data-only meshes, its experts gathered over `data`
-(tensor parallelism for MoE is ROADMAP.md queue 1 item 8c).
+packed like any other FFN.
+
+Tensor parallelism (sharded serving, `serve.sharded`): the reference's
+rules put the experts' hidden axis F over `model` (`w_gate` / `w_up`
+(E, D, F) column-parallel, `w_down` (E, F, D) row-parallel), and
+`dist.sharding.gather_block` marks the MoE dict `"tp": "hidden"` where
+the leaves' specs split F (a F that `model` does not divide stays whole,
+and so unmarked). The router stays replicated, so the gates, capacity
+and dispatch are the same on every rank; the dispatched `xe` enters
+`model` (`enter_model`), each rank computes its F block of `h`, and its
+partial `ye` is summed over `model` (`reduce_model`) before the combine.
+The shared expert takes the same rules through `linear_apply`. The
+reference's `constrain` call sites are kept as checks of the port's
+local shapes (`dist.sharding.constrain`): F split, D whole, where the
+reference keeps D on `model` too (GSPMD then reduce-scatters `ye`).
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MoESpec
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import constrain
 from repro_torch.models.layers import _randn, ffn_apply, ffn_init, silu
 
@@ -111,15 +123,21 @@ def moe_apply(
         xe.index_put_((barange, eidx[:, :, i], pos_c[:, :, i]), upd,
                       accumulate=True)
 
-    xe = constrain(xe, "dp", None, None, "tp", shape=(None, e, c, d))
+    local = params.get("tp") == "hidden"  # this rank's block of F
+    if local:
+        xe = shd.enter_model(xe)
+    xe = constrain(xe, "dp", None, None, None, shape=(None, e, c, d))
     wg = params["w_gate"].to(dtype)
     wu = params["w_up"].to(dtype)
     wd = params["w_down"].to(dtype)
     h = silu(torch.einsum("becd,edf->becf", xe, wg)) * torch.einsum(
         "becd,edf->becf", xe, wu)
-    h = constrain(h, "dp", None, None, "tp", shape=(None, e, c, wg.shape[-1]))
+    h = constrain(h, "dp", None, None, "tp",
+                  shape=(None, e, c, spec.d_ff_expert))
     ye = torch.einsum("becf,efd->becd", h, wd)  # (B,E,C,D)
-    ye = constrain(ye, "dp", None, None, "tp", shape=(None, e, c, d))
+    if local:
+        ye = shd.reduce_model(ye)
+    ye = constrain(ye, "dp", None, None, None, shape=(None, e, c, d))
 
     y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
     for i in range(k):
@@ -136,5 +154,5 @@ def moe_apply(
         dim=(1, 2))  # (B, E)
     pmass = probs.mean(dim=1)  # (B, E)
     aux = e * torch.mean(torch.sum(frac * pmass, dim=-1))
-    y = constrain(y, "dp", None, "tp", shape=(None, s, d))
+    y = constrain(y, "dp", None, None, shape=(None, s, d))
     return y.to(dtype), aux

@@ -18,6 +18,20 @@ token) on the carried {tm_shift, cm_shift, state}.
 The projections (r/k/v/g/o and the channel mix) go through
 `layers.linear_apply`, so they are packed at serve time and reach
 `quant_matmul`; the LoRA adapters, mixes and decay stay float32.
+
+Tensor parallelism (sharded serving, `serve.sharded`), by the
+reference's rules: `w_r/w_k/w_v/w_g/cm_k/cm_r` column-parallel,
+`w_o/cm_v` row-parallel. The time mix runs this rank's heads: the token
+shift, the ddlerp and the decay LoRA are computed whole (replicated),
+then `log_w`, `u`, `ln_x` and the carried state are cut to the local
+heads (`model_block`), the WKV runs on them, and `w_o` sums the local
+heads' partial products. The state cache stays replicated over `model`
+(`cache_specs` does not split it, as in the reference), so the new
+state's head blocks are all-gathered back whole: one all-gather a block
+a step. Where `model` splits the columns mid-head (a head count it does
+not divide), r/k/v/g are gathered and every head runs whole. The
+channel mix's `cm_k` -> `cm_v` is column -> row; `cm_r`'s local block
+of the receptance is gathered before it gates the whole `cm_v` output.
 """
 
 from __future__ import annotations
@@ -27,8 +41,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.spe import SPEConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import (
     _randn,
+    col_local,
     layernorm_apply,
     layernorm_init,
     linear_apply,
@@ -147,14 +163,15 @@ def wkv_step(r, k, v, log_w, u, state):
     return out, state
 
 
-def _group_norm_heads(p, x, h, hd):
-    """Per-head layernorm (RWKV's GroupNorm(h)) with the ln_x params."""
+def _group_norm_heads(ln, x, h, hd, mine=lambda t: t):
+    """Per-head layernorm (RWKV's GroupNorm(h)) with the ln_x params
+    `ln`, cut by `mine` to x's channels."""
     b, s, d = x.shape
     xh = x.reshape(b, s, h, hd).to(torch.float32)
     mu = torch.mean(xh, dim=-1, keepdim=True)
     var = torch.var(xh, dim=-1, keepdim=True, correction=0)
     xh = (xh - mu) * torch.rsqrt(var + 1e-5)
-    return xh.reshape(b, s, d) * p["ln_x"]["scale"] + p["ln_x"]["bias"]
+    return xh.reshape(b, s, d) * mine(ln["scale"]) + mine(ln["bias"])
 
 
 def _shift(x, x_prev):
@@ -174,23 +191,35 @@ def time_mix(
     dtype: torch.dtype = torch.bfloat16,
 ):
     b, s, d = x.shape
-    h = d // head_dim
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shift(x, x_prev), dtype)
-    r = _heads(linear_apply(p["w_r"], xr, spe=spe, dtype=dtype), h, head_dim)
-    k = _heads(linear_apply(p["w_k"], xk, spe=spe, dtype=dtype), h, head_dim)
-    v = _heads(linear_apply(p["w_v"], xv, spe=spe, dtype=dtype), h, head_dim)
-    g = linear_apply(p["w_g"], xg, spe=spe, dtype=dtype)
-    log_w = _heads(_decay_log_w(p, xw, dtype), h, head_dim)
+    r, k, v, g = (linear_apply(p[n], xi, spe=spe, dtype=dtype)
+                  for n, xi in (("w_r", xr), ("w_k", xk), ("w_v", xv),
+                                ("w_g", xg)))
+    local = col_local(p["w_r"])  # this rank's columns of r/k/v/g
+    if local and (d // head_dim) % shd.tp_size():  # split mid-head
+        r, k, v, g = (shd.gather_model(t) for t in (r, k, v, g))
+        local = False
+
+    def mine(t, dim=-1):  # a replicated tensor's block of the local heads
+        return shd.model_block(t, dim) if local else t
+
+    h = r.shape[-1] // head_dim  # the heads this rank runs
+    log_w = _heads(mine(_decay_log_w(p, xw, dtype)), h, head_dim)
     if state is None:
         state = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32,
                             device=x.device)
+    else:
+        state = mine(state, 1)
     out, state = wkv_chunked(
-        r.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
-        log_w, p["u"], state,
+        *(_heads(t.to(torch.float32), h, head_dim) for t in (r, k, v)),
+        log_w, mine(p["u"], 0), state,
     )
-    y = _group_norm_heads(p, out.reshape(b, s, d), h, head_dim)
+    y = _group_norm_heads(p["ln_x"], out.reshape(b, s, h * head_dim), h,
+                          head_dim, mine)
     y = y.to(dtype) * silu(g)
-    y = linear_apply(p["w_o"], y, spe=spe, dtype=dtype)
+    y = linear_apply(p["w_o"], y, spe=spe, dtype=dtype, x_local=local)
+    if local:  # the cache keeps every head's state
+        state = shd.gather_model(state, 1)
     return y, (x[:, -1:], state)
 
 
@@ -207,8 +236,11 @@ def channel_mix(
     xr = x + xx * p["cm_mu_r"].to(dtype)
     kk = torch.square(
         torch.relu(linear_apply(p["cm_k"], xk, spe=spe, dtype=dtype)))
-    vv = linear_apply(p["cm_v"], kk, spe=spe, dtype=dtype)
+    vv = linear_apply(p["cm_v"], kk, spe=spe, dtype=dtype,
+                      x_local=col_local(p["cm_k"]))
     rr = sigmoid(linear_apply(p["cm_r"], xr, spe=spe, dtype=dtype))
+    if col_local(p["cm_r"]):  # vv is whole after cm_v's all-reduce
+        rr = shd.gather_model(rr)
     return rr * vv, x[:, -1:]
 
 

@@ -55,8 +55,9 @@ heads read the KV heads GQA maps them to (`_kv_select`), from the cache's
 local heads or, where the cache keeps every KV head (`cache_specs` splits
 the head axis only where `model` divides it), from all of them. The
 vocab-split logits are gathered over `model`, so every rank holds whole
-rows. The reference's `constrain` call sites are kept as checks of the
-local shapes; its sequence-parallel hints (S over `model`) are `None`
+rows. An MoE block splits its experts' hidden axis and an RWKV-6 block
+its heads over `model` (`models.moe`, `models.rwkv6`). The reference's
+`constrain` call sites are kept as checks of the local shapes; its sequence-parallel hints (S over `model`) are `None`
 here: the port does not split S.
 
 Training over `data` and `model` (`train.trainer.make_sharded_train_step`,

@@ -11,11 +11,11 @@ Everything before this module drives requests from inside the process;
 this is the boundary where they arrive from outside. One asyncio
 frontend feeds
 
-  * LM decode requests into the slot engine (`serve.engine.Engine`; the
-    frontend over a mesh's sharded engine is ROADMAP.md queue 1 item 8c),
-    and
+  * LM decode requests into the slot engine (`serve.engine.Engine`, or
+    `serve.sharded.ShardedEngine` over a mesh), and
   * patient segment arrivals into the stream fleet's micro-batch
-    scheduler (`stream.scheduler.MicroBatchScheduler`),
+    scheduler (`stream.scheduler.MicroBatchScheduler`; its runner's
+    buckets split over a data mesh where it has one),
 
 over two interchangeable transports: length-prefixed JSON frames on a
 TCP socket (`SocketClient`), and an in-process client (`InProcClient`)
@@ -50,6 +50,27 @@ sockets and the admission decision; replies cross back via
 `loop.call_soon_threadsafe`. Segment *content* is never shipped: like
 `fleet.simulate`, signal content is derived from (patient, seq) by the
 deterministic iegm synthesizer, so a segment frame is metadata only.
+
+One driver, many ranks: the port runs one process a device, and a
+sharded engine's tick or a mesh runner's classify holds collectives, so
+every rank must make the same engine calls in the same order. Rank 0
+runs the frontend and owns everything that depends on the clock or the
+socket (the token buckets, deferral, the stream scheduler, the vote);
+its driver sends over `records` (`RankRecords`: a gloo group of every
+rank) a record of each pass's LM side — the requests it submits and
+whether it ticks (`{"submit": [...], "tick": bool}`) — and one of each
+bucket it flushes (`{"flush": (patients, seqs)}`), each before the tick
+or classify it names, and `{"stop": True}` last. The other ranks build the same
+engine and runner, `warm()` in lockstep, then `follow(records)`: each
+record's `submit` / `tick` / `classify` calls, replayed. Submits touch
+only host state, so rank 0 validates them first; a refusal is
+deterministic and falls the same way on every rank, and only rank 0
+replies. Outputs are read on rank 0 (the sharded engine all-gathers the
+tokens over `data`, the runner its predictions). A follower synthesizes
+a bucket's signals from (patients, seqs) through its own seeded
+`FleetSource`: no signal crosses the wire. An idle rank 0 sends an empty
+record every `HEARTBEAT_S`, so a follower's blocking receive never
+meets the group's timeout.
 
 Backpressure and admission — every ingress decision is explicit, never
 a silent drop:
@@ -194,6 +215,38 @@ class FrontendConfig:
     max_frame_bytes: int = 1 << 20
 
 
+# seconds an idle rank 0 waits before an empty record (with `records`)
+HEARTBEAT_S = 60.0
+
+
+class RankRecords:
+    """The driver's records between ranks: `send` on rank 0 (the
+    `Frontend`'s `records=`), `recv` on the others (`Frontend.follow`).
+    Each record is pickled and broadcast from rank 0 over a gloo group of
+    every rank of the default group, made here — so every rank constructs
+    this at the same point, even where the tensors go over NCCL (whose
+    object broadcast needs CUDA tensors and the device set in the sending
+    thread). `timeout_s` bounds each broadcast; rank 0's heartbeat
+    (`HEARTBEAT_S`) keeps an idle follower's receive inside it."""
+
+    def __init__(self, timeout_s: float):
+        import datetime
+
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
+
+    def send(self, record: dict) -> None:
+        self._dist.broadcast_object_list([record], src=0, group=self.group)
+
+    def recv(self) -> dict:
+        box = [None]
+        self._dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
 class Frontend:
     """The transport + admission layer. Construct with an `Engine`, a
     stream side (`n_patients` > 0, optionally a
@@ -204,13 +257,17 @@ class Frontend:
 
     def __init__(self, *, engine=None, n_patients: int = 0, runner=None,
                  cfg: FrontendConfig = FrontendConfig(),
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 records=None):
         if engine is None and n_patients <= 0:
             raise ValueError("frontend needs an engine, a stream side "
                              "(n_patients > 0), or both")
         self.engine = engine
         self.cfg = cfg
         self._clock = clock
+        # rank 0 of a mesh: where each driver record goes (its `send`),
+        # ahead of the engine calls it names; None on one device
+        self._records = records
         self._lm_bucket = (
             TokenBucket(cfg.admission_rate_rps, cfg.admission_burst,
                         clock)
@@ -316,6 +373,10 @@ class Frontend:
         self._loop = asyncio.get_running_loop()
         self._epoch = self._clock()
         self._stopping = False
+        # the current card is per thread: the driver takes this one's
+        dev = getattr(self.engine or self._runner, "device", None)
+        self._card = (torch.cuda.current_device()
+                      if dev is not None and dev.type == "cuda" else None)
         self._driver = threading.Thread(
             target=self._drive, name="frontend-driver", daemon=True
         )
@@ -613,21 +674,76 @@ class Frontend:
 
     def _drive(self) -> None:
         try:
+            if self._card is not None:  # a mesh's collectives run here
+                torch.cuda.set_device(self._card)
             # grad mode is per thread: this one records no autograd graph
             with torch.no_grad():
                 self._drive_inner()
         except BaseException as e:  # surfaced by stop()
             self._driver_err = e
 
-    def _drive_inner(self) -> None:
+    def _bump_drv(self, key: str) -> None:
+        self._c_drv[key] = self._c_drv.get(key, 0) + 1
+
+    def _send(self, record: dict) -> None:
+        """Rank 0: a record to the other ranks, before acting on it."""
+        if self._records is not None:
+            self._records.send(record)
+            self._bump_drv("records")
+            self._sent_at = self._clock()
+
+    def _submit(self, uid, prompt, max_new, eos):
+        """`engine.submit` of one request: (the Request, None), or (None,
+        its typed rejection) where the engine refused it."""
         from repro_torch.serve.engine import Request
         from repro_torch.serve.paging import PagesExhaustedError
 
+        try:
+            req = Request(uid=uid,
+                          prompt=torch.tensor(prompt, dtype=torch.long),
+                          max_new=max_new, eos=eos)
+            self.engine.submit(req)
+        except PagesExhaustedError as e:
+            # never satisfiable on this page pool: the worst-case page
+            # need exceeds the pool's whole usable pages, so queueing
+            # could only stall — typed rejection clients can size down
+            # from
+            return None, {"status": STATUS_REJECTED, "reason": REASON_PAGES,
+                          "detail": str(e)}
+        except Exception as e:
+            # engine-boundary validation (empty prompt, max_new <= 0,
+            # duplicate in-flight uid) comes back as an explicit typed
+            # rejection
+            return None, {"status": STATUS_REJECTED,
+                          "reason": REASON_INVALID, "detail": str(e)}
+        return req, None
+
+    def follow(self, records) -> None:
+        """The other ranks of a mesh: replay rank 0's driver records
+        (`records.recv()`) — each one's submits, tick and classify, the
+        same engine calls in the same order — until its stop record. Call
+        after `warm()`, in place of `start()`; replies nothing."""
+        with torch.no_grad():
+            while True:
+                rec = records.recv()
+                if rec.get("stop"):
+                    return
+                for item in rec.get("submit", ()):
+                    self._submit(*item)  # a refusal falls as on rank 0
+                if rec.get("tick"):
+                    self.engine.tick()
+                if rec.get("flush") is not None:
+                    sigs = self._source.signals(*rec["flush"])
+                    self._runner.classify(sigs["signal"])
+
+    def _drive_inner(self) -> None:
         inflight: dict[int, Any] = {}
         drains: list[Callable] = []
+        self._sent_at = self._clock()
         while True:
             progressed = False
             drained_inbox_dry = True
+            submitted = []
             while True:
                 try:
                     item = self._inbox.get_nowait()
@@ -636,46 +752,27 @@ class Frontend:
                 progressed = True
                 kind = item[0]
                 if kind == "stop":
+                    self._send({"stop": True})
                     return
                 if kind == "lm":
-                    _, uid, prompt, max_new, eos = item
-                    try:
-                        req = Request(
-                            uid=uid,
-                            prompt=torch.tensor(prompt, dtype=torch.long),
-                            max_new=max_new, eos=eos,
-                        )
-                        self.engine.submit(req)
-                    except PagesExhaustedError as e:
-                        # never satisfiable on this page pool: the
-                        # worst-case page need exceeds the pool's whole
-                        # usable pages, so queueing could only stall —
-                        # typed rejection clients can size down from
-                        self._post(self._resolve_lm, uid, {
-                            "status": STATUS_REJECTED,
-                            "reason": REASON_PAGES,
-                            "detail": str(e),
-                        })
-                    except Exception as e:
-                        # engine-boundary validation (empty prompt,
-                        # max_new <= 0, duplicate in-flight uid) comes
-                        # back as an explicit typed rejection
-                        self._post(self._resolve_lm, uid, {
-                            "status": STATUS_REJECTED,
-                            "reason": REASON_INVALID,
-                            "detail": str(e),
-                        })
+                    submitted.append(item[1:])
+                    req, refused = self._submit(*item[1:])
+                    if refused is not None:
+                        self._post(self._resolve_lm, item[1], refused)
                     else:
-                        inflight[uid] = req
+                        inflight[item[1]] = req
                 elif kind == "segment":
                     self._enqueue_segment(*item[1:])
                 elif kind == "drain":
                     drains.append(item[1])
                     drained_inbox_dry = False
-            if self.engine is not None and (
-                inflight or self.engine._queue
-            ):
+            tick = self.engine is not None and bool(
+                inflight or self.engine._queue)
+            if submitted or tick:
+                self._send({"submit": submitted, "tick": tick})
+            if tick:
                 self.engine.tick()
+                self._bump_drv("ticks")
                 done = [u for u, r in inflight.items() if r.done]
                 for uid in done:
                     req = inflight.pop(uid)
@@ -695,6 +792,9 @@ class Frontend:
                     self._post(resolve)
                 drains = []
             if not progressed:
+                if (self._records is not None
+                        and self._clock() - self._sent_at >= HEARTBEAT_S):
+                    self._send({})  # a follower's receive stays in time
                 time.sleep(self.cfg.idle_poll_s)
 
     def _enqueue_segment(self, patient, seq, deadline_rel,
@@ -727,6 +827,7 @@ class Frontend:
             {"request_ids": batch.request_ids}
             if batch.request_ids is not None else {}
         )
+        self._send({"flush": (batch.patients, batch.seqs)})
         with tel.span("stream/flush", cat="stream",
                       bucket=batch.bucket, n_valid=batch.n_valid,
                       **tagged):
@@ -896,6 +997,7 @@ __all__ = [
     "Frontend",
     "FrontendConfig",
     "InProcClient",
+    "RankRecords",
     "SocketClient",
     "TokenBucket",
     "encode_frame",

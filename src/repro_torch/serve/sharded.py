@@ -17,7 +17,8 @@ makes both explicit:
     every leaf once (`dist.sharding.place`), so the full tree can be
     freed; the cache is cut the same way;
   * the collectives are the layers' (`models.layers`, `models.transformer`,
-    `models.rglru`, inside `dist.sharding.activation_context`): each
+    `models.rglru`, `models.moe`, `models.rwkv6`, inside
+    `dist.sharding.activation_context`): each
     block's FSDP leaves all-gathered over `data` before it runs,
     row-parallel partial products all-reduced over `model`, mid-head
     projections and vocab-split logits gathered over `model`;
@@ -36,8 +37,7 @@ Layers:
   * `plan_decode`     — specs and per-device bytes for one (model, mesh,
                         pool size), no allocation; refuses what the port
                         cannot place (an indivisible pool, a local shape
-                        `quant_matmul` cannot take, MoE or RWKV-6 at
-                        `model` > 1: ROADMAP.md queue 1 item 8c);
+                        `quant_matmul` cannot take);
   * `compile_decode`  — prefill and decode_step on rank-local tensors,
                         inside the activation context;
   * `sharded_generate`— batched generate (one prefill + N decode steps),
@@ -67,7 +67,7 @@ from repro_torch import _device
 from repro_torch._tree import leaves, map_with_path
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels import quant_matmul as QM
-from repro_torch.models.api import Model, block_kinds
+from repro_torch.models.api import Model
 from repro_torch.serve import seating
 from repro_torch.serve.engine import (
     Engine,
@@ -77,8 +77,6 @@ from repro_torch.serve.engine import (
     sample_tokens,
 )
 from repro_torch.serve.paging import PagingConfig, validate_page_size
-
-ITEM_8C = "ROADMAP.md queue 1 item 8c"
 
 
 def _decode_comm_budget(model: Model) -> dict:
@@ -132,18 +130,6 @@ def _replicated(specs: Any) -> Any:
     return map_with_path(lambda _, s: (None,) * len(s), specs)
 
 
-def _refuse(model: Model, mesh) -> None:
-    """Tensor parallelism for MoE and RWKV-6 is not served."""
-    cfg = model.cfg
-    tp = shd.axis_sizes(mesh).get("model", 1)
-    if tp > 1 and (cfg.moe is not None or "rwkv" in block_kinds(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model={tp}) for MoE and "
-            f"RWKV-6 is not ported ({ITEM_8C}); serve it on a data-only "
-            f"mesh (--mesh D)"
-        )
-
-
 def _check_kernel_shapes(params: Any, pspecs: Any, mesh, rows: int) -> None:
     """Raise `ShardingGuardError` where a packed leaf's local block under
     its spec is a shape the `quant_matmul` kernel cannot take at a decode
@@ -185,7 +171,6 @@ def plan_decode(
     axis (guarded here; the engine's `PageAllocator` hands each slot pages
     from its own shard's contiguous range, the same split)."""
     cfg = model.cfg
-    _refuse(model, mesh)
     axes = shd.data_axes(cfg, mesh)
     n_data = shd._axis_size(axes, mesh)
     tp = shd.axis_sizes(mesh).get("model", 1) if cfg.use_tp else 1

@@ -163,14 +163,16 @@ def make_train_step(
     return train_step
 
 
-ITEM_8C = "ROADMAP.md queue 1 item 8c"
+ITEM_8C = "ROADMAP.md queue 1 item 8c, training side"
 
 
 def check_inpod(cfg, mesh) -> None:
-    """Raise NotImplementedError for what in-pod training does not cover:
-    the encoder-decoder over data x model > 1 (use_tp=False, fsdp=False),
-    and at `model` > 1 MoE, RWKV-6 and the paper's QAT (its per-column
-    scales would see a row-parallel block only)."""
+    """Raise NotImplementedError for what in-pod training does not cover
+    yet (the training side of ROADMAP item 8c): the encoder-decoder over
+    data x model > 1 (use_tp=False, fsdp=False), and at `model` > 1 MoE,
+    RWKV-6 (their tensor-parallel forwards serve, `serve.sharded`; their
+    training is not held against the reference yet) and the paper's QAT
+    (its per-column scales would see a row-parallel block only)."""
     sizes = shd.axis_sizes(mesh)
     n_data, n_model = sizes.get("data", 1), sizes.get("model", 1)
     if n_data * n_model > 1 and cfg.is_enc_dec:
@@ -183,8 +185,9 @@ def check_inpod(cfg, mesh) -> None:
     kinds = tuple(cfg.pattern) + tuple(cfg.tail or ())
     if cfg.moe is not None or "rwkv" in kinds:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model={n_model}) for MoE and "
-            f"RWKV-6 is not ported ({ITEM_8C}); train it with M = 1")
+            f"{cfg.name}: training MoE and RWKV-6 with tensor parallelism "
+            f"(model={n_model}) is not ported ({ITEM_8C}); train it with "
+            f"M = 1")
     if cfg.spe_bits or cfg.spe_sparse:
         raise NotImplementedError(
             f"{cfg.name}: the co-design QAT at model={n_model} is not "

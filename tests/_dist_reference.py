@@ -19,14 +19,15 @@ final params, moments, error buffers and per-step metrics; the 4-pod
 state also checkpointed to CKPT_DIR. One process a mode, so that the
 three compile at once.
 
-    ... python tests/_dist_reference.py decode DxM IN.npz OUT.npz
+    ... python tests/_dist_reference.py decode DxM IN.npz OUT.npz TAGS
 
 `decode`: `serve.sharded`'s plan, placement and compiled prefill and
 decode step on a DxM `make_smoke_mesh`, greedy, for each case of IN
 (`cases`: tag, config name, quantized or not; `<tag>/params/<path>` the
-float32 or packed params, `prompts`, `new`): the prefill's and every
-decode step's logits and the tokens; also `sharded_generate`'s tokens.
-One process a mesh.
+float32 or packed params, `prompts`, `new`) whose tag TAGS lists
+(comma-separated): the prefill's and every decode step's logits and the
+tokens; also `sharded_generate`'s tokens. A few cases a process, so that
+they compile at once.
 
     ... python tests/_dist_reference.py inpod PROC IN.npz OUT.npz
 
@@ -183,7 +184,7 @@ def multipod(mode: str, n: int, inp: str, outp: str, ckpt_dir: str) -> None:
     np.savez(outp, **out)
 
 
-def decode(spec: str, inp: str, outp: str) -> None:
+def decode(spec: str, inp: str, outp: str, tags: str) -> None:
     from repro import configs
     from repro.launch.mesh import make_smoke_mesh
     from repro.models import api
@@ -199,6 +200,8 @@ def decode(spec: str, inp: str, outp: str) -> None:
     out = {}
     for case in data["cases"]:
         tag, name, bits = str(case[0]), str(case[1]), int(case[2])
+        if tag not in tags.split(","):
+            continue
         cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
         model = api.build_model(cfg, tp=1, max_seq=int(data["max_seq"]))
 
@@ -341,7 +344,7 @@ if __name__ == "__main__":
     if sys.argv[1] == "compression":
         compression(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "decode":
-        decode(sys.argv[2], sys.argv[3], sys.argv[4])
+        decode(*sys.argv[2:6])
     elif sys.argv[1] == "inpod":
         inpod(sys.argv[2], sys.argv[3], sys.argv[4])
     elif sys.argv[1] == "spread":

@@ -258,6 +258,30 @@ def _entry_points(out) -> None:
         out["stream_chip"] = rec["chip"]
 
 
+def stream_listen_recorded(argv: list, out_path: str) -> None:
+    """`launch.stream.main(argv)` (a `--listen --devices N` server) on
+    this rank of the group, until SIGINT; every bucket this rank's
+    `FleetRunner.classify` returns is kept with its signals, and rank 0
+    saves them (with its runner's device count) to `out_path`."""
+    from repro_torch.launch import stream as launch_stream
+    from repro_torch.stream import runner as R
+
+    seen, n_devices = [], []
+    classify = R.FleetRunner.classify
+
+    def recorded(self, signals):
+        preds = classify(self, signals)
+        seen.append((torch.as_tensor(signals, dtype=torch.float32).clone(),
+                     preds.clone()))
+        n_devices.append(self.n_devices)
+        return preds
+
+    R.FleetRunner.classify = recorded
+    launch_stream.main(argv, device="cpu")
+    if _spawn.rank() == 0:
+        torch.save({"seen": seen, "n_devices": n_devices[-1]}, out_path)
+
+
 def multipod(params_np: dict, batches: list, tmp: str) -> dict | None:
     """The multi-pod steps held against the reference, and the
     checkpoint of their error buffers, on 4 ranks."""
@@ -280,9 +304,26 @@ def port_only(tmp: str) -> dict | None:
 # Sharded serving (serve.sharded) on ("data", "model") meshes
 # ---------------------------------------------------------------------------
 
-SERVE_CASES = (("qwen3", "qwen3_8b", 0), ("qwen3_q8", "qwen3_8b", 8),
-               ("rg", "recurrentgemma_2b", 0))
 SERVE_MESHES = ("4x1", "2x2")
+# tag, config, packed bits (0: float32), the meshes it is held on: MoE
+# (llama4 with its shared expert) and RWKV-6 at model = 2
+SERVE_CASES = (("qwen3", "qwen3_8b", 0, SERVE_MESHES),
+               ("qwen3_q8", "qwen3_8b", 8, SERVE_MESHES),
+               ("rg", "recurrentgemma_2b", 0, SERVE_MESHES),
+               ("olmoe", "olmoe_1b_7b", 0, ("2x2",)),
+               ("llama4", "llama4_scout_17b_a16e", 0, ("2x2",)),
+               ("rwkv", "rwkv6_3b", 0, ("2x2",)),
+               ("rwkv_q8", "rwkv6_3b", 8, ("2x2",)))
+# the reference's processes (tests/_dist_reference.py decode): mesh, tags
+SERVE_REF_PROCS = (("4x1", "qwen3,qwen3_q8,rg"), ("2x2", "qwen3,qwen3_q8,rg"),
+                   ("2x2", "olmoe,llama4,rwkv,rwkv_q8"))
+# tests/test_admission_properties.py's sharded property: config, mesh;
+# its interleavings drawn from these seeds (its max_examples=2)
+ADMISSION_CASES = (("qwen3_8b", "4x1"), ("recurrentgemma_2b", "4x1"),
+                   ("qwen3_8b", "2x2"), ("olmoe_1b_7b", "2x2"))
+ADMISSION_SEEDS = (0, 1)
+ADMISSION_MAX_SEQ = 24
+ADMISSION_PROMPT_LENS = (2, 3, 4)
 SERVE_B, SERVE_S, SERVE_NEW = 8, 6, 6
 SERVE_MAX_SEQ = SERVE_S + SERVE_NEW + 2
 SAMPLE_KEY = (7,)
@@ -455,9 +496,9 @@ def _engines(out: dict) -> None:
 
 
 def _guards(out: dict) -> None:
-    """What plan_decode refuses: an indivisible pool, tensor parallelism
-    for MoE and RWKV-6, a local shape the quant_matmul kernel cannot
-    take; and constrain on a wrong local shape."""
+    """What plan_decode refuses: an indivisible pool, a local shape the
+    quant_matmul kernel cannot take; MoE and RWKV-6 on a data-only mesh
+    against one device; and constrain on a wrong local shape."""
     from repro_torch.dist import sharding as shd
     from repro_torch.serve import engine as E
     from repro_torch.serve import sharded as SH
@@ -490,9 +531,6 @@ def _guards(out: dict) -> None:
     for name in ("olmoe_1b_7b", "rwkv6_3b"):
         m = serve_model(name)
         p = m.init(0, device="cpu")
-        out[f"guard_tp_{name}"] = refused(
-            lambda m=m, p=p: SH.plan_decode(m, p, mesh22, batch_size=8),
-            NotImplementedError)
         prompts = torch.from_numpy(np.random.default_rng(5).integers(
             0, m.cfg.vocab, (SERVE_B, 4)))
         got = SH.sharded_generate(m, p, prompts, mesh=mesh, max_new=3)
@@ -545,19 +583,82 @@ def _entry(out: dict) -> None:
     out["example_outputs"] = demo["outputs"]
 
 
+def admission_requests(cfg, rng, n: int) -> list:
+    """tests/test_admission_properties.py's `_make_requests` (no EOS),
+    the prompts drawn with numpy."""
+    from repro_torch.serve import engine as E
+
+    reqs = []
+    for i in range(n):
+        s_len = int(rng.choice(ADMISSION_PROMPT_LENS))
+        prompt = torch.from_numpy(np.random.default_rng(1000 + i).integers(
+            0, cfg.vocab, s_len))
+        reqs.append(E.Request(uid=i, prompt=prompt,
+                              max_new=int(rng.integers(1, 5))))
+    return reqs
+
+
+def drive_random_interleaving(eng, reqs, rng, max_steps: int = 200) -> int:
+    """tests/test_admission_properties.py's `_drive_random_interleaving`:
+    submit 1-2 pending requests with probability 0.6 (always when the
+    queue is empty), then tick, until drained. Returns the ticks."""
+    pending = list(reqs)
+    steps = 0
+    while (pending or eng._queue
+           or any(s is not None for s in eng._slots)) and steps < max_steps:
+        steps += 1
+        if pending and (rng.random() < 0.6 or not eng._queue):
+            for _ in range(int(rng.integers(1, 3))):
+                if pending:
+                    eng.submit(pending.pop(0))
+        eng.tick()
+    return steps
+
+
+def _admission(out: dict) -> None:
+    """The twin of test_sharded_engine_matches_sharded_generate_under_
+    interleavings: for each case and seed, ShardedEngine (a pool of 8)
+    under a seeded interleaving of 4 requests, each request's output
+    against `sharded_generate` on the same mesh of its prompt broadcast
+    over 8 rows (row 0 read), token for token."""
+    from repro_torch.serve import sharded as SH
+
+    for name, spec in ADMISSION_CASES:
+        model = serve_model(name, max_seq=ADMISSION_MAX_SEQ)
+        params = model.init(0, device="cpu")
+        mesh = make_smoke_mesh(*(int(x) for x in spec.split("x")), "cpu")
+        plan = SH.plan_decode(model, params, mesh, batch_size=8)
+        placed = SH.place_params(params, plan)
+        for seed in ADMISSION_SEEDS:
+            rng = np.random.default_rng(seed)
+            reqs = admission_requests(model.cfg, rng, 4)
+            eng = SH.ShardedEngine(model, params, batch_size=8, mesh=mesh,
+                                   device="cpu")
+            steps = drive_random_interleaving(eng, reqs, rng)
+            want = [SH.sharded_generate(
+                model, placed, r.prompt[None].expand(8, -1), mesh=mesh,
+                max_new=r.max_new, params_placed=True, plan=plan,
+            )[0].tolist() for r in reqs]
+            out[f"admission/{name}/{spec}/{seed}"] = {
+                "outputs": [r.output for r in reqs], "want": want,
+                "done": all(r.done for r in reqs), "steps": steps,
+                "drained": (all(s is None for s in eng._slots)
+                            and not bool(eng.active.any()))}
+
+
 def serving(inputs: dict) -> dict | None:
     """The port's sharded serving on 4 ranks: each case's prefill and
-    decode logits and tokens on 4x1 and 2x2 (for the reference's), the
-    sampled generate on 4x1, the engines, the guards, placement and the
-    entry points."""
+    decode logits and tokens on its meshes (for the reference's), the
+    sampled generate on 4x1, the engines, the admission property, the
+    guards, placement and the entry points."""
     from repro_torch.serve import sharded as SH
 
     out: dict = {}
     prompts = torch.from_numpy(inputs["prompts"])
-    for tag, name, _ in SERVE_CASES:
+    for tag, name, _, meshes in SERVE_CASES:
         model = serve_model(name)
         params = convert.lm_params_from_numpy(inputs["params"][tag], "cpu")
-        for spec in SERVE_MESHES:
+        for spec in meshes:
             mesh = make_smoke_mesh(*(int(x) for x in spec.split("x")), "cpu")
             out[f"{spec}/{tag}"] = _decode_run(model, params, prompts, mesh,
                                                SERVE_NEW)
@@ -570,6 +671,7 @@ def serving(inputs: dict) -> dict | None:
                 max_new=SERVE_NEW, greedy=False, key=SAMPLE_KEY,
                 temperature=0.8, top_k=20).numpy()
     _engines(out)
+    _admission(out)
     _guards(out)
     _placement(out)
     _entry(out)

@@ -509,11 +509,23 @@ def test_launch_stream_default_listen_and_connect():
         rec["stats"]["sched_packed_total"] == 48
 
 
-@pytest.mark.parametrize("flag", sorted(tstream._NOT_PORTED) + ["--devices"])
+@pytest.mark.parametrize("flag", sorted(tstream._NOT_PORTED))
 def test_launch_stream_refuses_flags_not_ported(flag, capsys):
     argv = [flag] if flag in tstream._SWITCHES else [flag, "2"]
-    if flag == "--devices":  # ported; a frontend over a data mesh is not
-        argv = ["--listen", "127.0.0.1:0", *argv]
     with pytest.raises(SystemExit):
         tstream.main(argv, device="cpu")
-    assert "ROADMAP.md queue 1 item" in capsys.readouterr().err
+    assert "ROADMAP.md queue 1 item 9" in capsys.readouterr().err
+
+
+def test_launch_stream_listen_devices_reaches_the_spawn(monkeypatch):
+    """`--listen --devices 2` (a frontend over a data mesh) parses and
+    goes to `launch._spawn.run` with the listening rank function, as a
+    run with no bound of the whole: a server ends on SIGINT
+    (tests/test_torch_mesh_frontend.py serves one)."""
+    calls = []
+    monkeypatch.setattr(
+        tstream._spawn, "run",
+        lambda fn, world, **kw: calls.append((fn, world,
+                                              kw.get("until_stopped"))))
+    tstream.main(["--listen", "127.0.0.1:0", "--devices", "2"], device="cpu")
+    assert calls == [(tstream._listen_rank, 2, True)]

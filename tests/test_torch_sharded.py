@@ -1,17 +1,23 @@
 """PyTorch port vs JAX package: sharded LM serving over `data` and `model`
 (`serve.sharded`) — placement, the tensor-parallel layers (the packed
-`quant_matmul` on each rank's shard), `sharded_generate`, `ShardedEngine`
-(dense, paged, chunked), the plan's accounting and guards, and
-`launch.serve --mesh` / the `serve_lm` example's sharded block.
+`quant_matmul` on each rank's shard; MoE over the experts' hidden axis,
+RWKV-6 over its heads), `sharded_generate`, `ShardedEngine` (dense,
+paged, chunked; and under seeded interleavings against `sharded_generate`
+on the same mesh, the twin of
+tests/test_admission_properties.py's sharded property), the plan's
+accounting and guards, and `launch.serve --mesh` / the `serve_lm`
+example's sharded block.
 
 One module fixture does the multi-rank work: a spawned gloo group of 4
-ranks runs the port (`tests/_torch_dist_ranks.py`, `serving`) while one
-subprocess a mesh (4x1, 2x2) runs the reference's plan, placement and
-compiled prefill and decode steps with 4 forced host devices
+ranks runs the port (`tests/_torch_dist_ranks.py`, `serving`) while
+subprocesses (one on 4x1, two on 2x2) run the reference's plan,
+placement and compiled prefill and decode steps with 4 forced host
+devices
 (`tests/_dist_reference.py decode`), on the same numpy params (the
-port's draws; the 8-bit case packed by the port) and seeded prompts. The
-reduced qwen3-8b and recurrentgemma-2b in float32. Each spawn and
-subprocess has its own time limit.
+port's draws; the 8-bit cases packed by the port) and seeded prompts. The
+reduced qwen3-8b and recurrentgemma-2b on both meshes, olmoe-1b-7b,
+llama4-scout (MoE with a shared expert) and rwkv6-3b (float32 and 8-bit)
+on 2x2, in float32. Each spawn and subprocess has its own time limit.
 
 Tolerances, each for its reason:
 
@@ -24,7 +30,8 @@ Tolerances, each for its reason:
   tests/test_torch_lm.py), the 8-bit packed path too; qwen3's greedy
   tokens equal the reference's (tests/test_decode_multidevice.py);
 - the port against itself (paged against dense pools, the engine
-  against the single-device engine, sampled streams): exact.
+  against the single-device engine or against `sharded_generate` on the
+  same mesh, sampled streams): exact.
 """
 
 import os
@@ -58,7 +65,7 @@ def served(tmp_path_factory):
     prompts)."""
     tmp = tmp_path_factory.mktemp("sharded")
     built, params_np = {}, {}
-    for tag, name, bits in ranks.SERVE_CASES:
+    for tag, name, bits, _ in ranks.SERVE_CASES:
         model = ranks.serve_model(name)
         params = model.init(0, device="cpu")
         if bits:
@@ -70,31 +77,31 @@ def served(tmp_path_factory):
     flat = {"prompts": prompts, "new": ranks.SERVE_NEW,
             "max_seq": ranks.SERVE_MAX_SEQ,
             "cases": np.array([(t, n, str(b))
-                               for t, n, b in ranks.SERVE_CASES])}
+                               for t, n, b, _ in ranks.SERVE_CASES])}
     for tag, tree in params_np.items():
         map_with_path(lambda path, p, tag=tag: flat.__setitem__(
             f"{tag}/params/" + "/".join(path), p), tree)
     np.savez(tmp / "in.npz", **flat)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     procs = {}
-    for spec in ranks.SERVE_MESHES:
-        log = open(tmp / f"ref_{spec}.log", "w")
-        procs[spec] = (subprocess.Popen(
+    for i, (spec, tags) in enumerate(ranks.SERVE_REF_PROCS):
+        log = open(tmp / f"ref_{i}.log", "w")
+        procs[i] = (spec, subprocess.Popen(
             [sys.executable, str(REPO / "tests" / "_dist_reference.py"),
-             "decode", spec, str(tmp / "in.npz"), str(tmp / f"ref_{spec}.npz")],
-            env=env, stdout=log, stderr=subprocess.STDOUT), log)
+             "decode", spec, str(tmp / "in.npz"), str(tmp / f"ref_{i}.npz"),
+             tags], env=env, stdout=log, stderr=subprocess.STDOUT), log)
     try:
         port = _spawn.run(ranks.serving, 4, device="cpu",
                           args=({"params": params_np, "prompts": prompts},),
                           timeout_s=TIMEOUT_S)
         ref = {}
-        for spec, (p, log) in procs.items():
+        for i, (spec, p, log) in procs.items():
             p.wait(timeout=TIMEOUT_S)
             log.close()
-            assert p.returncode == 0, (tmp / f"ref_{spec}.log").read_text()
-            ref[spec] = dict(np.load(tmp / f"ref_{spec}.npz"))
+            assert p.returncode == 0, (tmp / f"ref_{i}.log").read_text()
+            ref.setdefault(spec, {}).update(np.load(tmp / f"ref_{i}.npz"))
     finally:
-        for p, log in procs.values():
+        for _, p, log in procs.values():
             if p.poll() is None:
                 p.kill()
             log.close()
@@ -238,14 +245,55 @@ def test_plan_guards(served):
     assert "quant_matmul" in port["guard_kernel"]
 
 
-@pytest.mark.parametrize("name", ["olmoe_1b_7b", "rwkv6_3b"])
-def test_moe_and_rwkv_data_mesh_only(served, name):
-    """MoE and RWKV-6 serve on a data-only mesh through the FSDP gather
-    (tokens equal the single-device generate); at model = 2 they raise,
-    naming ROADMAP item 8c."""
+TP_TAGS = [t for t, _, _, m in ranks.SERVE_CASES if m == ("2x2",)]
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_moe_and_rwkv_tp_mesh_match_reference(served, tag):
+    """MoE (olmoe; llama4 with its shared expert) and RWKV-6 (float32 and
+    8-bit packed) at model = 2: the prefill's and each decode step's
+    logits within F32_REL of the reference's sharded run on 2x2. On a
+    data-only mesh they equal the single-device generate."""
+    port, ref, built, _ = served
+    for t in range(ranks.SERVE_NEW + 1):
+        got = port[f"2x2/{tag}"][f"logits/{t}"]
+        want = ref["2x2"][f"{tag}/logits/{t}"]
+        assert got.shape == want.shape
+        assert _rel(got, want) <= F32_REL, (t, _rel(got, want))
+    name = built[tag][0].cfg.name
+    family = {"olmoe-reduced": "olmoe_1b_7b",
+              "rwkv6-reduced": "rwkv6_3b"}.get(name)
+    if family is not None:
+        assert port[f"data_mesh_{family}"]
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_moe_and_rwkv_tp_placed_bytes_and_comm(served, tag):
+    """On 2x2: rank 0's placed params and cache hold the plan's bytes to
+    the byte (RWKV-6's state replicated over `model`, as the reference's
+    `cache_specs` keeps it), and each decode step's collectives stay
+    within `_decode_comm_budget`, all-reduces and all-gathers both."""
+    run = served[0][f"2x2/{tag}"]
+    placed_p, plan_p, placed_c, plan_c = run["bytes"]
+    assert placed_p == plan_p and placed_c == plan_c
+    for step in run["comm"]:
+        assert all(v <= run["budget"].get(k, 0) for k, v in step.items())
+        assert step.get("all-reduce", 0) > 0 and step.get("all-gather", 0) > 0
+
+
+@pytest.mark.parametrize("name,spec", ranks.ADMISSION_CASES)
+def test_sharded_engine_matches_sharded_generate_under_interleavings(
+        served, name, spec):
+    """ShardedEngine (a pool of 8; batched sharded prefill admission,
+    scatter seating, recurrent caches included) under two seeded random
+    interleavings of 4 requests, each request's tokens equal to
+    `sharded_generate`'s on the same mesh, token for token; every request
+    done and the pool drained."""
     port = served[0]
-    assert port[f"data_mesh_{name}"]
-    assert "item 8c" in port[f"guard_tp_{name}"]
+    for seed in ranks.ADMISSION_SEEDS:
+        run = port[f"admission/{name}/{spec}/{seed}"]
+        assert run["done"] and run["drained"], (seed, run["steps"])
+        assert run["outputs"] == run["want"], seed
 
 
 def test_constrain_and_place(served):
@@ -277,9 +325,12 @@ def test_serve_lm_example_sharded_block(served):
     assert sharded["outputs"] == port["example_outputs"]
 
 
-def test_mesh_refusals():
+def test_mesh_refusals(capsys):
+    """--mesh with --connect (the client; the server takes the mesh), and
+    va-cnn over a mesh, are refused."""
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--mesh", "2",
-                      "--listen", "127.0.0.1:0"], device="cpu")
+                      "--connect", "127.0.0.1:1"], device="cpu")
+    assert "--listen --mesh" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "va-cnn", "--mesh", "2"], device="cpu")

@@ -281,6 +281,25 @@ LM_ROWS = (4, 64)  # a decode step's rows (batch 4), a prefill's (4 x 16)
 # run most of their quant_matmul launches at it)
 CHUNK_ROWS = 1
 LM_PROFILE_STEPS = 2  # decode steps a profile covers
+# the LMs' sparse (SPE) format: nm_spmm at qwen3-8b's four projection
+# shapes and at recurrentgemma-2b's and rwkv6-3b's down projections, whose
+# K (12 288, 7 680, 8 960) passes what a whole strip of the weights can
+# hold in a block's shared memory (the kernel streams it in K segments),
+# at a one-row step's, a decode step's and a prefill's rows
+LM_SPARSE_SHAPES = {"qwen3-8b": tuple(LM_SHAPES),
+                    "recurrentgemma-2b": ((7680, 2560),),
+                    "rwkv6-3b": ((8960, 2560),)}
+LM_SPARSE_ROWS = (1, 4, 64)
+# qwen3-8b's full CONFIG with every projection in the SPE format (16:8, 8
+# bits): one generate at batch 4, prompt 16, 4 new tokens
+LM_SPARSE_ARGV = ("--arch", "qwen3-8b", "--batch", "4", "--prompt-len",
+                  "16", "--max-new", "4")
+LM_SPARSE_BITS = 8
+# nm_spmm's sum over the 7 VA layers at bucket 256 before the K segments
+# (the whole-strip kernel; NVIDIA H100 80GB HBM3, 700 W): where the strip
+# fits the plan and the MMAs are unchanged, so the sum stays within 3%
+VA_NM_SPMM_MS = 0.091392
+VA_NM_SPMM_RTOL = 0.03
 # 8-bit prefill logits, kernel against plain on the card: both compute each
 # projection in float32 (the kernel to about 1e-6) and round it to bfloat16,
 # so they differ only where a rounding falls the other way, by one bfloat16
@@ -1095,6 +1114,207 @@ def lm_serve(torch, dev, smi, launches_now, reset_launches) -> dict:
     return {"runs": runs, "family_runs": family_runs, "whisper": whisper,
             "reduced": reduced, "shapes": shapes,
             "family_shapes": family_shapes, "max_abs_err": kernel_err}
+
+
+def lm_sparse(torch, dev, smi, launches_now, reset_launches) -> dict:
+    """The LMs' SPE format on the card: nm_spmm at each LM_SPARSE_SHAPES
+    shape and LM_SPARSE_ROWS row count against its plain version at
+    KERNEL_RTOL, twice, bit-identical, its geometry (the K segment) and
+    times against the byte bound and torch.matmul on the decompressed
+    weight; then qwen3-8b's full CONFIG drawn as launch.serve draws it,
+    every packed projection compiled to the SPE format
+    (tests/_spe_tree.py), one `serve.engine.generate` with its nm_spmm
+    launches counted (packed_per_forward a forward), the prefill against
+    the same forward on nm_spmm's plain version (bfloat16: LM_PLAIN_RTOL;
+    float32: LM_PLAIN_F32_RTOL), a decode step's wall and device time,
+    peak memory, and the tree's bytes against the packed 8-bit tree's.
+    Returns what the kernels line takes."""
+    import argparse
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import spe
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels._common import decompress_tile
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api
+    from repro_torch.serve import engine
+
+    sys.path.append(str(ROOT / "tests"))
+    from _spe_tree import sparse_for_serving
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows, worst = [], 0.0
+    for model_name, shapes in LM_SPARSE_SHAPES.items():
+        for k, n in shapes:
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            layer = spe.compile_layer(w, spe.SPEConfig(bits=LM_SPARSE_BITS))
+            del w
+            kk = layer.values_q.shape[0]
+            w_dense = decompress_tile(layer.values_q, layer.select, 16, 8
+                                      ) * layer.scale
+            for m in LM_SPARSE_ROWS:
+                x = torch.randn((m, k), generator=gen, device=dev)
+                args = (x, layer.values_q, layer.select, layer.scale)
+
+                def kernel(args=args):
+                    return K.nm_spmm_cuda(*args, group_size=16, keep=8)
+
+                y, y_again = kernel(), kernel()
+                y_p = K.nm_spmm_plain(*args, group_size=16, keep=8)
+                torch.cuda.synchronize()
+                err, rel = rel_err(y, y_p)
+                worst = max(worst, err)
+                same = torch.equal(y, y_again)
+                check(rel <= KERNEL_RTOL,
+                      f"nm_spmm {(m, k, n)}: rel err {rel}")
+                check(same, f"nm_spmm {(m, k, n)}: repeat differs")
+                t = {"ms": device_ms(torch, kernel),
+                     "plain_ms": device_ms(torch, lambda: K.nm_spmm_plain(
+                         *args, group_size=16, keep=8)),
+                     "library_ms": device_ms(
+                         torch, lambda: torch.matmul(x, w_dense))}
+                b_ms, o_ms = bound(m, k, kk, n)
+                t["bound_ms"] = max(b_ms, o_ms)
+                row = {"model": model_name, "m": m, "k": k, "kk": kk, "n": n,
+                       **t, "bound_by": "bytes" if b_ms >= o_ms
+                       else "operations",
+                       "max_abs_err": err, "rel_err": rel, "tol": KERNEL_RTOL,
+                       "repeat_identical": same,
+                       "geometry": K.launch_geometry(m, k, n, group_size=16)}
+                emit({"phase": "lm_sparse_kernel", "kernel": K.NAME,
+                      "card": smi, **row})
+                rows.append(row)
+            del layer, w_dense
+    check(len(rows) == len(LM_SPARSE_ROWS) * sum(
+        map(len, LM_SPARSE_SHAPES.values())),
+        f"nm_spmm at the LM shapes: {len(rows)} cases ran")
+    kernel_s = time.perf_counter() - t_phase
+
+    # qwen3-8b's full CONFIG in the SPE format
+    t0 = time.perf_counter()
+    free_card(torch, dev)
+    arch = LM_SPARSE_ARGV[1]
+    full = configs.get(arch)
+    batch = int(LM_SPARSE_ARGV[LM_SPARSE_ARGV.index("--batch") + 1])
+    prompt_len = int(LM_SPARSE_ARGV[LM_SPARSE_ARGV.index("--prompt-len") + 1])
+    max_new = int(LM_SPARSE_ARGV[LM_SPARSE_ARGV.index("--max-new") + 1])
+    args = argparse.Namespace(arch=arch, reduced=False, batch=batch,
+                              prompt_len=prompt_len, max_new=max_new,
+                              quant_bits=None, seed=0)
+    cfg, model, params, prompts = launch_serve.build_lm(args, dev)
+    params = sparse_for_serving(params, LM_SPARSE_BITS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nodes = []
+
+    def collect(tree):
+        if isinstance(tree, dict):
+            if "values_q" in tree:
+                nodes.append(tree)
+            else:
+                for v in tree.values():
+                    collect(v)
+
+    collect(params)
+    tensor_bytes = sum(node[k].numel() * node[k].element_size()
+                       for node in nodes for k in ("values_q", "select",
+                                                   "scale"))
+    # the chip's storage: 8-bit values and 4-bit selects (spe.CompiledLayer)
+    chip_bytes = sum(node["values_q"].numel() * (LM_SPARSE_BITS + 4) // 8
+                     + node["scale"].numel() * 4 for node in nodes)
+    # the packed 8-bit tree of the same projections: a byte a dense weight
+    packed8_bytes = sum(
+        node["values_q"].numel() // node["meta"]["keep"]
+        * node["meta"]["group"] + node["scale"].numel() * 4
+        for node in nodes)
+    # the SPE linears a forward applies: each stacked group's once
+    per_forward = sum(node["values_q"].shape[0] if node["values_q"].ndim == 3
+                      else 1 for node in nodes)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(model, params, prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launched = launches_now()
+    expected = dict.fromkeys(launched, 0)
+    expected[K.NAME] = packed_per_forward(full) * (1 + max_new)
+    check(per_forward == packed_per_forward(full),
+          f"{arch}: {per_forward} SPE linears a forward, "
+          f"{packed_per_forward(full)} packed")
+    check(launched == expected,
+          f"SPE generate {arch}: launches {launched}, expected {expected}")
+    check(tuple(tokens.shape) == (batch, max_new),
+          f"SPE generate: tokens {tuple(tokens.shape)}")
+
+    logits, cache = model.prefill(params, prompts)
+    tok = torch.argmax(logits, dim=-1)
+    pos = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        model.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    step_prof = lm_profile(
+        torch, lambda: model.decode_step(params, cache, tok, pos), 1)
+
+    def plain_prefill(m):
+        with mock.patch.object(
+                K, "nm_spmm_cuda",
+                lambda *a, group_size, keep: K.nm_spmm_plain(
+                    *a, group_size=group_size, keep=keep)):
+            out, _ = m.prefill(params, prompts)
+        return out
+
+    t0 = time.perf_counter()
+    reset_launches()
+    plain = plain_prefill(model)
+    torch.cuda.synchronize()
+    _, rel = rel_err(logits, plain)
+    argmax_agree = float((logits.argmax(-1) == plain.argmax(-1))
+                         .float().mean())
+    del plain
+    model32 = api.build_model(dataclasses.replace(cfg, dtype="float32"),
+                              max_seq=model.max_seq)
+    plain32 = plain_prefill(model32)
+    torch.cuda.synchronize()
+    check(launches_now()[K.NAME] == 0, "the plain SPE prefill launched")
+    kernel32, _ = model32.prefill(params, prompts)
+    torch.cuda.synchronize()
+    _, rel32 = rel_err(kernel32, plain32)
+    plain_s = time.perf_counter() - t0
+    del plain32, kernel32
+    rec = {
+        "phase": "lm_sparse", "card": smi, "arch": arch,
+        "n_layers": full.n_layers, "d_model": full.d_model,
+        "bits": LM_SPARSE_BITS, "group": 16, "keep": 8,
+        "batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+        "launches": launched, "expected_launches": expected,
+        "nm_spmm_per_forward": packed_per_forward(full),
+        "build_and_compile_s": build_s, "generate_s": generate_s,
+        "decode_wall_ms": walls, "decode_device_ms": step_prof["device_ms"],
+        "decode_profile": step_prof,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "spe_tensor_bytes": tensor_bytes, "spe_chip_bytes": chip_bytes,
+        "packed8_bytes": packed8_bytes,
+        "rel_err_vs_plain": rel, "tol_vs_plain": LM_PLAIN_RTOL,
+        "argmax_agree_vs_plain": argmax_agree,
+        "rel_err_vs_plain_f32": rel32, "tol_vs_plain_f32": LM_PLAIN_F32_RTOL,
+        "kernel_shapes_s": kernel_s, "plain_s": plain_s,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    check(rel <= LM_PLAIN_RTOL,
+          f"{arch} SPE prefill, kernel vs plain: rel err {rel}")
+    check(rel32 <= LM_PLAIN_F32_RTOL,
+          f"{arch} SPE float32 prefill, kernel vs plain: rel err {rel32}")
+    del params, cache, logits, model, model32
+    free_card(torch, dev)
+    return {"rows": rows, "max_abs_err": worst,
+            "launches": launched[K.NAME]}
 
 
 def start_server(module: str, argv, what: str):
@@ -2499,7 +2719,7 @@ def main() -> int:
     # B * T_out output steps are nm_spmm's M)
     for p in problems:
         emit({"phase": "geometry", "kernel": K.NAME, **p,
-              **K.launch_geometry(p["m"], p["k"], p["n"])})
+              **K.launch_geometry(p["m"], p["k"], p["n"], group_size=16)})
         emit({"phase": "geometry", "kernel": SC.NAME, **p,
               **SC.launch_geometry(BUCKET, p["m"] // BUCKET, p["k"], p["n"])})
 
@@ -2787,7 +3007,7 @@ def main() -> int:
             emit({"phase": "kernel", "kernel": K.NAME, "bucket": bucket, **p,
                   "max_abs_err": err, "rel_err": rel, "tol": KERNEL_RTOL})
             emit({"phase": "geometry", "kernel": K.NAME, "bucket": bucket, **p,
-                  **K.launch_geometry(p["m"], p["k"], p["n"])})
+                  **K.launch_geometry(p["m"], p["k"], p["n"], group_size=16)})
             check(tuple(y_k.shape) == (p["m"], p["n"]), f"fleet {p}: shape")
             check(bool(torch.isfinite(y_k).all()), f"fleet {p}: non-finite")
             check(rel <= KERNEL_RTOL, f"fleet bucket {bucket} {p}: rel err {rel}")
@@ -3162,6 +3382,8 @@ def main() -> int:
         K.launches = SC.launches = QM.launches = BS.launches = 0
 
     lm = lm_serve(torch, dev, smi, launches_now, reset_launches)
+    sparse = lm_sparse(torch, dev, smi, launches_now, reset_launches)
+    clock("lm_sparse")
     # one qwen3-8b layer's seven 8-bit projections at a decode step's rows
     lm_layer = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms",
                               "library_bf16_ms", "ms_in_run",
@@ -3254,6 +3476,13 @@ def main() -> int:
             totals[key] += t[key]
         emit({"phase": "time", "kernel": K.NAME, **p, **t,
               "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+    va_ratio = totals["ms"] / VA_NM_SPMM_MS
+    emit({"phase": "time", "kernel": K.NAME, "va_layers_ms": totals["ms"],
+          "whole_strip_kernel_ms": VA_NM_SPMM_MS, "ratio": va_ratio,
+          "tol": VA_NM_SPMM_RTOL, "card": smi})
+    check(abs(va_ratio - 1) <= VA_NM_SPMM_RTOL,
+          f"nm_spmm over the VA layers: {totals['ms']} ms, "
+          f"{VA_NM_SPMM_MS} before the K segments")
     conv_totals = dict.fromkeys(spe_keys + ("im2col_nm_spmm_ms",), 0.0)
     conv_bytes_ms = conv_ops_ms = 0.0
     for m in program.layer_meta:
@@ -3424,7 +3653,8 @@ def main() -> int:
         "launches_frontend": stream_front["inproc"]["nm_spmm_launches"],
         "launches_dist_fleet": fleet_dist["nm_spmm_launches"],
         "launches_frontend_mesh": stream_mesh["nm_spmm_launches"],
-        "max_abs_err": max(max_abs_err, fleet_err),
+        "launches_lm_sparse": sparse["launches"],
+        "max_abs_err": max(max_abs_err, fleet_err, sparse["max_abs_err"]),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         **{key: totals[key] for key in
@@ -3435,7 +3665,14 @@ def main() -> int:
               "frontend's in-process run; launches_dist_fleet: one bucket "
               "through the FleetRunner on a 1-device NCCL data mesh; "
               "launches_frontend_mesh: the rank-coordinated stream "
-              "frontend's run on that mesh)",
+              "frontend's run on that mesh; launches_lm_sparse: one "
+              "generate of qwen3-8b's full CONFIG in the SPE format, "
+              "lm_layer_4_rows its 7 projections at a decode step's rows)",
+        "lm_layer_4_rows": {
+            key: sum(LM_SHAPES[(r["k"], r["n"])] * r[key]
+                     for r in sparse["rows"]
+                     if r["model"] == "qwen3-8b" and r["m"] == LM_ROWS[0])
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }, {
         "name": SC.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sparse_conv1d.cu",

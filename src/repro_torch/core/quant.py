@@ -71,7 +71,7 @@ def _channel_reduce(w: torch.Tensor, fn, cfg: QuantConfig) -> torch.Tensor:
 
 
 def quantize(
-    w: torch.Tensor, cfg: QuantConfig
+    w: torch.Tensor, cfg: QuantConfig, *, reduce_max=None, reduce_sum=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize to signed integers; returns (q int8, scale float32).
 
@@ -79,13 +79,30 @@ def quantize(
     Fully-zero channels are guarded by float32's smallest normal; where
     that guard divided by qmax is subnormal (4 and 8 bits), the stored
     scale is flushed to 0, as XLA flushes it in the reference.
+
+    `reduce_max` / `reduce_sum`: where `w` is one block of a weight whose
+    reduced axes are split (a row-parallel weight's rows over `model`),
+    the callables that combine the blocks' per-channel statistics, so
+    each scale is the whole channel's, as GSPMD computes it in the
+    reference: max|w| (above 1 bit), and at 1 bit the sum of |w| with the
+    element count, whose quotient is the whole channel's mean. None: `w`
+    is whole.
     """
     w = w.to(torch.float32)
     if cfg.bits == 1:
-        scale = _channel_reduce(w.abs(), torch.mean, cfg).clamp_min(_TINY)
+        if reduce_sum is None:
+            scale = _channel_reduce(w.abs(), torch.mean, cfg)
+        else:
+            total = _channel_reduce(w.abs(), torch.sum, cfg)
+            count = torch.full_like(total, w.numel() // total.numel())
+            total, count = reduce_sum(torch.stack([total, count]))
+            scale = total / count
         q = torch.where(w >= 0, 1, -1).to(torch.int8)
-        return q, scale
-    amax = _channel_reduce(w.abs(), torch.amax, cfg).clamp_min(_TINY)
+        return q, scale.clamp_min(_TINY)
+    amax = _channel_reduce(w.abs(), torch.amax, cfg)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    amax = amax.clamp_min(_TINY)
     scale = amax / cfg.qmax
     # codes first: 0 / subnormal is code 0, the reference's code
     q = torch.clamp(torch.round(w / scale), cfg.qmin, cfg.qmax)
@@ -98,21 +115,25 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 class _FakeQuant(torch.autograd.Function):
-    """Quantize-dequantize forward, identity (straight-through) backward."""
+    """Quantize-dequantize forward, identity (straight-through) backward:
+    the scales' reductions need no adjoint."""
 
     @staticmethod
-    def forward(ctx, w, bits, per_channel):
-        q, scale = quantize(w, QuantConfig(bits=bits, per_channel=per_channel))
+    def forward(ctx, w, bits, per_channel, reduce_max, reduce_sum):
+        q, scale = quantize(w, QuantConfig(bits=bits, per_channel=per_channel),
+                            reduce_max=reduce_max, reduce_sum=reduce_sum)
         return dequantize(q, scale).to(w.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None, None
 
 
-def fake_quant(w: torch.Tensor, bits: int, per_channel: bool) -> torch.Tensor:
-    """Quantize-dequantize with a straight-through estimator (for QAT)."""
-    return _FakeQuant.apply(w, bits, per_channel)
+def fake_quant(w: torch.Tensor, bits: int, per_channel: bool, *,
+               reduce_max=None, reduce_sum=None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator (for QAT);
+    `reduce_max` / `reduce_sum` as in `quantize`."""
+    return _FakeQuant.apply(w, bits, per_channel, reduce_max, reduce_sum)
 
 
 # ---------------------------------------------------------------------------

@@ -48,13 +48,20 @@ class SPEConfig:
         return Q.QuantConfig(bits=self.bits)
 
 
-def spe_train_weight(w: torch.Tensor, cfg: SPEConfig) -> torch.Tensor:
+def spe_train_weight(w: torch.Tensor, cfg: SPEConfig, *, reduce_max=None,
+                     reduce_sum=None) -> torch.Tensor:
     """QAT/co-design view of a weight: prune-STE then fake-quant (both
-    straight-through), so training sees the inference constraints."""
+    straight-through), so training sees the inference constraints.
+
+    `reduce_max` / `reduce_sum` (`quant.quantize`): where `w` is one rank's
+    block of rows (K, dim -2) of a row-parallel weight, they make each
+    per-column scale the whole column's. The 16:8 groups run along K, so
+    the prune is exact on a block of whole groups."""
     if cfg.sparse:
         w = S.prune_ste(w, cfg.group_size, cfg.keep)
     if cfg.quantized:
-        w = Q.fake_quant(w, cfg.bits, True)
+        w = Q.fake_quant(w, cfg.bits, True, reduce_max=reduce_max,
+                         reduce_sum=reduce_sum)
     return w
 
 

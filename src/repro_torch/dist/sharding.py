@@ -519,12 +519,13 @@ def _count(kind: str) -> None:
     comm_calls[kind] = comm_calls.get(kind, 0) + 1
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `x` over `group` (a new contiguous tensor where `x` is
-    not contiguous; else `x` itself, reduced in place)."""
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or another `op`) of `x` over `group` (a new contiguous
+    tensor where `x` is not contiguous; else `x` itself, reduced in
+    place)."""
     x = x.contiguous()
     _count("all-reduce")
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -734,16 +735,22 @@ def activation_context(cfg, mesh, *, specs: Any = None):
     this rank's coordinate in each. `specs` is the parameters' spec tree
     (`param_specs`), which `gather_block` reads. Nestable; the innermost
     context wins. Every rank of the mesh enters it (building the groups
-    is collective the first time)."""
-    bad = [a for a in data_axes(cfg, mesh) if a not in ("pod", "data")
+    is collective the first time). A pure-DP profile (`use_tp=False`)
+    folds `model` into data parallelism: its rows are split there, no
+    parameter is, so the layers see a model size of 1."""
+    bad = [a for a in data_axes(cfg, mesh)
+           if a not in ("pod", "data") + (() if cfg.use_tp else ("model",))
            and axis_sizes(mesh)[a] > 1]
     if bad:
         raise ShardingGuardError(
             f"activation_context: the batch would shard over {bad}; the "
             f"port runs over a ('data', 'model') or ('pod', 'data', "
-            f"'model') mesh with use_tp"
+            f"'model') mesh"
         )
-    _ACTIVATION_CTX.append(Activations(cfg, mesh, specs, mesh_groups(mesh)))
+    groups = mesh_groups(mesh)
+    if not cfg.use_tp:
+        groups = dataclasses.replace(groups, model=None, tp=1, model_rank=0)
+    _ACTIVATION_CTX.append(Activations(cfg, mesh, specs, groups))
     try:
         yield
     finally:
@@ -759,6 +766,13 @@ def tp_size() -> int:
     """The model axis's size in the current context (1 outside one)."""
     ctx = current()
     return 1 if ctx is None else ctx.tp
+
+
+def model_group():
+    """The current context's model group: None outside one and at a model
+    size of 1."""
+    ctx = current()
+    return None if ctx is None else ctx.groups.model
 
 
 def model_block(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -804,6 +818,40 @@ def _linear_weight(node: dict) -> Optional[str]:
         if k in node and isinstance(node[k], torch.Tensor):
             return k
     return None
+
+
+def check_row_groups(tree: Any, specs: Any, mesh, rows_of, what: str) -> None:
+    """Raise `ShardingGuardError` where a row-parallel linear (its weight
+    split over `model` on the rows, dim -2) would leave a rank a block
+    that cuts one of its groups: `rows_of(node)` gives the rows of one
+    group of the linear dict `node` (None: its rows are not grouped). A
+    rank's block of a grouped weight is exact only in whole groups: the
+    16:8 prune ranks within a group, and the compressed format's rows are
+    whole groups of `keep`. The error names the leaf, its shape and the
+    block."""
+    n = _axis_size("model", mesh)
+    if n <= 1:
+        return
+
+    def visit(node, spec, path):
+        if not isinstance(node, dict):
+            return
+        w = _linear_weight(node)
+        if w is not None:
+            rows, s = rows_of(node), spec[w]
+            shape = tuple(node[w].shape)
+            if (rows and len(s) > 1 and "model" in _names(s[-2])
+                    and (shape[-2] % n or (shape[-2] // n) % rows)):
+                raise ShardingGuardError(
+                    f"{what}: {'/'.join(path + (w,))} of shape {shape} "
+                    f"split over model ({n}) on its rows leaves a block of "
+                    f"{shape[-2] / n:g} rows, not a whole number of its "
+                    f"{rows}-row groups")
+            return
+        for k, v in node.items():
+            visit(v, spec[k], path + (k,))
+
+    visit(tree, specs, ())
 
 
 def gather_block(tree: Any, specs: Any) -> Any:

@@ -7,9 +7,11 @@
 //
 // Replaces repro/kernels/nm_spmm.py:nm_spmm_2d (the Pallas TPU kernel). That
 // kernel walks K as a sequential grid axis, decompressing a weight tile into
-// VMEM and accumulating one MXU dot per step. Here each block decompresses
-// its strip once and keeps it (spe_tc.cuh holds the whole design; this file
-// says only where x's rows lie).
+// VMEM and accumulating one MXU dot per step, so it takes any K that is a
+// multiple of the group. Here each block decompresses its strip once and
+// keeps it, or, where the strip does not fit in shared memory (the LMs'
+// widths), streams it in K segments of whole groups (spe_tc.cuh holds the
+// whole design; this file says only where x's rows lie).
 //
 // What bounds it on this card: bytes. At bucket 256 the 7 launches of one
 // VA execute move about 83 MB (float32 im2col patches in, float32 out, int8 +
@@ -31,6 +33,7 @@ namespace {
 
 // x itself: row m is x[m * K ...], K entries
 struct DenseRows {
+  static constexpr bool kSegments = true;  // a long strip streams
   const float* x;
   int M, K;
   __device__ spe::Rows row(int m) const {
@@ -40,11 +43,13 @@ struct DenseRows {
 
 }  // namespace
 
-// Dynamic shared memory of a launch at (K, N): the B tile of the widest tile
-// width that fits, and the ring. Over the card's per-block limit where no
-// width fits; the wrapper checks it before launching.
-extern "C" size_t nm_spmm_smem_bytes(int K, int N) {
-  return spe::fit_smem(K, N);
+// The least dynamic shared memory a launch at (K, N) with group G takes:
+// the whole strip's B tile at the widest width that fits, and the ring; or
+// one segment's where no whole strip fits. Over the card's per-block limit
+// only where not one segment of whole groups fits; the wrapper checks it
+// before launching.
+extern "C" size_t nm_spmm_smem_bytes(int K, int N, int G) {
+  return spe::least_smem(K, N, G);
 }
 
 // Launches on `stream` and returns the CUDA error (0 on success).
@@ -58,8 +63,8 @@ extern "C" int nm_spmm_f32(const void* x, const void* values,
                      static_cast<cudaStream_t>(stream));
 }
 
-// The launch's geometry on the current card, into out[7] (spe::geometry);
+// The launch's geometry on the current card, into out[8] (spe::geometry);
 // returns the CUDA error (0 on success).
-extern "C" int nm_spmm_geometry(int M, int K, int N, int* out) {
-  return spe::geometry<DenseRows>(M, K, N, out);
+extern "C" int nm_spmm_geometry(int M, int K, int N, int G, int* out) {
+  return spe::geometry<DenseRows>(M, K, N, G, out);
 }

@@ -34,7 +34,9 @@
 //
 // Staged values, B tile, chunk order and plan are nm_spmm's for the same
 // (B * T_out, K, N), so the result is bit-identical to im2col -> pad ->
-// nm_spmm.
+// nm_spmm. Like the TPU kernel, which holds the whole (Kk, bn) strip and the
+// whole signal in VMEM, it takes only a strip that fits whole in a block's
+// shared memory: nm_spmm's K segments are not offered here.
 
 #include "spe_tc.cuh"
 
@@ -42,6 +44,7 @@ namespace {
 
 // the window of output step m = b * T_out + t, read from x[b]
 struct WindowRows {
+  static constexpr bool kSegments = false;  // the whole strip, as the TPU's
   const float* x;
   int M, T, C, T_out, stride, pad_l, kc;  // kc = ksize * C
   __device__ spe::Rows row(int m) const {
@@ -58,8 +61,9 @@ struct WindowRows {
 }  // namespace
 
 // Dynamic shared memory of a launch with dense K `k_dense` and N columns
-// (nm_spmm's at the same K and N); over the card's per-block limit where no
-// tile width fits; the wrapper checks it before launching.
+// (nm_spmm's at the same K and N with the whole strip); over the card's
+// per-block limit where no tile width fits; the wrapper checks it before
+// launching.
 extern "C" size_t sparse_conv1d_smem_bytes(int k_dense, int N) {
   return spe::fit_smem(k_dense, N);
 }
@@ -76,7 +80,8 @@ extern "C" int sparse_conv1d_f32(const void* x, const void* values,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long m = static_cast<long long>(B) * T_out;
   const int k_dense = (Kk / keep) * G;
-  if (m > 2147483647LL || k_dense < ks * C)
+  if (m > 2147483647LL || k_dense < ks * C ||
+      spe::fit_smem(k_dense, N) > static_cast<size_t>(spe::kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   const WindowRows rows{static_cast<const float*>(x), static_cast<int>(m), T,
                         C, T_out, stride, pad_l, ks * C};
@@ -87,7 +92,10 @@ extern "C" int sparse_conv1d_f32(const void* x, const void* values,
 }
 
 // The launch's geometry on the current card for B * T_out output steps,
-// into out[7] (spe::geometry); returns the CUDA error (0 on success).
+// into out[8] (spe::geometry; the whole strip, one segment); returns the
+// CUDA error (0 on success).
 extern "C" int sparse_conv1d_geometry(int M, int K, int N, int* out) {
-  return spe::geometry<WindowRows>(M, K, N, out);
+  if (spe::fit_smem(K, N) > static_cast<size_t>(spe::kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return spe::geometry<WindowRows>(M, K, N, spe::kBK, out);
 }

@@ -25,6 +25,19 @@
 //   K-major core-matrix layout, 32-wide K chunk after chunk, each chunk laid
 //   out as cmul_tc.cuh's B tile, so its descriptor serves unchanged. The
 //   scale is applied once, in float32, after the whole K sum.
+// - where the whole strip does not fit in shared memory at any width (the
+//   LMs' wide K: qwen3-8b's down projection has K = 12 288; the TPU kernel
+//   walks K on its grid and VMEM holds megabytes), the strip streams in K
+//   segments, each a whole number of groups and of 32-wide chunks: the block
+//   decodes one segment into the B tile, runs that segment's chunks for its
+//   M tile, then decodes the next. The float32 sums stay in registers across
+//   segments and the scale is applied once, after the last, so the chain of
+//   MMAs and FADDs is the one a whole strip would give. A segment fills at
+//   most kSegSmem with the ring, so that two blocks share an SM; the
+//   segmented kernel is a separate instantiation (kSeg), at BN 8 and 24
+//   only. A block that walks several M tiles decodes every segment again
+//   for each (none does at M <= 64). Where the strip fits (every VA layer),
+//   the plan and the kernel's code are the whole strip's.
 // - an output tile covers all N columns where it can: BN is one of kWidths
 //   (the VA model's N is 16 to 96) and N is tiled above 96. BN narrows where
 //   the B tile would not fit in shared memory, and where narrower tiles
@@ -66,6 +79,9 @@ constexpr int kStages = 4;  // ring depth: chunks of A in flight
 constexpr int kWidths[] = {8, 16, 24, 32, 48, 64, 96};
 constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on H100
+// a segmented strip's budget with the ring: two blocks an SM (of its 228 KB,
+// each block also keeps 1 KB for the system)
+constexpr int kSegSmem = 114688;
 
 // a BN-wide MMA as two wgmma widths: W0 + W1 == BN, W1 in {0, 8, 16, 32}
 __host__ __device__ constexpr int w0(int bn) {
@@ -78,10 +94,16 @@ __host__ __device__ constexpr size_t b_bytes(int bn, int nchunks) {
   return static_cast<size_t>(nchunks) * bn * kBK * 4;
 }
 
-// the B tile, the ring, its mbarriers and the tile's scale
+// the B tile of `chunks` K chunks, the ring, its mbarriers and the tile's
+// scale
+__host__ __device__ constexpr size_t smem_for(int bn, int chunks) {
+  return b_bytes(bn, chunks) + static_cast<size_t>(kStages) * kXsBytes +
+         kStages * 8 + bn * 4;
+}
+
+// the same with the whole strip of dense K in the B tile
 __host__ __device__ constexpr size_t smem_bytes(int bn, int K) {
-  return b_bytes(bn, (K + kBK - 1) / kBK) +
-         static_cast<size_t>(kStages) * kXsBytes + kStages * 8 + bn * 4;
+  return smem_for(bn, (K + kBK - 1) / kBK);
 }
 
 // ---- wgmma of the widths cmul_tc.cuh lacks ----------------------------------
@@ -215,14 +237,18 @@ struct Rows {
   int lo, hi;
 };
 
-template <int BN, class X>
+// kSeg: the strip streams in segments of `seg` 32-wide K chunks, each a
+// whole number of groups; else it is decoded whole once (`seg` unused), in
+// code free of the segments' bookkeeping.
+template <int BN, bool kSeg, class X>
 __global__ void __launch_bounds__(kThreads)
 spe_tc_kernel(X src, const int8_t* __restrict__ values,
               const uint8_t* __restrict__ select,
               const float* __restrict__ scale, float* __restrict__ y, int M,
-              int K, int N, int Kk, int G, int keep, int vec) {
+              int K, int N, int Kk, int G, int keep, int vec, int seg) {
   constexpr int kChunkBytes = BN * kBK * 4;  // one chunk's B tile
   const int nchunks = (K + kBK - 1) / kBK;
+  const int tile_chunks = kSeg ? seg : nchunks;  // the B tile's
   const int tiles_m = (M + kBM - 1) / kBM;
   const int gy = static_cast<int>(gridDim.y);
   const int my_tiles = (tiles_m - static_cast<int>(blockIdx.y) + gy - 1) / gy;
@@ -230,7 +256,7 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
 
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* bt = smem;                                    // B tile
-  float* xs = reinterpret_cast<float*>(smem + b_bytes(BN, nchunks));
+  float* xs = reinterpret_cast<float*>(smem + b_bytes(BN, tile_chunks));
   uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kStages * kBM * kXS);
   float* sc = reinterpret_cast<float*>(bars + kStages);  // [BN]
 
@@ -279,23 +305,33 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
     cmul::cp_async_arrive(cmul::smem_addr(&bars[s]));
   };
 
-  // The strip is decoded once: the B tile zeroed, then each compressed
-  // weight written to its dense row (a group's selects are distinct). It is
-  // read kDec units of 4 columns a thread a round (4 bytes a load where `vec`
-  // bit 1 says N and the pointers allow it), every load of a round in flight
-  // at once; one round covers a VA layer's strip. The first round's loads go
-  // out before anything else, so that they neither wait on the set-up nor
-  // queue behind the first chunks of A.
+  // A segment of the strip is decoded once (the whole strip where it fits):
+  // the B tile zeroed, then each compressed weight written to its dense row
+  // (a group's selects are distinct). It is read kDec units of 4 columns a
+  // thread a round (4 bytes a load where `vec` bit 1 says N and the pointers
+  // allow it), every load of a round in flight at once; one round covers a
+  // VA layer's strip. The first round's loads go out before anything else,
+  // so that they neither wait on the set-up nor queue behind the first
+  // chunks of A. Segment s holds dense K from k_lo = s * seg * 32, that is
+  // compressed rows r_lo = k_lo / G * keep on (k_lo is a multiple of G).
   constexpr int kDec = 12;
   constexpr int kUnitsRow = BN / 4;  // BN is a multiple of 8
-  const int units = Kk * kUnitsRow;
+  int k_lo = 0, r_lo = 0;
+  int units = Kk * kUnitsRow;  // the whole strip's; a segment's below
+  auto segment = [&](int s) {
+    k_lo = s * seg * kBK;
+    r_lo = k_lo / G * keep;
+    const int r_hi = (k_lo + seg * kBK) / G * keep;
+    units = ((r_hi < Kk ? r_hi : Kk) - r_lo) * kUnitsRow;
+  };
   uint32_t sel[kDec], val[kDec];
   auto fetch = [&](int u0) {
 #pragma unroll
     for (int j = 0; j < kDec; ++j) {
       const int u = u0 + j * kThreads + tid;
       const int n = n0 + 4 * (u % kUnitsRow);
-      const size_t at = static_cast<size_t>(u / kUnitsRow) * N + n;
+      const size_t at =
+          static_cast<size_t>((kSeg ? r_lo : 0) + u / kUnitsRow) * N + n;
       sel[j] = val[j] = 0;
       if (u >= units || n >= N) continue;
       if (vec & 2) {
@@ -314,13 +350,15 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
 #pragma unroll
     for (int j = 0; j < kDec; ++j) {
       const int u = u0 + j * kThreads + tid;
-      const int r = u / kUnitsRow, nl = 4 * (u % kUnitsRow);
+      const int r = (kSeg ? r_lo : 0) + u / kUnitsRow;
+      const int nl = 4 * (u % kUnitsRow);
       if (u >= units) continue;
       const int d0 = (r / keep) * G;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const int d = d0 + static_cast<int>((sel[j] >> (8 * t)) & 0xFFu);
+        int d = d0 + static_cast<int>((sel[j] >> (8 * t)) & 0xFFu);
         if (n0 + nl + t >= N || d >= K) continue;
+        if constexpr (kSeg) d -= k_lo;  // the row in the segment's tile
         const int kl = d % kBK;
         *reinterpret_cast<float*>(bt + (d / kBK) * kChunkBytes +
                                   ((nl + t) / 8) * cmul::kSBO +
@@ -331,6 +369,13 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
     }
   };
 
+  auto zero_b = [&]() {
+    float4* z = reinterpret_cast<float4*>(bt);
+    const int n4 = static_cast<int>(b_bytes(BN, tile_chunks) / 16);
+    for (int e = tid; e < n4; e += kThreads) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  if constexpr (kSeg) segment(0);
   fetch(0);
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s)
@@ -340,11 +385,7 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
   // the tile's scale, staged now so that no tile's stores wait on its load
   for (int e = tid; e < BN; e += kThreads)
     sc[e] = n0 + e < N ? scale[n0 + e] : 0.f;
-  {
-    float4* z = reinterpret_cast<float4*>(bt);
-    const int n4 = static_cast<int>(b_bytes(BN, nchunks) / 16);
-    for (int e = tid; e < n4; e += kThreads) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  zero_b();
   __syncthreads();  // barriers initialised, B zero
   for (int i = 0; i < kStages && i < items; ++i) load(i, i);
   scatter(0);
@@ -361,10 +402,28 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
   p0.clear_tot();
   p1.clear_tot();
   const uint32_t b_base = cmul::smem_addr(bt);
+  int c0 = 0;  // the chunk the B tile's segment starts at
 
   for (int i = 0; i < items; ++i) {
     const int s = i % kStages;
     const int c = i % nchunks;
+    if constexpr (kSeg) {
+      if (c % seg == 0 && i > 0) {
+        // the next segment of the strip (the first again, for the next M
+        // tile); the copies of A already issued stay in flight meanwhile
+        __syncthreads();  // every warp's MMAs on the last segment are done
+        c0 = c;
+        segment(c / seg);
+        zero_b();
+        __syncthreads();
+        for (int u0 = 0; u0 < units; u0 += kThreads * kDec) {
+          fetch(u0);
+          scatter(u0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+      }
+    }
     cmul::mbar_wait(cmul::smem_addr(&bars[s]), (i / kStages) & 1);
 
     // this thread's A fragments, split into TF32 high and low parts
@@ -388,7 +447,8 @@ spe_tc_kernel(X src, const int8_t* __restrict__ values,
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBK / 8; ++kk) {
-      const uint32_t b = b_base + c * kChunkBytes + kk * 2 * cmul::kLBO;
+      const uint32_t b =
+          b_base + (kSeg ? c - c0 : c) * kChunkBytes + kk * 2 * cmul::kLBO;
       p0.mma(hi[kk], lo[kk], b);
       p1.mma(hi[kk], lo[kk], b);
     }
@@ -414,60 +474,115 @@ struct Plan {
   int bn;
   int smem;
   int per_sm;  // blocks of this kernel an SM holds at once
+  int seg;     // K chunks a segment of the strip (all of them where it fits)
+  bool segmented;  // the strip streams in segments (kernel_for)
 };
 
 template <class X>
 using KernelFn = void (*)(X, const int8_t*, const uint8_t*, const float*,
-                          float*, int, int, int, int, int, int, int);
+                          float*, int, int, int, int, int, int, int, int);
 
+// The instantiation for tile width bn; with `seg`, the segmented one (8 and
+// 24 wide only, and only for an X whose kSegments says it streams: the
+// fused layer takes a whole strip, as its reference does).
 template <class X>
-KernelFn<X> kernel_for(int bn) {
+KernelFn<X> kernel_for(int bn, bool seg) {
+  if constexpr (X::kSegments) {
+    if (seg) return bn == 8 ? spe_tc_kernel<8, true, X> : spe_tc_kernel<24, true, X>;
+  }
   switch (bn) {
-    case 8: return spe_tc_kernel<8, X>;
-    case 16: return spe_tc_kernel<16, X>;
-    case 24: return spe_tc_kernel<24, X>;
-    case 32: return spe_tc_kernel<32, X>;
-    case 48: return spe_tc_kernel<48, X>;
-    case 64: return spe_tc_kernel<64, X>;
-    default: return spe_tc_kernel<96, X>;
+    case 8: return spe_tc_kernel<8, false, X>;
+    case 16: return spe_tc_kernel<16, false, X>;
+    case 24: return spe_tc_kernel<24, false, X>;
+    case 32: return spe_tc_kernel<32, false, X>;
+    case 48: return spe_tc_kernel<48, false, X>;
+    case 64: return spe_tc_kernel<64, false, X>;
+    default: return spe_tc_kernel<96, false, X>;
   }
 }
 
-// The index in kWidths of the widest width that covers no more than N
-// needs (the narrowest >= N, or the widest) and whose B tile and ring fit
-// in a block's shared memory at this K; the narrowest where none fits.
-inline int fit_width(int K, int N) {
+// the segmented kernel's widths (kernel_for)
+constexpr int kSegWidths[] = {8, 24};
+
+// The index in kWidths of the width that covers no more than N needs: the
+// narrowest >= N, or the widest.
+inline int natural_width(int N) {
   int j = 0;
   while (j + 1 < kNumWidths && kWidths[j] < N) ++j;
+  return j;
+}
+
+// The index in kWidths of the widest width up to `natural_width` whose
+// whole B tile and ring fit in a block's shared memory at this K; the
+// narrowest where none fits.
+inline int fit_width(int K, int N) {
+  int j = natural_width(N);
   while (j > 0 && smem_bytes(kWidths[j], K) > static_cast<size_t>(kMaxSmem))
     --j;
   return j;
 }
 
-// The dynamic shared memory of a launch at (K, N): over the limit where no
-// width fits.
+// The dynamic shared memory of a launch at (K, N) with the whole strip in
+// the B tile: over the limit where no width fits.
 inline size_t fit_smem(int K, int N) {
   return smem_bytes(kWidths[fit_width(K, N)], K);
 }
 
-// The tile width and grid of one launch on the current card. BN starts at
-// `fit_width`'s, then narrows while halving it keeps the tiles within two
-// a SM (VA conv5: 128 M tiles at BN 64 become 256 at BN 32; conv6: 64 at
-// BN 96 become 256 at BN 24), so a block's chain (strip, chunks, stores)
-// shortens. The grid is the blocks the card holds at once, or the tiles
-// where they are fewer; a block walks M tiles gridDim.y apart. Sets the
-// kernel's shared-memory limit, which the occupancy query and the launch
-// need.
+// K chunks in the shortest segment of whole groups and whole chunks:
+// lcm(G, 32) / 32.
+inline int seg_unit(int G) {
+  int a = G, b = kBK;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return G / a;
+}
+
+// K chunks a segment at width bn: the most whole units whose B tile, with
+// the ring, fits in kSegSmem; one unit at least.
+inline int seg_chunks(int bn, int G) {
+  const int unit = seg_unit(G);
+  const long long room =
+      static_cast<long long>(kSegSmem) - static_cast<long long>(smem_for(bn, 0));
+  const long long n = room / static_cast<long long>(b_bytes(bn, unit));
+  return static_cast<int>(n > 1 ? n : 1) * unit;
+}
+
+// The least dynamic shared memory a launch at (K, N) with group G takes:
+// the whole strip's where it fits, else one segment's at the narrowest
+// width. Over the limit only where not even one segment fits.
+inline size_t least_smem(int K, int N, int G) {
+  const size_t whole = fit_smem(K, N);
+  if (whole <= static_cast<size_t>(kMaxSmem)) return whole;
+  return smem_for(kWidths[0], seg_chunks(kWidths[0], G));
+}
+
+// The tile width and grid of one launch on the current card. Where the
+// whole strip fits, BN starts at `fit_width`'s; else at `natural_width`'s,
+// the strip in segments (`seg_chunks`; an X without kSegments refuses).
+// Then it narrows while halving it keeps the tiles within two a SM (VA
+// conv5: 128 M tiles at BN 64 become 256 at BN 32; conv6: 64 at BN 96
+// become 256 at BN 24; qwen3-8b's down projection at M <= 64: 43 tiles at
+// BN 96 become 171 at BN 24), so a block's chain (strip, chunks, stores)
+// shortens; a segmented plan then takes the widest of kSegWidths not past
+// it. The grid is the blocks the card holds at once, or the tiles where
+// they are fewer; a block walks M tiles gridDim.y apart. Sets the kernel's
+// shared-memory limit, which the occupancy query and the launch need.
 template <class X>
-cudaError_t plan(int M, int K, int N, Plan* pl) {
+cudaError_t plan(int M, int K, int N, int G, Plan* pl) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  int j = fit_width(K, N);
-  if (fit_smem(K, N) > static_cast<size_t>(kMaxSmem))
+  if (least_smem(K, N, G) > static_cast<size_t>(kMaxSmem))
     return cudaErrorInvalidValue;
+  const int nchunks = (K + kBK - 1) / kBK;
+  const bool whole = fit_smem(K, N) <= static_cast<size_t>(kMaxSmem);
+  if (!whole && !X::kSegments) return cudaErrorInvalidValue;
+  int j = whole ? fit_width(K, N) : natural_width(N);
   const long long tiles_m = (M + kBM - 1) / kBM;
   auto tiles = [&](int w) { return tiles_m * ((N + w - 1) / w); };
   while (j > 0) {
@@ -477,8 +592,17 @@ cudaError_t plan(int M, int K, int N, Plan* pl) {
     j = h;
   }
   pl->bn = kWidths[j];
-  pl->smem = static_cast<int>(smem_bytes(pl->bn, K));
-  const KernelFn<X> fn = kernel_for<X>(pl->bn);
+  if (!whole) {
+    pl->bn = pl->bn >= kSegWidths[1] ? kSegWidths[1] : kSegWidths[0];
+    if (smem_for(pl->bn, seg_chunks(pl->bn, G)) >
+        static_cast<size_t>(kMaxSmem))
+      pl->bn = kSegWidths[0];  // a group too long for one segment at 24
+  }
+  pl->segmented = !whole;
+  pl->seg = whole ? nchunks : seg_chunks(pl->bn, G);
+  if (pl->seg > nchunks) pl->seg = nchunks;
+  pl->smem = static_cast<int>(smem_for(pl->bn, pl->seg));
+  const KernelFn<X> fn = kernel_for<X>(pl->bn, pl->segmented);
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              pl->smem);
   if (err == cudaSuccess)
@@ -507,7 +631,7 @@ int launch(const X& src, const void* values, const void* select,
       K != (Kk / keep) * G)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  cudaError_t err = plan<X>(M, K, N, &pl);
+  cudaError_t err = plan<X>(M, K, N, G, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (N % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 4 == 0 &&
       reinterpret_cast<uintptr_t>(select) % 4 == 0)
@@ -517,21 +641,23 @@ int launch(const X& src, const void* values, const void* select,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, kernel_for<X>(pl.bn), src,
+  err = cudaLaunchKernelEx(&cfg, kernel_for<X>(pl.bn, pl.segmented), src,
                            static_cast<const int8_t*>(values),
                            static_cast<const uint8_t*>(select),
                            static_cast<const float*>(scale),
-                           static_cast<float*>(y), M, K, N, Kk, G, keep, vec);
+                           static_cast<float*>(y), M, K, N, Kk, G, keep, vec,
+                           pl.seg);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out = {grid.x, grid.y, grid.z, cluster size, dynamic shared memory bytes,
-// blocks an SM holds, BN}; returns the CUDA error (0 on success)
+// blocks an SM holds, BN, dense K a segment}; returns the CUDA error (0 on
+// success)
 template <class X>
-int geometry(int M, int K, int N, int* out) {
+int geometry(int M, int K, int N, int G, int* out) {
   Plan pl;
-  const cudaError_t err = plan<X>(M, K, N, &pl);
+  const cudaError_t err = plan<X>(M, K, N, G, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = pl.grid.x;
   out[1] = pl.grid.y;
@@ -540,6 +666,7 @@ int geometry(int M, int K, int N, int* out) {
   out[4] = pl.smem;
   out[5] = pl.per_sm;
   out[6] = pl.bn;
+  out[7] = pl.seg * kBK;
   return 0;
 }
 

@@ -11,10 +11,14 @@ plain PyTorch — decompress the weight tile, one float32 matmul, scale —
 which the CPU path and the tests use and against which `chip_smoke.py`
 holds the kernel on the card.
 
+The kernel takes every K the reference's takes: where a block's dense
+strip of the weights does not fit in its shared memory (the LMs' widths),
+it streams the strip in K segments of whole groups.
+
 `launches` counts kernel launches: `nm_spmm_cuda` adds one where it
 launches and nowhere else, so a run can show that its path went through
-the kernel. `launch_geometry` reports the tile width and grid a launch
-would take on the current card (no launch).
+the kernel. `launch_geometry` reports the tile width, grid and segment a
+launch would take on the current card (no launch).
 """
 
 from __future__ import annotations
@@ -42,9 +46,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p
         ]
         lib.nm_spmm_f32.restype = ctypes.c_int
-        lib.nm_spmm_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.nm_spmm_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.nm_spmm_smem_bytes.restype = ctypes.c_size_t
-        lib.nm_spmm_geometry.argtypes = [ctypes.c_int] * 3 + [
+        lib.nm_spmm_geometry.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)
         ]
         lib.nm_spmm_geometry.restype = ctypes.c_int
@@ -82,32 +86,33 @@ def _check(x, values, select, scale, group_size, keep) -> None:
         raise ValueError("dimensions must fit in a 32-bit int")
 
 
-def spe_geometry(fn, m: int, k: int, n: int) -> dict:
+def spe_geometry(fn, *shape: int) -> dict:
     """What the C function `fn` (`<kernel>_geometry` of a library built on
-    `csrc/spe_tc.cuh`) says a launch at (M, K, N) takes on the current
-    card: grid, blocks, cluster size, dynamic shared memory in bytes, the
-    blocks an SM holds at once and the output tile's width BN."""
-    out = (ctypes.c_int * 7)()
-    err = fn(m, k, n, out)
+    `csrc/spe_tc.cuh`) says a launch at `shape` ((M, K, N), and the group
+    where the kernel takes it) takes on the current card: grid, blocks,
+    cluster size, dynamic shared memory in bytes, the blocks an SM holds at
+    once, the output tile's width BN and the dense K of a segment of the
+    strip (K itself, rounded up to 32, where the whole strip fits)."""
+    out = (ctypes.c_int * 8)()
+    err = fn(*shape, out)
     if err != 0:
-        raise RuntimeError(f"no launch geometry at {(m, k, n)}: CUDA error {err}")
+        raise RuntimeError(f"no launch geometry at {shape}: CUDA error {err}")
     grid = tuple(out[:3])
     return {"grid": grid, "blocks": grid[0] * grid[1] * grid[2],
             "cluster": out[3], "smem_bytes": out[4], "blocks_per_sm": out[5],
-            "bn": out[6]}
+            "bn": out[6], "seg_k": out[7]}
 
 
-def launch_geometry(m: int, k: int, n: int) -> dict:
-    """The tile width and grid of an `nm_spmm_cuda` launch at (M, K, N) on
-    the current card (`spe_geometry`)."""
-    return spe_geometry(_library().nm_spmm_geometry, m, k, n)
+def launch_geometry(m: int, k: int, n: int, *, group_size: int) -> dict:
+    """The tile width, grid and segment of an `nm_spmm_cuda` launch at
+    (M, K, N) with `group_size` on the current card (`spe_geometry`)."""
+    return spe_geometry(_library().nm_spmm_geometry, m, k, n, group_size)
 
 
-def check_smem(lib_fn, k: int, n: int, what: str) -> None:
-    """Raise ValueError where the C function `lib_fn` (`<kernel>_smem_bytes`
-    of a library built on `csrc/spe_tc.cuh`) says no tile width fits the
-    dense K `k` in a block's shared memory."""
-    smem = lib_fn(k, n)
+def check_smem(smem: int, what: str) -> None:
+    """Raise ValueError where a launch needs `smem` bytes of shared memory
+    a block (a library's `<kernel>_smem_bytes`), over what a block can
+    have."""
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(
             f"{what} needs {smem} bytes of shared memory per block, over "
@@ -134,7 +139,8 @@ def nm_spmm_cuda(
     if m == 0 or n == 0:
         return y
     lib = _library()
-    check_smem(lib.nm_spmm_smem_bytes, k, n, f"K={k}, N={n}")
+    check_smem(lib.nm_spmm_smem_bytes(k, n, group_size),
+               f"K={k}, N={n}, group {group_size}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nm_spmm_f32(

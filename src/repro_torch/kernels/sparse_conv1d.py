@@ -16,6 +16,10 @@ is the same function in plain PyTorch — `core.spe.im2col`, pad to K,
 `nm_spmm_plain` — which the CPU path and the tests use and against which
 `chip_smoke.py` holds the kernel on the card.
 
+Like its reference, which holds the whole (Kk, bn) strip and the whole
+signal in VMEM, it takes only a strip that fits whole in a block's shared
+memory (nm_spmm streams a longer one in segments; every VA layer fits).
+
 `launches` counts kernel launches: `sparse_conv1d_cuda` adds one where it
 launches and nowhere else. `launch_geometry` reports the tile width and
 grid a launch would take on the current card (no launch).
@@ -138,7 +142,7 @@ def sparse_conv1d_cuda(
         return y
     lib = _library()
     k_dense = (kk // keep) * group_size
-    check_smem(lib.sparse_conv1d_smem_bytes, k_dense, n,
+    check_smem(lib.sparse_conv1d_smem_bytes(k_dense, n),
                f"k_dense={k_dense}, N={n}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -26,8 +26,10 @@ paper's VA detector on the IEGM stream instead.
 `DeviceMesh` of P·D·M ranks, one a device, in the mesh's coordinate
 order: within a pod the params are placed over `data` (FSDP) and
 `model` (TP) by `dist.sharding.param_specs`, the AdamW moments mirror
-them (ZeRO-1), and the batch (`--batch` must divide by P·D) is split
-over pod and data; the pod axis reduces the gradients through
+them (ZeRO-1), and the batch is split over the axes that carry rows
+(`dist.sharding.data_axes`: pod and data, `--batch` dividing by P·D; all
+three for whisper's pure-DP profile, P·D·M); the pod axis reduces the
+gradients through
 `dist.compression` — `--scheme gather` (default; (8/n)x egress, best
 below 8 pods) or `--scheme two_stage` (n-independent ~4x),
 `--no-compress` for the f32 ablation baseline. The error-feedback
@@ -38,9 +40,10 @@ over gloo with `device="cpu"`, NCCL on the cards (one rank a card), or
 `torchrun`'s. Every rank draws the same params and takes rank 0's by
 broadcast, then keeps its blocks (`dist.sharding.place`); only rank 0
 logs and prints, and the rank at coordinate 0 writes checkpoints. MoE
-and RWKV-6 at M > 1, the QAT flags at M > 1 and whisper at D·M > 1 are
-refused, naming ROADMAP.md queue 1 item 8c's training side (MoE and
-RWKV-6 serve at M > 1: `launch.serve --mesh DxM`).
+(its experts' hidden axis over `model`), RWKV-6 (its heads) and the QAT
+flags (each row-parallel weight's scales reduced over `model`) train at
+M > 1, whisper over every in-pod axis; a row-parallel block that would
+cut a 16:8 prune group raises `ShardingGuardError`, naming the leaf.
 
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --multi-pod 1x1x1 --scheme gather --steps 4
@@ -155,11 +158,12 @@ def train_lm_multipod(args, device: _device.DeviceLike = None):
     mesh = make_multipod_mesh(args.multi_pod, dev)
     if mesh.get_coordinate() is None:
         return None
-    n_pod, n_data = mesh.size(0), mesh.size(1)
-    if args.batch % (n_pod * n_data):
+    axes = shd.data_axes(cfg, mesh)
+    n_rows = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+    if args.batch % n_rows:
         raise SystemExit(
-            f"--batch {args.batch} must divide by {n_pod} pods x {n_data} "
-            f"data ranks"
+            f"--batch {args.batch} must divide by the {n_rows} ranks of "
+            f"{axes}"
         )
     compress = not args.no_compress
     lead = _spawn.rank() == 0
@@ -325,13 +329,6 @@ def main(
         help="f32 cross-pod reduction (ablation baseline)",
     )
     args = ap.parse_args(argv)
-    if args.multi_pod and args.arch != "va-cnn":
-        sizes = parse_multipod_spec(args.multi_pod)
-        try:
-            trainer.check_inpod(_lm_cfg(args), shd.MeshShape(
-                ("pod", "data", "model"), sizes))
-        except NotImplementedError as e:
-            ap.error(f"--multi-pod {args.multi_pod}: {e}")
     _device.resolve(device)
     if args.multi_pod:
         return _run_multipod(args, device)

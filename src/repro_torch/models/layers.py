@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import quant as Q
@@ -69,6 +70,17 @@ def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.pad(x, (0, k - x.shape[-1])) if k > x.shape[-1] else x
 
 
+def _row_scale_reductions() -> dict:
+    """`spe_train_weight`'s reductions of a row block's per-column
+    statistics over `model` (none at a model size of 1)."""
+    group = shd.model_group()
+    if group is None:
+        return {}
+    return {"reduce_max": lambda t: shd.all_reduce(t, group,
+                                                   op=dist.ReduceOp.MAX),
+            "reduce_sum": lambda t: shd.all_reduce(t, group)}
+
+
 def linear_apply(
     params: dict,
     x: torch.Tensor,
@@ -98,12 +110,17 @@ def linear_apply(
     output of a column-parallel linear) rather than all of it. A "row"
     linear takes x's block (sliced where x is whole), runs the local K
     (the packed bit width from the local rows and the local K: codes
-    pack along K, so a row block is a contiguous K block), applies the
-    scale to each partial (per output column, so the all-reduced sum is
-    the scaled sum) and all-reduces in float32 for the packed path, in
-    `dtype` for the dense one. A linear that is not row-parallel given a
-    local x gathers x over `model` first. A "col" linear's whole x enters
-    `model` (`shd.enter_model`) unless the caller did (`entered`).
+    pack along K, so a row block is a contiguous K block; the SPE
+    format's block is Kk / M compressed rows, whole groups of `keep`,
+    whose dense K is the rank's block of x), applies the scale to each
+    partial (per output column, so the all-reduced sum is the scaled sum)
+    and all-reduces in float32 for the packed and SPE paths, in `dtype`
+    for the dense one. Under `spe` a "row" weight's per-column scales are
+    reduced over `model` (`_row_scale_reductions`); a row block that cuts
+    a prune group raises `ShardingGuardError`. A linear
+    that is not row-parallel given a local x gathers x over `model`
+    first. A "col" linear's whole x enters `model` (`shd.enter_model`)
+    unless the caller did (`entered`).
     """
     tp = params.get("tp")
     if tp == "row":
@@ -119,7 +136,12 @@ def linear_apply(
     if "w" in params:
         w = params["w"]
         if spe is not None:
-            w = spe_train_weight(w, spe)
+            if tp == "row" and spe.sparse and w.shape[-2] % spe.group_size:
+                raise shd.ShardingGuardError(
+                    f"a row-parallel block of shape {tuple(w.shape)} cuts "
+                    f"the {spe.group_size}-row prune groups")
+            w = spe_train_weight(w, spe, **(
+                _row_scale_reductions() if tp == "row" else {}))
         y = x.to(dtype) @ w.to(dtype)
     elif "packed" in params:
         # bit width is encoded in the packed shape (keeps the param tree
@@ -131,18 +153,18 @@ def linear_apply(
         xk = _pad_k(x.to(torch.float32), packed.shape[-2] * (8 // bits))
         y = ops.quant_matmul(xk, packed, scale, bits=bits)
     elif "values_q" in params:
-        if tp is not None:
-            raise NotImplementedError(
-                "tensor-parallel SPE (values_q) linears are not served "
-                "(ROADMAP.md queue 1 item 8c, with the paper's QAT at "
-                "model > 1)"
-            )
         meta = params["meta"]
         group, keep = int(meta["group"]), int(meta["keep"])
-        k_dense = (params["values_q"].shape[0] // keep) * group
+        kk = params["values_q"].shape[-2]
+        k_dense = (kk // keep) * group
+        if tp == "row" and (kk % keep or x.shape[-1] != k_dense):
+            raise shd.ShardingGuardError(
+                f"a row-parallel SPE block of {kk} compressed rows "
+                f"({keep} a group) does not cover this rank's "
+                f"{x.shape[-1]} input columns")
         xk = _pad_k(x.to(torch.float32), k_dense)
         y = ops.nm_spmm(
-            xk, params["values_q"], params["select"], params["scale"],
+            xk, params["values_q"], params["select"], scale,
             group_size=group, keep=keep,
         )
     else:

@@ -133,7 +133,13 @@ def _replicated(specs: Any) -> Any:
 def _check_kernel_shapes(params: Any, pspecs: Any, mesh, rows: int) -> None:
     """Raise `ShardingGuardError` where a packed leaf's local block under
     its spec is a shape the `quant_matmul` kernel cannot take at a decode
-    step's `rows` rows (no fallback to the plain version)."""
+    step's `rows` rows (no fallback to the plain version), and where an
+    SPE (values_q) linear's row block would cut a group of its compressed
+    rows (`nm_spmm` runs a rank's block of whole groups)."""
+    shd.check_row_groups(
+        params, pspecs, mesh,
+        lambda node: int(node["meta"]["keep"]) if "values_q" in node
+        else None, "plan_decode")
 
     def one(path, leaf, spec):
         if path and path[-1] == "packed" and hasattr(leaf, "shape"):

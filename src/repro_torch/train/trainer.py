@@ -31,13 +31,21 @@ Over `data` and `model` (`make_sharded_train_step` on a ("data",
 their moments are placed by `dist.sharding.param_specs` (FSDP over
 `data`, TP over `model`; the moments mirror them: ZeRO-1), each rank
 holding its blocks (`dist.sharding.place`). Every rank is handed the
-same global batch and takes its rows (its coordinate over ("pod",
-"data")); the loss runs inside `dist.sharding.activation_context`, whose
-collectives carry their adjoints (stated in `dist.sharding`), so the
-gradients come out in each rank's blocks: summed over `data` by the
-FSDP reduce-scatter for the leaves `data` splits, all-reduced over
-`data` for the others, then divided by the data size. The sharded step
-reduces the global norm over the shards and updates the blocks in place.
+same global batch and takes its rows (its coordinate over the axes
+`dist.sharding.data_axes` gives: ("pod", "data"), and `model` too for
+whisper's pure-DP profile); the loss runs inside
+`dist.sharding.activation_context`, whose collectives carry their
+adjoints (stated in `dist.sharding`), so the gradients come out in each
+rank's blocks: summed over `data` by the FSDP reduce-scatter for the
+leaves `data` splits, all-reduced over `data` for the others (and over
+`model` where it carries rows), then divided by the ranks the rows span.
+MoE's experts split their hidden axis over `model` and RWKV-6 runs its
+local heads (`models.moe`, `models.rwkv6`); under the paper's QAT a
+row-parallel weight's per-column scales are reduced over `model`
+(`core.spe.spe_train_weight`), and a row block must hold whole 16:8
+prune groups (`state_specs` raises `ShardingGuardError`, naming the
+leaf). The sharded step reduces the global norm over the shards and
+updates the blocks in place.
 
 Multi-pod (`make_multipod_train_step`): one code path for every PxDxM,
 1x1x1 included (its collectives bypassed at world 1). Stage A as above
@@ -49,9 +57,7 @@ layouts); stage B reduces them over this rank's pod group through
 blocks (ZeRO-1). The per-pod error-feedback buffers ride in state["err"]
 (`init_dp_err`): each rank holds its pod's (1, *leaf) block, and a
 checkpoint gathers them into the reference's (n_pod, *leaf) layout
-(`checkpoint.save(..., shardings=)`). MoE and RWKV-6 at `model` > 1, the paper's QAT at `model` > 1, and the
-encoder-decoder over the in-pod axes raise, naming ROADMAP.md queue 1
-item 8c.
+(`checkpoint.save(..., shardings=)`).
 """
 
 from __future__ import annotations
@@ -163,41 +169,17 @@ def make_train_step(
     return train_step
 
 
-ITEM_8C = "ROADMAP.md queue 1 item 8c, training side"
-
-
-def check_inpod(cfg, mesh) -> None:
-    """Raise NotImplementedError for what in-pod training does not cover
-    yet (the training side of ROADMAP item 8c): the encoder-decoder over
-    data x model > 1 (use_tp=False, fsdp=False), and at `model` > 1 MoE,
-    RWKV-6 (their tensor-parallel forwards serve, `serve.sharded`; their
-    training is not held against the reference yet) and the paper's QAT
-    (its per-column scales would see a row-parallel block only)."""
-    sizes = shd.axis_sizes(mesh)
-    n_data, n_model = sizes.get("data", 1), sizes.get("model", 1)
-    if n_data * n_model > 1 and cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder over the in-pod axes (data x "
-            f"model = {n_data * n_model}) is not ported ({ITEM_8C}); use "
-            f"PxD with D = 1")
-    if n_model <= 1:
-        return
-    kinds = tuple(cfg.pattern) + tuple(cfg.tail or ())
-    if cfg.moe is not None or "rwkv" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and RWKV-6 with tensor parallelism "
-            f"(model={n_model}) is not ported ({ITEM_8C}); train it with "
-            f"M = 1")
-    if cfg.spe_bits or cfg.spe_sparse:
-        raise NotImplementedError(
-            f"{cfg.name}: the co-design QAT at model={n_model} is not "
-            f"ported ({ITEM_8C}); train it with M = 1")
-
-
 def state_specs(state_shapes: Any, cfg, mesh) -> dict:
     """Specs for a {"params", "opt", "step"} state tree: opt moments
-    mirror the param specs (ZeRO-1); step is replicated."""
+    mirror the param specs (ZeRO-1); step is replicated. Under the paper's
+    16:8 QAT a row-parallel weight's block must hold whole prune groups
+    (`dist.sharding.check_row_groups`, `ShardingGuardError`)."""
     p_specs = shd.param_specs(state_shapes["params"], cfg, mesh)
+    if cfg.spe_sparse:
+        shd.check_row_groups(
+            state_shapes["params"], p_specs, mesh,
+            lambda node: cfg.spe_group if "w" in node else None,
+            f"{cfg.name}'s 16:8 QAT")
     o_specs = {
         k: None if sub is None else shd.param_specs(sub, cfg, mesh)
         for k, sub in state_shapes["opt"].items()
@@ -210,10 +192,12 @@ def _split(spec, axis: str, mesh) -> bool:
         shd.axis_sizes(mesh).get(axis, 1) > 1
 
 
-def _rows(batch: Any, mesh) -> Any:
+def _rows(batch: Any, cfg, mesh) -> Any:
     """This rank's rows of the global batch: its coordinate over the
-    mesh's ("pod", "data") axes, outer first (B not divisible raises)."""
-    axes = tuple(a for a in ("pod", "data") if a in shd.axis_sizes(mesh))
+    mesh's axes that carry rows (`dist.sharding.data_axes`: ("pod",
+    "data"), and "model" too for a pure-DP profile), outer first (B not
+    divisible raises)."""
+    axes = shd.data_axes(cfg, mesh)
     n = math.prod(shd.axis_sizes(mesh)[a] for a in axes)
     leading = leaves(batch)[0].shape[0]
     if leading % n:
@@ -243,18 +227,27 @@ def _block_grads(grad_fn, params, batch, cfg, mesh, p_specs, n_micro):
     """Stage A's gradients on this rank's rows, in this rank's blocks of
     `p_specs`: the loss in the activation context (the FSDP leaves'
     gradients reduce-scattered over `data` by `gather_block`'s backward),
-    the leaves `data` does not split all-reduced over `data`, every leaf
-    divided by the data size, the metrics averaged over `data`."""
+    the leaves `data` does not split all-reduced over `data` (and every
+    leaf over `model` where a pure-DP profile puts rows there), every leaf
+    divided by the ranks the rows span, the metrics averaged over them."""
     with shd.activation_context(cfg, mesh, specs=p_specs):
         grads, metrics = accumulate_grads(grad_fn, params, batch, n_micro)
     grads = _own_storage(grads)
     groups = shd.mesh_groups(mesh)
-    if groups.n_data > 1:
-        _all_reduce_many_([g for g, spec in _with_specs(grads, p_specs)
-                           if not _split(spec, "data", mesh)], groups.data)
+    row_groups = [(groups.data, groups.n_data,
+                   [g for g, spec in _with_specs(grads, p_specs)
+                    if not _split(spec, "data", mesh)])]
+    if not cfg.use_tp:
+        row_groups.append((groups.model, groups.tp, leaves(grads)))
+    n_rows = 1
+    for group, n, xs in row_groups:
+        if n > 1:
+            _all_reduce_many_(xs, group)
+            metrics = _pmean(metrics, group)
+            n_rows *= n
+    if n_rows > 1:
         for g in leaves(grads):
-            g.div_(groups.n_data)
-        metrics = _pmean(metrics, groups.data)
+            g.div_(n_rows)
     return grads, metrics
 
 
@@ -319,7 +312,6 @@ def make_sharded_train_step(
     caller's state valid). The metrics are the mean over `data`. Span: `train/grads`,
     `train/update`.
     """
-    check_inpod(cfg, mesh)
     s_specs = state_specs(state_shapes, cfg, mesh)
     b_specs = shd.batch_specs(batch_shapes, cfg, mesh)
     p_specs = s_specs["params"]
@@ -329,7 +321,7 @@ def make_sharded_train_step(
         tel = obs.get()
         with tel.span("train/grads", cat="train"):
             grads, metrics = _block_grads(
-                grad_fn, state["params"], _rows(batch, mesh), cfg, mesh,
+                grad_fn, state["params"], _rows(batch, cfg, mesh), cfg, mesh,
                 p_specs, n_micro)
             tel.block(leaves(grads)[:1])
         with tel.span("train/update", cat="train"):
@@ -469,7 +461,6 @@ def make_multipod_train_step(
             f"make_multipod_train_step needs a 'pod' mesh axis, got "
             f"{tuple(sizes)} (launch.mesh.make_multipod_mesh)"
         )
-    check_inpod(cfg, mesh)
     if compress and scheme not in _SCHEMES:
         raise ValueError(f"scheme {scheme!r}: expected one of {_SCHEMES}")
     core = {k: state_shapes[k] for k in ("params", "opt", "step")}
@@ -490,7 +481,7 @@ def make_multipod_train_step(
 
     def step(state: dict, batch: Any) -> tuple[dict, dict]:
         tel = obs.get()
-        local = _rows(batch, mesh)
+        local = _rows(batch, cfg, mesh)
         with tel.span("train/grads", cat="train"):
             grads, metrics = _block_grads(grad_fn, state["params"], local,
                                           cfg, mesh, p_specs, n_micro)

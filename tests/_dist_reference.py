@@ -23,8 +23,10 @@ three compile at once.
 
 `decode`: `serve.sharded`'s plan, placement and compiled prefill and
 decode step on a DxM `make_smoke_mesh`, greedy, for each case of IN
-(`cases`: tag, config name, quantized or not; `<tag>/params/<path>` the
-float32 or packed params, `prompts`, `new`) whose tag TAGS lists
+(`cases`: tag, config name, the format: 0 float32, the packed bits, or
+"spe8"; `<tag>/params/<path>` the float32 or packed params, or the SPE
+tree's values, selects, scales and meta, which run here as the dense
+weights they decompress to; `prompts`, `new`) whose tag TAGS lists
 (comma-separated): the prefill's and every decode step's logits and the
 tokens; also `sharded_generate`'s tokens. A few cases a process, so that
 they compile at once.
@@ -42,19 +44,24 @@ W, the warm-up steps); "sharded" runs `make_sharded_train_step` on a 2x2
 steps left on one process), `batch/<i>/<key>` the batches, of which a
 case takes W to W + 2; each step's metrics, the first step's error
 buffers and the final state gathered. A few cases a process, so that they compile
-at once.
+at once. A case may carry two more columns, the config fields it
+overrides (a dict's repr) and the steps it runs (3 where
+absent), and its own batches, `<tag>/batch/<i>/<key>` (whisper's carry
+frames).
 
-    ... python tests/_dist_reference.py spread
+    ... python tests/_dist_reference.py spread [CONFIG]
 
 `spread`: the reference against itself, the measurement behind the
-in-pod test's warm start for recurrentgemma. The reduced recurrentgemma
-in float32 from its own draw (`init(PRNGKey(0))`) and its own
+in-pod test's warm start for recurrentgemma (CONFIG, the default
+recurrentgemma_2b) and behind the families file's one step for rwkv6
+(rwkv6_3b). The reduced CONFIG in float32 from its own draw
+(`init(PRNGKey(0))`) and its own
 `TokenStream(batch=8, seq_len=16, seed=0)`, AdamW 3e-3:
 `make_multipod_train_step` on 1x1x1 and on 1x2x2, 3 steps each, from the
 draw (batches 0-2) and from the state 3 single-device steps leave
-(batches 3-5). Prints, for each start, the largest difference between
-the two layouts' params, m and v after the 3 steps, over each tree's
-max.
+(batches 3-5). Prints, for each start, each layout's grad norm at each
+step and the largest difference between the two layouts' params, m and
+v after the 3 steps, over each tree's max.
 """
 
 import os
@@ -67,6 +74,7 @@ os.environ["XLA_FLAGS"] = (
 ).strip()
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+import ast  # noqa: E402
 import dataclasses  # noqa: E402
 
 import jax  # noqa: E402
@@ -76,6 +84,7 @@ from jax.experimental.shard_map import shard_map  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 STEPS = 3
+SPE = "spe8"  # decode's format of an SPE serving tree: 16:8, 8 bits
 
 
 def _pod_mesh(n):
@@ -184,6 +193,26 @@ def multipod(mode: str, n: int, inp: str, outp: str, ckpt_dir: str) -> None:
     np.savez(outp, **out)
 
 
+def _spe_dense(data: dict, prefix: str) -> jax.Array:
+    """One SPE serving linear of IN (`<prefix>values_q`, `select`, `scale`
+    and `meta/{group,keep}`; a stacked (G, Kk, N) group one slice at a
+    time) as the dense weight of the same function, decompressed by this
+    package's `decompress_tile` and scaled per column."""
+    from repro.kernels._common import decompress_tile
+
+    group = int(data[prefix + "meta/group"])
+    keep = int(data[prefix + "meta/keep"])
+    vq, sel, scale = (jnp.asarray(data[prefix + k])
+                      for k in ("values_q", "select", "scale"))
+
+    def one(v, s, c):
+        return decompress_tile(v, s, group, keep) * c
+
+    if vq.ndim == 3:
+        return jnp.stack([one(*x) for x in zip(vq, sel, scale)])
+    return one(vq, sel, scale)
+
+
 def decode(spec: str, inp: str, outp: str, tags: str) -> None:
     from repro import configs
     from repro.launch.mesh import make_smoke_mesh
@@ -199,9 +228,10 @@ def decode(spec: str, inp: str, outp: str, tags: str) -> None:
     mesh = make_smoke_mesh(n_data, n_model)
     out = {}
     for case in data["cases"]:
-        tag, name, bits = str(case[0]), str(case[1]), int(case[2])
+        tag, name, fmt = str(case[0]), str(case[1]), str(case[2])
         if tag not in tags.split(","):
             continue
+        bits = 0 if fmt == SPE else int(fmt)
         cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
         model = api.build_model(cfg, tp=1, max_seq=int(data["max_seq"]))
 
@@ -209,11 +239,16 @@ def decode(spec: str, inp: str, outp: str, tags: str) -> None:
             p = model.init(jax.random.PRNGKey(0))
             return E.quantize_for_serving(p, bits) if bits else p
 
+        def leaf(key):
+            if key in data or fmt != SPE:
+                return jnp.asarray(data[key])
+            return _spe_dense(data, key[:-len("w")])
+
         paths, treedef = jax.tree_util.tree_flatten_with_path(
             jax.eval_shape(init))
         params = jax.tree_util.tree_unflatten(treedef, [
-            jnp.asarray(data[f"{tag}/params/" + "/".join(
-                str(k.key) for k in kp)]) for kp, _ in paths])
+            leaf(f"{tag}/params/" + "/".join(str(k.key) for k in kp))
+            for kp, _ in paths])
         plan = SH.plan_decode(model, params, mesh, batch_size=b)
         prefill, step = SH.compile_decode(model, plan)
         placed = SH.place_params(params, plan)
@@ -251,17 +286,23 @@ def inpod(proc: str, inp: str, outp: str) -> None:
     data = dict(np.load(inp))
     out = {}
     for case in data["cases"]:
-        tag, name, mode, kind, spec, where, warm = (str(x) for x in case)
+        tag, name, mode, kind, spec, where, warm, *over = (
+            str(x) for x in case)
         if where != proc:
             continue
-        cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
+        fields, n_steps = ((ast.literal_eval(over[0]), int(over[1]))
+                           if over else ({}, STEPS))
+        cfg = dataclasses.replace(configs.reduced(name), dtype="float32",
+                                  **fields)
         model = api.build_model(cfg, tp=1, max_seq=32)
         shapes = jax.eval_shape(
             lambda model=model: model.init(jax.random.PRNGKey(0)))
         params = _params_from(data, f"{tag}/params/", shapes)
+        own = any(k.startswith(f"{tag}/batch/") for k in data)
+        pre = f"{tag}/batch/" if own else "batch/"
         batches = [{k.split("/")[-1]: jnp.asarray(v) for k, v in data.items()
-                    if k.startswith(f"batch/{i}/")}
-                   for i in range(int(warm), int(warm) + STEPS)]
+                    if k.startswith(f"{pre}{i}/")}
+                   for i in range(int(warm), int(warm) + n_steps)]
         opt = optim.adamw(3e-3)
         state = trainer.init_state(params, opt)
         if int(warm):  # the warm state's moments and step
@@ -295,7 +336,7 @@ def inpod(proc: str, inp: str, outp: str) -> None:
     np.savez(outp, **out)
 
 
-def spread() -> None:
+def spread(name: str = "recurrentgemma_2b") -> None:
     import json
 
     from repro import configs, optim
@@ -304,8 +345,7 @@ def spread() -> None:
     from repro.models import api
     from repro.train import trainer
 
-    cfg = dataclasses.replace(configs.reduced("recurrentgemma_2b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(configs.reduced(name), dtype="float32")
     model = api.build_model(cfg, tp=1, max_seq=32)
     opt = optim.adamw(3e-3)
     stream = lm.TokenStream(batch=8, seq_len=16, vocab=cfg.vocab, seed=0)
@@ -314,8 +354,9 @@ def spread() -> None:
     one = jax.jit(trainer.make_train_step(model.loss, opt))
     for i in range(STEPS):
         warm, _ = one(warm, stream.batch_at(i))
-    for name, start, first in (("draw", cold, 0), ("warm", warm, STEPS)):
-        finals = {}
+    for start_name, start, first in (("draw", cold, 0),
+                                     ("warm", warm, STEPS)):
+        finals, norms = {}, {}
         for spec in ("1x1x1", "1x2x2"):
             mesh = make_multipod_mesh(spec)
             state = jax.tree.map(jnp.copy, start)
@@ -325,10 +366,12 @@ def spread() -> None:
                 model.loss, opt, cfg, mesh, jax.eval_shape(lambda: state),
                 compress=False)
             state = jax.device_put(state, sh)
+            norms[spec] = []
             for i in range(first, first + STEPS):
-                state, _ = step(state, stream.batch_at(i))
+                state, m = step(state, stream.batch_at(i))
+                norms[spec].append(float(m["grad_norm"]))
             finals[spec] = state
-        rec = {"start": name}
+        rec = {"config": cfg.name, "start": start_name, "grad_norm": norms}
         for part, get in (("params", lambda s: s["params"]),
                           ("m", lambda s: s["opt"]["m"]),
                           ("v", lambda s: s["opt"]["v"])):
@@ -348,6 +391,6 @@ if __name__ == "__main__":
     elif sys.argv[1] == "inpod":
         inpod(sys.argv[2], sys.argv[3], sys.argv[4])
     elif sys.argv[1] == "spread":
-        spread()
+        spread(*sys.argv[2:3])
     else:
         multipod(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])

@@ -600,43 +600,61 @@ def test_engine_burst_on_the_card_matches_the_cpu(cuda):
 
 
 def test_sparse_linear_at_the_widest_k_the_kernel_takes(cuda):
-    """`linear_apply`'s sparse branch through nm_spmm at the widest K whose
-    dense strip fits a block's shared memory (at N = 1024, qwen3-8b's K/V
-    width), against the CPU; one K past it raises, as qwen3-8b's d_ff
-    (12288) does: no fallback."""
+    """`linear_apply`'s SPE branch through nm_spmm at N = 1024 (qwen3-8b's
+    K/V width), against the CPU, one launch each: at the widest K whose
+    whole dense strip fits a block's shared memory (one segment), and at
+    K = 12 288 (qwen3-8b's d_ff), which the kernel streams in K segments
+    of whole groups, as the reference's grid walks K."""
     from repro_torch.models import layers
 
-    lib = tk._library()
     n_out = 1024
     k = 12288
-    while lib.nm_spmm_smem_bytes(k, n_out) > tk._MAX_SMEM_BYTES:
-        k -= 16
-    assert 4096 <= k < 12288
+    assert tk.launch_geometry(4, k, n_out, group_size=G)["seg_k"] < k
+    widest = k
+    while tk.launch_geometry(4, widest, n_out, group_size=G)["seg_k"] < widest:
+        widest -= 16
+    assert 4096 <= widest < k
     gen = torch.Generator().manual_seed(3)
-    w = torch.randn((k, n_out), generator=gen) * k ** -0.5
-    x = torch.randn((4, k), generator=gen)
-    sparse = layers.compile_linear_sparse_quant({"w": w}, 8)
-    on_card = {kk: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
-               for kk, v in sparse.items()}
-    before = tk.launches
-    y = layers.linear_apply(on_card, x.to(cuda), dtype=torch.float32)
-    torch.cuda.synchronize()
-    assert tk.launches == before + 1
-    want = layers.linear_apply(sparse, x, dtype=torch.float32)
-    err = float((y.cpu() - want).abs().max() / want.abs().max())
-    assert err <= 1e-4, err
-    def on_card_sparse(k_in):
-        tree = layers.compile_linear_sparse_quant(
-            {"w": torch.randn((k_in, n_out), generator=gen)}, 8)
-        return {kk: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
-                for kk, v in tree.items()}
+    for k_in in (widest, k):
+        w = torch.randn((k_in, n_out), generator=gen) * k_in ** -0.5
+        x = torch.randn((4, k_in), generator=gen)
+        sparse = layers.compile_linear_sparse_quant({"w": w}, 8)
+        on_card = {kk: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+                   for kk, v in sparse.items()}
+        before = tk.launches
+        y = layers.linear_apply(on_card, x.to(cuda), dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert tk.launches == before + 1
+        want = layers.linear_apply(sparse, x, dtype=torch.float32)
+        err = float((y.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, (k_in, err)
 
-    for k_past in (k + 16, 12288):
-        assert lib.nm_spmm_smem_bytes(k_past, n_out) > tk._MAX_SMEM_BYTES
-        with pytest.raises(ValueError, match="shared memory"):
-            layers.linear_apply(on_card_sparse(k_past),
-                                torch.randn((4, k_past), device=cuda),
-                                dtype=torch.float32)
+
+@pytest.mark.parametrize("extra", [0, G])
+@pytest.mark.parametrize("m", [1, 4, 64, 130])
+def test_nm_spmm_at_the_segment_boundaries(cuda, m, extra):
+    """Where the strip streams in segments (K near 12 288 at N = 1024): K a
+    whole number of segments exactly, and K one group past it (a last
+    segment of one group); 130 rows take three M tiles, each decoding
+    every segment again. Within 1e-4 of max|y| of the plain version, a
+    repeat bit-identical."""
+    n_out = 1024
+    seg = tk.launch_geometry(m, 65536, n_out, group_size=G)["seg_k"]
+    k = 12288 // seg * seg + extra  # past any whole strip at N = 1024
+    geom = tk.launch_geometry(m, k, n_out, group_size=G)
+    assert geom["seg_k"] == seg and k % seg == extra
+    gen = torch.Generator(device=cuda).manual_seed(m + extra)
+    layer = spe.compile_layer(
+        torch.randn((k, n_out), generator=gen, device=cuda), spe.SPEConfig())
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    args = (x, layer.values_q, layer.select, layer.scale)
+    y = tk.nm_spmm_cuda(*args, group_size=G, keep=KEEP)
+    y_again = tk.nm_spmm_cuda(*args, group_size=G, keep=KEEP)
+    torch.cuda.synchronize()
+    y_plain = tk.nm_spmm_plain(*args, group_size=G, keep=KEEP)
+    assert torch.equal(y, y_again)
+    assert float((y - y_plain).abs().max()) <= 1e-4 * float(
+        y_plain.abs().max())
 
 
 # ---------------------------------------------------------------------------

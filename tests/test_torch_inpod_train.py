@@ -284,21 +284,6 @@ def test_elastic_restore_with_shardings(tmp_path):
                for a, b in zip(leaves(restored), leaves(state)))
 
 
-@pytest.mark.parametrize("name,sizes", [
-    ("olmoe_1b_7b", (1, 1, 2)), ("rwkv6_3b", (2, 2, 2)),
-    ("whisper_tiny", (1, 2, 1)), ("whisper_tiny", (1, 1, 2))])
-def test_in_pod_refusals_name_item_8c(name, sizes):
-    cfg = tconfigs.reduced(name)
-    mesh = tshd.MeshShape(("pod", "data", "model"), sizes)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        ttrainer.make_multipod_train_step(
-            lambda p, b: (0.0, {}), topt.adamw(1e-3), cfg, mesh, {})
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        ttrainer.make_sharded_train_step(
-            lambda p, b: (0.0, {}), topt.adamw(1e-3), cfg,
-            tshd.MeshShape(("data", "model"), sizes[1:]), {}, {})
-
-
 def test_sharded_step_without_donation_leaves_its_state():
     """`make_sharded_train_step(donate=False)` on a 1x1 ("data",
     "model") mesh in a world-1 gloo group: the state handed in is left

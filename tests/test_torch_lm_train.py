@@ -428,19 +428,18 @@ def test_launch_train_lm_loss_falls():
             assert after < before - 0.1, (i, before, after)
 
 
-def test_launch_train_va_and_the_refused_flags(capsys):
+def test_launch_train_va_and_the_refused_flags():
     out = tlaunch.main(["--arch", "va-cnn", "--steps", "3", "--batch", "8",
                         "--log-every", "0"], device="cpu")
     assert len(out["history"]) == 3
     assert all(np.isfinite(h["loss"]) for h in out["history"])
     # --multi-pod, --scheme and --no-compress are ported
-    # (test_torch_multipod.py), in-pod axes too (test_torch_inpod_train.py);
-    # MoE at model > 1 and whisper over the in-pod axes still refuse
-    for arch, spec in (("olmoe-1b-7b", "2x2x2"), ("whisper-tiny", "2x2")):
-        with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", arch, "--reduced", "--multi-pod",
-                          spec], device="cpu")
-        assert "ROADMAP.md queue 1 item 8c" in capsys.readouterr().err
+    # (test_torch_multipod.py), the in-pod axes for every LM family too
+    # (test_torch_inpod_train.py, test_torch_inpod_families.py); va-cnn
+    # still refuses them
+    with pytest.raises(SystemExit, match="va-cnn"):
+        tlaunch.main(["--arch", "va-cnn", "--multi-pod", "1x2x2"],
+                     device="cpu")
 
 
 class _Kill(BaseException):

@@ -272,18 +272,13 @@ def test_launch_train_multi_pod_spawns_its_ranks(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_multi_pod_refuses_va_cnn_and_in_pod_axes(capsys):
-    """What in-pod training still refuses, before any rank comes up:
-    va-cnn; olmoe and rwkv6 at model > 1; whisper over the in-pod axes."""
+def test_multi_pod_refuses_va_cnn_and_in_pod_axes():
+    """What multi-pod training still refuses, before any rank comes up:
+    va-cnn (every LM family trains over the in-pod axes:
+    tests/test_torch_inpod_families.py)."""
     with pytest.raises(SystemExit, match="va-cnn"):
         tlaunch.main(["--arch", "va-cnn", "--multi-pod", "2x1"],
                      device="cpu")
-    for arch, spec in (("olmoe-1b-7b", "1x1x2"), ("rwkv6-3b", "2x2x2"),
-                       ("whisper-tiny", "2x2"), ("whisper-tiny", "1x1x2")):
-        with pytest.raises(SystemExit):
-            tlaunch.main(["--arch", arch, "--reduced", "--multi-pod",
-                          spec], device="cpu")
-        assert "ROADMAP.md queue 1 item 8c" in capsys.readouterr().err
 
 
 def test_multipod_step_requires_a_pod_axis_and_one_rank_a_pod():
@@ -292,12 +287,6 @@ def test_multipod_step_requires_a_pod_axis_and_one_rank_a_pod():
         ttrainer.make_multipod_train_step(
             lambda p, b: (0.0, {}), opt, jconfigs.reduced("qwen3_8b"),
             tshd.MeshShape(("data", "model"), (1, 1)), {})
-    for name, sizes in (("olmoe_1b_7b", (2, 2, 2)), ("rwkv6_3b", (1, 1, 2)),
-                        ("whisper_tiny", (2, 2, 1))):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            ttrainer.make_multipod_train_step(
-                lambda p, b: (0.0, {}), opt, tconfigs.reduced(name),
-                tshd.MeshShape(("pod", "data", "model"), sizes), {})
 
 
 @pytest.mark.parametrize("n", [1, 4])

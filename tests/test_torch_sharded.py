@@ -17,7 +17,14 @@ devices
 port's draws; the 8-bit cases packed by the port) and seeded prompts. The
 reduced qwen3-8b and recurrentgemma-2b on both meshes, olmoe-1b-7b,
 llama4-scout (MoE with a shared expert) and rwkv6-3b (float32 and 8-bit)
-on 2x2, in float32. Each spawn and subprocess has its own time limit.
+on 2x2, in float32. The reduced qwen3-8b with every packable linear in
+the SPE format (`_spe_tree.sparse_for_serving`, 16:8 at 8 bits) on
+2x2: the reference cannot run that tree (its `lax.scan` over the stacked
+blocks cannot carry the format's integer `meta`), so it is fed the
+port's values, selects and scales as numpy, so no prune tie can differ,
+and its sharded run takes the same weights decompressed by the JAX
+package's own `kernels._common.decompress_tile`, times the scale. Each spawn and subprocess has its own time
+limit.
 
 Tolerances, each for its reason:
 
@@ -44,6 +51,7 @@ import pytest
 import torch
 
 import _torch_dist_ranks as ranks
+from _spe_tree import sparse_for_serving
 from repro_torch._tree import map_with_path, tree_map
 from repro_torch.launch import _spawn
 from repro_torch.launch import serve as tlaunch
@@ -52,6 +60,7 @@ from repro_torch.serve import engine as TE
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 59  # each spawn and subprocess
 F32_REL = 1e-4
+SPE_TAGS = [t for t, _, b, _ in ranks.SERVE_CASES if b == ranks.SPE]
 
 
 def _numpy(tree):
@@ -65,11 +74,13 @@ def served(tmp_path_factory):
     prompts)."""
     tmp = tmp_path_factory.mktemp("sharded")
     built, params_np = {}, {}
-    for tag, name, bits, _ in ranks.SERVE_CASES:
+    for tag, name, fmt, _ in ranks.SERVE_CASES:
         model = ranks.serve_model(name)
         params = model.init(0, device="cpu")
-        if bits:
-            params = TE.quantize_for_serving(params, bits)
+        if fmt == ranks.SPE:
+            params = sparse_for_serving(params, 8)
+        elif fmt:
+            params = TE.quantize_for_serving(params, fmt)
         built[tag] = (model, params)
         params_np[tag] = _numpy(params)
     prompts = np.random.default_rng(1).integers(
@@ -185,18 +196,23 @@ def test_sharded_engine_eos_on_first_token(served):
     assert eos["tail_done"] and eos["tail_len"] == 3 and eos["drained"]
 
 
-@pytest.mark.parametrize("pool", ["paged", "paged_chunked"])
+@pytest.mark.parametrize("pool", ["paged", "paged_chunked", "rg_paged",
+                                  "rg_paged_chunked"])
 def test_sharded_paged_matches_sharded_dense(served, pool):
-    """tests/test_paged_properties.py's 12 requests on the 4x1 mesh: the
-    paged pool (pages over the same data axis as their slots), with and
-    without chunked prefill, equals the dense sharded pool; every mapped
-    page stays on its slot's shard; nothing leaks."""
+    """tests/test_paged_properties.py's 12 requests on the 4x1 mesh, for
+    qwen3 and (`rg_`) recurrentgemma, its sharded cases: the paged pool
+    (pages over the same data axis as their slots), with and without
+    chunked prefill, equals the dense sharded pool; every mapped page
+    stays on its slot's shard; nothing leaks."""
     port, _, _, _ = served
-    dense, paged = port["pool_dense"], port[f"pool_{pool}"]
+    rg = pool.startswith("rg_")
+    prefix = "rg_" if rg else ""
+    dense, paged = port[f"pool_{prefix}dense"], port[f"pool_{pool}"]
     assert dense["done"] and paged["done"]
     assert paged["outputs"] == dense["outputs"]
     assert paged["on_shard"] and paged["allocated_after"] == 0
-    model = ranks.serve_model("qwen3_8b", max_seq=96)
+    model = ranks.serve_model(
+        "recurrentgemma_2b" if rg else "qwen3_8b", max_seq=96)
     want = _single_engine(model, model.init(0, device="cpu"),
                           ranks.paged_requests(model.cfg), 8)
     assert dense["outputs"] == want
@@ -216,7 +232,8 @@ def test_engine_placed_bytes_equal_plan(served):
     for key in ("engine_cache_bytes", "engine_2x2_cache_bytes"):
         placed, plan = port[key]
         assert placed == plan, key
-    for pool in ("dense", "paged", "paged_chunked"):
+    for pool in ("dense", "paged", "paged_chunked", "rg_dense", "rg_paged",
+                 "rg_paged_chunked"):
         placed, plan = port[f"pool_{pool}"]["cache_bytes"]
         assert placed == plan, pool
 
@@ -245,7 +262,8 @@ def test_plan_guards(served):
     assert "quant_matmul" in port["guard_kernel"]
 
 
-TP_TAGS = [t for t, _, _, m in ranks.SERVE_CASES if m == ("2x2",)]
+TP_TAGS = [t for t, _, b, m in ranks.SERVE_CASES
+           if m == ("2x2",) and b != ranks.SPE]
 
 
 @pytest.mark.parametrize("tag", TP_TAGS)
@@ -279,6 +297,58 @@ def test_moe_and_rwkv_tp_placed_bytes_and_comm(served, tag):
     for step in run["comm"]:
         assert all(v <= run["budget"].get(k, 0) for k, v in step.items())
         assert step.get("all-reduce", 0) > 0 and step.get("all-gather", 0) > 0
+
+
+@pytest.mark.parametrize("tag", SPE_TAGS)
+def test_spe_tp_mesh_matches_reference(served, tag):
+    """The SPE tree at model = 2 (column-parallel linears on their local
+    values, selects and scales; row-parallel ones on their blocks of
+    whole compressed groups through `nm_spmm`, the partials summed): the
+    prefill's and each decode step's logits within F32_REL of the
+    reference's sharded run of the same weights on 2x2, and
+    `sharded_generate` its greedy tokens."""
+    port, ref, _, _ = served
+    for t in range(ranks.SERVE_NEW + 1):
+        got = port[f"2x2/{tag}"][f"logits/{t}"]
+        want = ref["2x2"][f"{tag}/logits/{t}"]
+        assert got.shape == want.shape
+        assert _rel(got, want) <= F32_REL, (t, _rel(got, want))
+    np.testing.assert_array_equal(port[f"2x2/{tag}/generate"],
+                                  ref["2x2"][f"{tag}/generate"])
+
+
+@pytest.mark.parametrize("tag", SPE_TAGS)
+def test_spe_tp_placed_bytes_and_comm(served, tag):
+    """On 2x2 the SPE tree places as a packed one: rank 0's params and
+    cache hold the plan's bytes to the byte, and each decode step's
+    collectives stay within `_decode_comm_budget`, all-reduces (the row
+    blocks' partials) and all-gathers both."""
+    run = served[0][f"2x2/{tag}"]
+    placed_p, plan_p, placed_c, plan_c = run["bytes"]
+    assert placed_p == plan_p and placed_c == plan_c
+    for step in run["comm"]:
+        assert all(v <= run["budget"].get(k, 0) for k, v in step.items())
+        assert step.get("all-reduce", 0) > 0 and step.get("all-gather", 0) > 0
+
+
+def test_spe_row_block_that_cuts_a_group_raises(served):
+    """At model = 8 the reduced qwen3's attention output (32 compressed
+    rows, 8 a group) leaves each rank 4: `plan_decode` raises, naming the
+    leaf; at model = 4 (8 rows, one group) it plans."""
+    from repro_torch.dist import sharding as tshd
+    from repro_torch.serve import sharded as TSH
+
+    model, params = served[2][SPE_TAGS[0]]
+    with pytest.raises(tshd.ShardingGuardError, match="wo/values_q"):
+        TSH.plan_decode(model, params,
+                        tshd.MeshShape(("data", "model"), (1, 8)),
+                        batch_size=8)
+    tshd.check_row_groups(
+        params, tshd.param_specs(params, model.cfg, tshd.MeshShape(
+            ("data", "model"), (1, 4))),
+        tshd.MeshShape(("data", "model"), (1, 4)),
+        lambda node: node["meta"]["keep"] if "values_q" in node else None,
+        "plan")
 
 
 @pytest.mark.parametrize("name,spec", ranks.ADMISSION_CASES)

@@ -13,7 +13,8 @@ full CONFIG through the unified multi-pod step that places params over
 data and model, the multi-pod step card against CPU, the data-sharded
 fleet runner), sharded serving (launch.serve --mesh 1) and the frontends
 over a mesh (launch.serve --listen --mesh 1, the rank-coordinated stream
-frontend on a data mesh) on one CUDA card.
+frontend on a data mesh) and the open-loop load lab (launch.stream and
+launch.serve --load-sweep, benchmarks.load_sweep) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -175,6 +176,24 @@ toolkit. Phases, each printing JSON lines:
    every segment
    acked, enqueued == packed, nm_spmm launched 7 a flushed bucket, each
    bucket's predictions equal the unsharded runner's;
+   stream_load_sweep — launch.stream --load-sweep --path kernel --json at
+   the launcher's defaults (256 patients, buckets 8/32/128/256, fractions
+   0.25-2.0, 1024 segments at capacity), nm_spmm launches counted from 0
+   (more than 0), the same argv on --path twin (no launch, the record
+   equal key for key: latency is modelled), and at 16 patients and 256
+   segments the card's record equal to the CPU's; the reference's
+   invariants (CO guard, URGENT survival, never dropped);
+   lm_load_sweep — launch.serve --load-sweep at recurrentgemma-2b's full
+   CONFIG, dense (8 requests a point, 4 new tokens, fractions 0.5, 1,
+   4): the CO guard's intended >= dequeue and non-null tails at every
+   point; the capacity, knee, verdict and wall recorded, not gated (wall
+   clock of one run), and the card's busy share over one more capacity
+   drain under the profiler;
+   load_sweep — the load-lab benchmark's smoke,
+   repro_torch.benchmarks.load_sweep.run(smoke=True), with the
+   reference's acceptance assertions (the serve knee included), its
+   record rendered by obs.report.render_report into build/ and every
+   <svg> parsed;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -399,6 +418,12 @@ SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
 # on them (dense)
+STREAM_SWEEP_ARGV = ("--load-sweep", "--path", "kernel", "--json")
+STREAM_SWEEP_SMALL = ("--patients", "16", "--segments-at-capacity", "256")
+LM_SWEEP_ARGV = ("--arch", "recurrentgemma-2b", "--load-sweep", "--json",
+                 "--load-requests", "8", "--max-new", "4",
+                 "--load-fractions", "0.5,1,4")
+LOAD_REPORT = "build/chip_smoke_load_report.html"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -2488,6 +2513,186 @@ def stream_frontend_mesh(torch, dev, smi) -> dict:
     return out
 
 
+def quiet(fn, *args, **kwargs):
+    """fn's value, its standard output (a launcher's --json dump) kept
+    off the script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def stream_load_sweep(torch, dev, smi) -> dict:
+    """launch.stream --load-sweep at its defaults on the kernel path, its
+    nm_spmm launches counted from 0; the twin path's record equal to it
+    key for key with no launch; at a small size, the card's record equal
+    to the CPU's; the reference's invariants."""
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.launch import stream as launch_stream
+
+    t_phase = time.perf_counter()
+    K.launches = 0
+    t0 = time.perf_counter()
+    kernel = quiet(launch_stream.main, list(STREAM_SWEEP_ARGV))
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launched = K.launches
+    twin_argv = list(STREAM_SWEEP_ARGV)
+    twin_argv[twin_argv.index("kernel")] = "twin"
+    K.launches = 0
+    t0 = time.perf_counter()
+    twin = quiet(launch_stream.main, twin_argv)
+    twin_s = time.perf_counter() - t0
+    twin_launched = K.launches
+    small = list(STREAM_SWEEP_ARGV + STREAM_SWEEP_SMALL)
+    small_card = quiet(launch_stream.main, small)
+    small_cpu = quiet(launch_stream.main, small, device="cpu")
+    g = kernel["coordinated_omission_guard"]
+    out = {"phase": "stream_load_sweep", "card": smi,
+           "argv": list(STREAM_SWEEP_ARGV),
+           "nm_spmm_launches": launched, "twin_launches": twin_launched,
+           "kernel_s": kernel_s, "twin_s": twin_s,
+           "capacity_segments_per_s": kernel["capacity_segments_per_s"],
+           "segments": sum(p["n_segments"] for p in kernel["points"]),
+           "points": [{k: p[k] for k in ("load_fraction", "offered_load",
+                                         "n_segments", "p50_s", "p99_s",
+                                         "p999_s", "dropped")}
+                      for p in kernel["points"]],
+           "knee": kernel["knee"], "overload": kernel["overload"],
+           "guard": g,
+           "urgent_overload": kernel["slo"]["urgent_overload"],
+           "kernel_equals_twin": kernel == twin,
+           "card_equals_cpu": small_card == small_cpu,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    check(launched > 0 and launched % 7 == 0,
+          f"stream_load_sweep: {launched} nm_spmm launches on the kernel path")
+    check(twin_launched == 0,
+          f"stream_load_sweep: the twin path launched nm_spmm {twin_launched}x")
+    check(kernel == twin, "stream_load_sweep: kernel and twin records differ")
+    check(small_card == small_cpu,
+          "stream_load_sweep: the card's record differs from the CPU's")
+    check(g["intended_ge_dequeue"] and g["strictly_greater_at_overload"],
+          f"stream_load_sweep: CO guard {g}")
+    check(kernel["overload"]["urgent_survived"]
+          and kernel["overload"]["never_dropped"]
+          and kernel["slo"]["urgent_overload"]["met"],
+          f"stream_load_sweep: overload {kernel['overload']}")
+    return out
+
+
+def lm_load_sweep(torch, dev, smi) -> dict:
+    """launch.serve --load-sweep at recurrentgemma-2b's full CONFIG, dense:
+    the CO guard's intended >= dequeue and every point's tails; the
+    capacity, knee and verdict recorded (wall clock of one run: not
+    gated); then one more closed-loop capacity drain over the same engine
+    maker under the profiler, for the card's busy share."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import loadlab
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    built = []
+    build = launch_serve._build_lm_engine
+
+    def keep(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(launch_serve, "_build_lm_engine", keep):
+        rec = quiet(launch_serve.main, list(LM_SWEEP_ARGV))
+    wall = time.perf_counter() - t0
+    cfg, make_engine, make_prompts = built[0]
+    batch = 4  # launch.serve's default --batch
+    drain = {}
+
+    def point(warm: bool):
+        t0 = time.perf_counter()
+        drain.update(loadlab.run_serve_point(
+            make_engine, make_prompts(max(2 * batch, 8)), rate_rps=1e5,
+            max_new=int(LM_SWEEP_ARGV[LM_SWEEP_ARGV.index("--max-new") + 1]),
+            seed=(0, 3), warm=warm))
+        torch.cuda.synchronize()
+        drain["wall_s"] = time.perf_counter() - t0
+
+    point(True)  # as the sweep's points run, outside the profile
+    # the maker's engine is new, its first uses paid above: the profile
+    # covers the engine's build and the drain
+    prof = lm_profile(torch, functools.partial(point, False), 1)
+    drain_s = drain["wall_s"]
+    g = rec["coordinated_omission_guard"]
+    out = {"phase": "lm_load_sweep", "card": smi, "argv": list(LM_SWEEP_ARGV),
+           "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "capacity_rps": rec["capacity_rps"],
+           "points": [{k: p[k] for k in ("load_fraction", "offered_load",
+                                         "achieved_rps", "p50_s", "p99_s",
+                                         "p999_s", "max_queue_delay_s")}
+                      | {"ttft_p99_s": p["ttft"]["p99_s"]}
+                      for p in rec["points"]],
+           "knee": rec["knee"], "slo": rec["slo"]["met_sub_saturated"],
+           "slo_bound_s": rec["slo"]["declared"]["bound"],
+           "overload": rec["overload"], "guard": g, "wall_s": wall,
+           "drain_wall_s": drain_s, "drain_achieved_rps": drain["achieved_rps"],
+           "drain_device_ms": prof["device_ms"],
+           "drain_kernels": prof["kernels"],
+           "busy_share": prof["device_ms"] / (drain_s * 1e3),
+           "top_kernels": prof["top_kernels"][:3],
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    built.clear()
+    free_card(torch, dev)
+    check(g["intended_ge_dequeue"], f"lm_load_sweep: CO guard {g}")
+    check(all(None not in (p["p50_s"], p["p99_s"], p["p999_s"],
+                           p["ttft"]["p99_s"]) for p in rec["points"])
+          and len(rec["points"]) == 3,
+          f"lm_load_sweep: points {out['points']}")
+    return out
+
+
+def load_sweep_phase(torch, dev, smi) -> dict:
+    """The load-lab benchmark's smoke on the card with its own (the
+    reference's) acceptance assertions, then its record rendered to HTML
+    and every <svg> parsed."""
+    import xml.etree.ElementTree as ET
+
+    from repro_torch import obs
+    from repro_torch.benchmarks import load_sweep
+    from repro_torch.obs import report
+
+    t0 = time.perf_counter()
+    try:
+        rec = load_sweep.run(smoke=True)
+        wall = time.perf_counter() - t0
+        path = ROOT / LOAD_REPORT
+        path.parent.mkdir(parents=True, exist_ok=True)
+        report.render_report(rec, str(path))
+    finally:
+        obs.reset()
+    html = path.read_text()
+    svgs = [ET.fromstring(frag[:frag.index("</svg>") + 6])
+            for frag in ("<svg" + f for f in html.split("<svg")[1:])]
+    serve, stream, front = rec["serve"], rec["stream"], rec["frontend"]
+    out = {"phase": "load_sweep", "card": smi, "wall_s": wall,
+           "serve": {"capacity_rps": serve["capacity_rps"],
+                     "knee": serve["knee"], "overload": serve["overload"],
+                     "slo_met_sub_saturated": serve["slo"]["met_sub_saturated"],
+                     "p99_s": [p["p99_s"] for p in serve["points"]]},
+           "stream": {"capacity_segments_per_s":
+                      stream["capacity_segments_per_s"],
+                      "knee": stream["knee"], "overload": stream["overload"]},
+           "frontend": {"overload": front["overload"],
+                        "shed_curve": front["shed_curve"],
+                        "transport_overhead": front["transport_overhead"]},
+           "lineage": {k: {"requests": v["requests"],
+                           "min_distinct_hops": v["min_distinct_hops"]}
+                       for k, v in rec["lineage"].items()},
+           "report": LOAD_REPORT, "report_bytes": len(html),
+           "svgs": len(svgs), "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(len(svgs) >= 2, f"load_sweep: {len(svgs)} svg in the report")
+    load_sweep.check(rec)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3432,6 +3637,14 @@ def main() -> int:
     stream_mesh = stream_frontend_mesh(torch, dev, smi)
     clock("stream_frontend_mesh")
 
+    # -- the open-loop load lab ---------------------------------------------
+    stream_sweep = stream_load_sweep(torch, dev, smi)
+    clock("stream_load_sweep")
+    lm_load_sweep(torch, dev, smi)
+    clock("lm_load_sweep")
+    load_sweep_phase(torch, dev, smi)
+    clock("load_sweep")
+
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
     one = torch.zeros(1, device=dev)
@@ -3654,6 +3867,7 @@ def main() -> int:
         "launches_dist_fleet": fleet_dist["nm_spmm_launches"],
         "launches_frontend_mesh": stream_mesh["nm_spmm_launches"],
         "launches_lm_sparse": sparse["launches"],
+        "launches_load_sweep": stream_sweep["nm_spmm_launches"],
         "max_abs_err": max(max_abs_err, fleet_err, sparse["max_abs_err"]),
         **{key: totals[key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3667,6 +3881,8 @@ def main() -> int:
               "launches_frontend_mesh: the rank-coordinated stream "
               "frontend's run on that mesh; launches_lm_sparse: one "
               "generate of qwen3-8b's full CONFIG in the SPE format, "
+              "launches_load_sweep: launch.stream --load-sweep --path "
+              "kernel at its defaults; "
               "lm_layer_4_rows its 7 projections at a decode step's rows)",
         "lm_layer_4_rows": {
             key: sum(LM_SHAPES[(r["k"], r["n"])] * r[key]

@@ -53,9 +53,28 @@ from `--seed`, keeps its block (`place_params`) and frees the rest; rank
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch qwen3-8b --mesh 2x2
 
+Open-loop offered-load sweeps (`obs.loadlab`), on the dense weights as
+in the reference (`--quant-bits` does not apply): `--load-sweep` measures
+the slot engine's closed-loop capacity, then offers `--load-fractions`
+of it on `--arrival-process` arrivals, `--load-requests` requests a
+point, and reports tail latency from *intended* arrival, the knee, the
+TTFT SLO's burn and the overload verdict; `--frontend-sweep` offers them
+through the frontend over a loopback socket with admission control at
+`--admission-rate` (default: the measured capacity) — the shed-rate
+curve, URGENT segment survival, the verdict and the socket-vs-inproc
+tail. Both honour `--page-size`, `--pages-per-device` and
+`--chunk-tokens`, return the sweep record and print it with `--json`
+(render it with `python -m repro_torch.obs.loadlab RECORD.json`). Over
+`--mesh` they are refused: rank 0's submit/tick loop would need the
+other ranks to replay it (ROADMAP.md queue 1 item 9b).
+
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --load-sweep --load-requests 8 --max-new 4 --load-fractions 0.5,1,4
+    python -m repro_torch.launch.serve --arch qwen3-8b --reduced \
+        --frontend-sweep --json
+
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
-`device` it needs a card. The reference's frontend-sweep and load-sweep
-flags are refused with the ROADMAP.md item that ports them.
+`device` it needs a card.
 """
 
 from __future__ import annotations
@@ -78,16 +97,6 @@ from repro_torch.launch.mesh import make_serving_mesh, parse_mesh_spec
 from repro_torch.models import api
 from repro_torch.serve import engine as E
 from repro_torch.serve import sharded as SH
-
-# the reference's flags whose parts of the system are not ported yet
-_NOT_PORTED = {
-    "--frontend-sweep": "loadlab.sweep_frontend, ROADMAP.md queue 1 item 9",
-    "--load-sweep": "obs.loadlab, ROADMAP.md queue 1 item 9",
-    "--load-fractions": "obs.loadlab, ROADMAP.md queue 1 item 9",
-    "--json": "obs.loadlab, ROADMAP.md queue 1 item 9",
-}
-_SWITCHES = ("--load-sweep", "--frontend-sweep", "--json")
-
 
 def build_lm(args, device: _device.DeviceLike = None):
     """(cfg, model, params, prompts) of one `serve_lm` run: the config
@@ -251,11 +260,13 @@ def _hostport(s: str) -> tuple[str, int]:
 
 
 def _build_lm_engine(args, device: _device.DeviceLike = None):
-    """(cfg, make_engine) of a `--listen` server: the config (full or
-    `--reduced`) with max_seq = prompt + max_new + 2, rounded up to a
-    multiple of `--page-size`; dense params drawn on `device` from
-    `--seed`; and a maker of the slot engine with the paged pool and
-    chunked prefill the flags ask for. With `--mesh`, the engine is the
+    """(cfg, make_engine, make_prompts) of a `--listen` server or a sweep:
+    the config (full or `--reduced`) with max_seq = prompt + max_new + 2,
+    rounded up to a multiple of `--page-size`; dense params drawn on
+    `device` from `--seed`; a maker of the slot engine with the paged pool
+    and chunked prefill the flags ask for; and `make_prompts(n)`, n
+    (prompt_len,) prompts drawn on the CPU from the (seed, 2) stream (the
+    reference's `fold_in(key, 2)`). With `--mesh`, the engine is the
     sharded one on this rank of `make_serving_mesh` (every rank of the
     mesh calls this), built here once, so only this rank's blocks of the
     params are kept, and the maker returns it; its paged pool is
@@ -287,19 +298,28 @@ def _build_lm_engine(args, device: _device.DeviceLike = None):
             span = validate_page_size(page, model.attn_capacities())
             per_dev = (args.batch // n_data) * span + 1
         paging = PagingConfig(page, per_dev * n_data)
+    prompt_seed = int(np.random.SeedSequence([args.seed, 2])
+                      .generate_state(1)[0])
+
+    def make_prompts(n: int) -> list:
+        gen = torch.Generator().manual_seed(prompt_seed)
+        toks = torch.randint(0, cfg.vocab, (n, args.prompt_len),
+                             generator=gen)
+        return [toks[i] for i in range(n)]
+
     if mesh is not None:
         # built here, so the maker holds this rank's blocks, not the tree
         sharded = SH.ShardedEngine(
             model, params, batch_size=args.batch, mesh=mesh, paging=paging,
             chunk_tokens=args.chunk_tokens, device=dev)
         del params
-        return cfg, lambda: sharded
+        return cfg, lambda: sharded, make_prompts
 
     def make_engine():
         return E.Engine(model, params, batch_size=args.batch, paging=paging,
                         chunk_tokens=args.chunk_tokens, device=dev)
 
-    return cfg, make_engine
+    return cfg, make_engine, make_prompts
 
 
 def serve_frontend(fe, listen: str, tag: str, what: str, *,
@@ -358,7 +378,7 @@ def _listen_rank(args, device: _device.DeviceLike = None) -> Optional[dict]:
         RankRecords,
     )
 
-    cfg, make_engine = _build_lm_engine(args, device)
+    cfg, make_engine, _ = _build_lm_engine(args, device)
     records = None
     if args.mesh:
         n_data, n_model = parse_mesh_spec(args.mesh)
@@ -478,6 +498,137 @@ def serve_connect(args) -> dict:
     }
 
 
+def _fractions(args) -> tuple:
+    return tuple(float(f) for f in args.load_fractions.split(","))
+
+
+def serve_load_sweep(args, device: _device.DeviceLike = None) -> dict:
+    """Open-loop offered-load sweep over the slot engine (wall time):
+    measure the closed-loop capacity, then drive Poisson/trace-driven
+    arrival schedules at fractions of it and report tail latency from
+    *intended* arrival times, the saturation knee, TTFT SLO burn, and
+    the overload verdict (see `obs.loadlab`). Returns the sweep record."""
+    from repro_torch.obs import loadlab
+
+    _, make_engine, make_prompts = _build_lm_engine(args, device)
+    cap = loadlab.run_serve_point(
+        make_engine,
+        make_prompts(max(2 * args.batch, 8)),
+        rate_rps=1e5,  # everything intended at ~t=0: drain throughput
+        max_new=args.max_new,
+        seed=(args.seed, 3),
+    )["achieved_rps"]
+    out = loadlab.sweep_serve(
+        make_engine,
+        make_prompts,
+        capacity_rps=cap,
+        load_fractions=_fractions(args),
+        n_requests=args.load_requests,
+        max_new=args.max_new,
+        seed=args.seed,
+        process=args.arrival_process,
+    )
+    print(
+        f"[serve] open-loop sweep: capacity ~{cap:.0f} req/s, "
+        f"{args.arrival_process} arrivals, "
+        f"{args.load_requests} requests/point"
+    )
+    for p in out["points"]:
+        print(
+            f"[serve]   {p['load_fraction']:>5.2f}x  "
+            f"offered {p['offered_load']:8.1f}/s  "
+            f"p50 {p['p50_s'] * 1e3:7.1f}ms  "
+            f"p99 {p['p99_s'] * 1e3:7.1f}ms  "
+            f"p99.9 {p['p999_s'] * 1e3:7.1f}ms"
+        )
+    k = out["knee"]
+    if k.get("detected"):
+        print(
+            f"[serve] saturation knee @ {k['knee_rate']:.1f} req/s "
+            f"(p99 grows {k['post_knee_growth']:.1f}x past it)"
+        )
+    slo = out["slo"]
+    print(
+        f"[serve] SLO {slo['declared']['name']} "
+        f"(bound {slo['declared']['bound'] * 1e3:.1f}ms): "
+        f"met sub-saturated = {slo['met_sub_saturated']}; "
+        f"overload verdict = {out['overload']['verdict']}"
+    )
+    if args.json:
+        print(json.dumps(out, indent=1, default=float))
+    return out
+
+
+def serve_frontend_sweep(args, device: _device.DeviceLike = None) -> dict:
+    """Loopback-socket offered-load sweep through the frontend: measure
+    engine capacity closed-loop (or take --admission-rate), then offer
+    --load-fractions of it over a real socket with active admission
+    control — shed-rate curve, URGENT segment survival, and the overload
+    verdict (see `loadlab.sweep_frontend`). Returns the sweep record."""
+    from repro_torch.core import compiler, vadetect
+    from repro_torch.obs import loadlab
+    from repro_torch.serve.frontend import Frontend
+    from repro_torch.stream.runner import FleetRunner
+
+    dev = _device.resolve(device)
+    _, make_engine, make_prompts = _build_lm_engine(args, dev)
+    rate = args.admission_rate
+    if rate is None:
+        rate = loadlab.run_serve_point(
+            make_engine,
+            make_prompts(max(2 * args.batch, 8)),
+            rate_rps=1e5,
+            max_new=args.max_new,
+            seed=args.seed + 3,
+        )["achieved_rps"]
+        print(f"[serve] closed-loop capacity ~{rate:.0f} req/s -> "
+              f"admission rate")
+    runner = FleetRunner(
+        compiler.compile_model(vadetect.init(
+            torch.Generator().manual_seed(args.seed), device=dev)),
+        device=dev,
+    )
+
+    def make_frontend(fcfg):
+        fe = Frontend(engine=make_engine(), n_patients=args.patients,
+                      runner=runner, cfg=fcfg)
+        fe.warm(args.prompt_len)
+        return fe
+
+    out = loadlab.sweep_frontend(
+        make_frontend,
+        make_prompts,
+        admission_rate_rps=rate,
+        load_fractions=_fractions(args),
+        n_requests=args.load_requests,
+        max_new=args.max_new,
+        seed=args.seed,
+        n_patients=args.patients,
+        process=args.arrival_process,
+    )
+    for p in out["points"]:
+        print(
+            f"[serve]   {p['load_fraction']:>5.2f}x  "
+            f"offered {p['offered_load']:8.1f}/s  "
+            f"completed {p['completed']:3d}  "
+            f"shed {p['shed_rate']:5.1%}  "
+            f"p99 {(p['p99_s'] or float('nan')) * 1e3:7.1f}ms  "
+            f"seg-deferred {p['segments']['deferred']}"
+        )
+    ov = out["overload"]
+    print(f"[serve] frontend verdict = {ov['verdict']} "
+          f"(accounting_exact={ov['accounting_exact']}, "
+          f"urgent_survived={ov['urgent_survived']})")
+    to = out.get("transport_overhead")
+    if to:
+        print(f"[serve] socket - inproc p99: "
+              f"{to['socket_minus_inproc_p99_s'] * 1e3:.2f}ms at "
+              f"{to['load_fraction']}x")
+    if args.json:
+        print(json.dumps(out, indent=1, default=float))
+    return out
+
+
 def serve_va(args, device: _device.DeviceLike = None) -> dict:
     from repro_torch.configs import va_cnn
     from repro_torch.core import compiler, vadetect
@@ -522,6 +673,13 @@ def main(
                          "distribution); needs --temperature")
     ap.add_argument("--patients", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--load-sweep", action="store_true",
+                    help="run the open-loop offered-load sweep "
+                         "(repro_torch.obs.loadlab) instead of one batch")
+    ap.add_argument("--frontend-sweep", action="store_true",
+                    help="offered-load sweep through the async "
+                         "serving frontend over a loopback socket, "
+                         "with knee-aware admission control")
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="serve LM requests over the frontend's "
                          "length-prefixed JSON socket transport")
@@ -532,13 +690,24 @@ def main(
     ap.add_argument("--offered-rate", type=float, default=50.0,
                     help="with --connect: offered load in req/s")
     ap.add_argument("--admission-rate", type=float, default=None,
-                    help="admission-control rate in req/s for --listen "
-                         "(default: unbounded)")
+                    help="admission-control rate in req/s for "
+                         "--listen/--frontend-sweep (default: "
+                         "unbounded for --listen; measured capacity "
+                         "for --frontend-sweep)")
+    ap.add_argument("--load-fractions",
+                    default="0.25,0.5,0.75,1.0,2.0",
+                    help="offered load as fractions of measured "
+                         "capacity (comma-separated)")
     ap.add_argument("--load-requests", type=int, default=24,
-                    help="with --connect: requests to offer")
+                    help="requests per offered-load point (with "
+                         "--connect: requests to offer)")
     ap.add_argument("--arrival-process", default="poisson",
                     choices=["poisson", "trace"],
-                    help="with --connect: interarrival process")
+                    help="interarrival process for --load-sweep, "
+                         "--frontend-sweep and --connect")
+    ap.add_argument("--json", action="store_true",
+                    help="with --load-sweep/--frontend-sweep: dump the "
+                         "full sweep record as JSON")
     ap.add_argument("--trace-out", default=None, metavar="PREFIX",
                     help="enable telemetry; on exit write PREFIX.jsonl "
                          "(event log) and PREFIX.json (Chrome/Perfetto "
@@ -559,14 +728,7 @@ def main(
                          "sharded engine behind the socket) on a data x "
                          "model mesh, one process a device (e.g. 4, or "
                          "2x2)")
-    for flag, what in _NOT_PORTED.items():
-        kw = ({"action": "store_true"} if flag in _SWITCHES
-              else {"default": None})
-        ap.add_argument(flag, help=f"not ported yet ({what})", **kw)
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag} is not ported yet ({what})")
     if args.pages_per_device and not args.page_size:
         ap.error("--pages-per-device requires --page-size")
     if args.top_k and args.temperature is None:
@@ -575,16 +737,27 @@ def main(
     _device.resolve(device)
     if args.trace_out:
         obs.configure(enabled=True)
-    if args.listen and args.arch == "va-cnn":
+    if (args.frontend_sweep or args.listen) and args.arch == "va-cnn":
         ap.error("the serving frontend fronts the LM slot engine; "
                  "for the stream side use repro_torch.launch.stream "
                  "--listen/--connect")
+    if args.load_sweep and args.arch == "va-cnn":
+        ap.error("--load-sweep drives the LM slot engine; for the fleet "
+                 "sweep use repro_torch.launch.stream --load-sweep")
+    if args.mesh and (args.load_sweep or args.frontend_sweep):
+        ap.error("the load sweeps over a --mesh are not ported: rank 0's "
+                 "submit/tick loop needs the other ranks to replay it "
+                 "(ROADMAP.md queue 1 item 9b)")
     if args.mesh and args.connect:
         ap.error("--connect is the socket client: the server takes --mesh "
                  "(--listen --mesh)")
     if args.mesh and args.arch == "va-cnn":
         ap.error("--mesh shards the LM; va-cnn serves on one device")
-    if args.listen:
+    if args.load_sweep:
+        out = serve_load_sweep(args, device)
+    elif args.frontend_sweep:
+        out = serve_frontend_sweep(args, device)
+    elif args.listen:
         out = serve_listen(args, device)
     elif args.mesh:
         out = serve_lm_mesh(args, device)

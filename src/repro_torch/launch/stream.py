@@ -35,9 +35,23 @@ launcher stops every rank.
     python -m repro_torch.launch.stream --devices 4 --patients 256
     python -m repro_torch.launch.stream --listen 127.0.0.1:0 --devices 4
 
+The open-loop offered-load sweep (`obs.loadlab.sweep_stream`, virtual
+time): `--load-sweep` offers per-patient Poisson (or trace-driven,
+`--arrival-process`) segment arrivals at `--load-fractions` of the
+modelled fleet capacity over a horizon of `--segments-at-capacity`
+segments at 1.0x, pins the first `--urgent-fraction` of patients URGENT,
+and reports latency from intended arrival, the knee, the URGENT cohort's
+deadline-slack SLO and the overload verdict (`--json` prints the
+record). Latency is modelled, so the record is exactly reproducible on
+any host and any `--path`; `--path kernel` classifies every flushed
+bucket through `nm_spmm`. With `--devices N` every rank of the data mesh
+runs the sweep (each bucket's modelled service is that of N chip twins)
+and rank 0 returns the record.
+
+    python -m repro_torch.launch.stream --load-sweep --path kernel [--json]
+
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
-`device` it needs a card. The open-loop sweep (`--load-sweep` and its
-flags) is ROADMAP.md queue 1 item 9.
+`device` it needs a card.
 """
 
 from __future__ import annotations
@@ -55,16 +69,74 @@ from repro_torch.launch import _spawn
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.stream import FleetConfig, FleetRunner, simulate
 
-__all__ = ["main", "make_data_mesh", "stream_connect", "stream_listen"]
+__all__ = ["main", "make_data_mesh", "stream_connect", "stream_listen",
+           "stream_load_sweep"]
 
-# the reference's flags whose parts of the system are not ported yet
-_NOT_PORTED = {
-    "--load-sweep": "the open-loop sweep, ROADMAP.md queue 1 item 9",
-    "--load-fractions": "the open-loop sweep, ROADMAP.md queue 1 item 9",
-    "--segments-at-capacity":
-        "the open-loop sweep, ROADMAP.md queue 1 item 9",
-}
-_SWITCHES = ("--load-sweep",)
+
+def stream_load_sweep(args, device) -> Optional[dict]:
+    """Open-loop offered-load sweep in virtual time on this rank (over a
+    data mesh of `--devices` ranks when that is more than one; every rank
+    calls it): per-patient Poisson/trace segment arrivals at fractions of
+    the modeled fleet capacity, latency from intended arrival, knee
+    location, pinned URGENT-cohort deadline-slack SLO, overload verdict
+    (see `obs.loadlab`). Exactly reproducible on any host. Rank 0 prints
+    and returns the record, the others None."""
+    from repro_torch.obs import loadlab
+
+    dev = _device.resolve(device)
+    if args.trace_out and not obs.get().enabled:  # a spawned rank
+        obs.configure(enabled=True)
+    buckets = _buckets(args)
+    mesh = make_data_mesh(args.devices, dev)
+    runner = FleetRunner(_program(args, dev), path=args.path, device=dev,
+                         mesh=mesh)
+    out = loadlab.sweep_stream(
+        n_patients=args.patients,
+        buckets=buckets,
+        load_fractions=tuple(float(f)
+                             for f in args.load_fractions.split(",")),
+        segments_at_capacity=args.segments_at_capacity,
+        seed=args.seed,
+        urgent_fraction=args.urgent_fraction,
+        process=args.arrival_process,
+        runner=runner,
+    )
+    if _spawn.rank() != 0:
+        return None
+    if args.trace_out:
+        jsonl, chrome = obs.get().finish(args.trace_out)
+        print(f"[obs] trace written: {jsonl} + {chrome}")
+    if args.json:
+        print(json.dumps(out, indent=1, default=float))
+        return out
+    print(
+        f"[stream] open-loop sweep: {args.patients} patients, "
+        f"buckets={list(buckets)}, capacity "
+        f"{out['capacity_segments_per_s']:.0f} seg/s, "
+        f"{args.arrival_process} arrivals"
+    )
+    for p in out["points"]:
+        print(
+            f"[stream]   {p['load_fraction']:>5.2f}x  "
+            f"offered {p['offered_load']:9.0f}/s  "
+            f"p50 {p['p50_s'] * 1e3:7.2f}ms  "
+            f"p99 {p['p99_s'] * 1e3:7.2f}ms  "
+            f"p99.9 {p['p999_s'] * 1e3:7.2f}ms  "
+            f"dropped={p['dropped']}"
+        )
+    k = out["knee"]
+    if k.get("detected"):
+        print(
+            f"[stream] saturation knee @ {k['knee_rate']:.0f} seg/s "
+            f"(p99 grows {k['post_knee_growth']:.1f}x past it)"
+        )
+    print(
+        f"[stream] URGENT cohort ({out['urgent_patients']} patients) "
+        f"overload burn rate "
+        f"{out['slo']['urgent_overload'].get('burn_rate'):.2f}; "
+        f"verdict = {out['overload']['verdict']}"
+    )
+    return out
 
 
 def stream_listen(args, program, buckets, device, *, mesh=None,
@@ -183,11 +255,25 @@ def main(
                     help="per-segment telemetry-gap probability")
     ap.add_argument("--max-wait", type=float, default=0.256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--load-sweep", action="store_true",
+                    help="run the open-loop offered-load sweep "
+                         "(repro_torch.obs.loadlab, virtual time) instead "
+                         "of the periodic-arrival simulation")
+    ap.add_argument("--load-fractions",
+                    default="0.25,0.5,0.75,1.0,1.5,2.0",
+                    help="offered load as fractions of the modeled "
+                         "capacity (comma-separated)")
+    ap.add_argument("--segments-at-capacity", type=int, default=1024,
+                    help="virtual horizon, expressed as segments "
+                         "offered by the 1.0x point")
     ap.add_argument("--urgent-fraction", type=float, default=0.125,
-                    help="with --connect: the URGENT patients' fraction")
+                    help="pinned URGENT cohort fraction for the "
+                         "class-survival SLO (with --connect: the URGENT "
+                         "patients' fraction)")
     ap.add_argument("--arrival-process", default="poisson",
                     choices=["poisson", "trace"],
-                    help="with --connect: interarrival process")
+                    help="interarrival process for --load-sweep and "
+                         "--connect")
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="accept patient segments over the serving "
                          "frontend's socket transport")
@@ -207,14 +293,7 @@ def main(
                     help="enable telemetry; on exit write PREFIX.jsonl "
                          "(event log) and PREFIX.json (Chrome/Perfetto "
                          "trace)")
-    for flag, what in _NOT_PORTED.items():
-        kw = ({"action": "store_true"} if flag in _SWITCHES
-              else {"default": None})
-        ap.add_argument(flag, help=f"not ported yet ({what})", **kw)
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            ap.error(f"{flag} is not ported yet ({what})")
     dev = _device.resolve(device)
     if args.trace_out:
         # before the runner is built, so its cells register with the probe
@@ -222,15 +301,20 @@ def main(
 
     if args.connect:
         return stream_connect(args)
+    sweep = args.load_sweep and not args.listen
     if args.devices > 1:
         return _spawn.run(
-            _listen_rank if args.listen else _simulate_main, args.devices,
+            _listen_rank if args.listen
+            else stream_load_sweep if sweep else _simulate_main,
+            args.devices,
             device=dev.type,
             args=(args, dev.type if dev.type == "cpu" else None),
             until_stopped=bool(args.listen),
         )
     if args.listen:
         return stream_listen(args, _program(args, dev), _buckets(args), dev)
+    if sweep:
+        return stream_load_sweep(args, dev)
     return _simulate_main(args, dev)
 
 

@@ -26,7 +26,7 @@ encoder-decoder model, as in the reference):
 `device=None` means the CUDA card, as everywhere in the port. The
 decode step updates the cache in place (`models.transformer`,
 `models.whisper`). The dry-run's `input_specs` is not ported (ROADMAP.md
-queue 1 item 9).
+queue 1 item 9b).
 """
 
 from __future__ import annotations

@@ -194,8 +194,8 @@ class TokenBucket:
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Knobs for one frontend instance. `admission_rate_rps` is the LM
-    shed rate — wire it to the load lab's knee (`sweep_serve`'s
-    `knee_rate`, ROADMAP.md queue 1 item 9); None disables shedding. `stream_rate_rps` bounds
+    shed rate — wire it to the load lab's knee (`obs.loadlab.sweep_serve`'s
+    `knee_rate`); None disables shedding. `stream_rate_rps` bounds
     ROUTINE segment admission the same way; URGENT traffic ignores it.
     """
 

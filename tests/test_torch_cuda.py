@@ -4,8 +4,9 @@ the training step on the card against the same step on the CPU, a
 checkpoint of a card state restored bit for bit, the training loop's
 wait for the card inside its step span, LM serving, and the paged cache,
 chunked prefill and serving frontend (paged decode equal to dense bit for
-bit), and a packed layer's tensor-parallel halves in a world-1 NCCL
-group.
+bit), a packed layer's tensor-parallel halves in a world-1 NCCL
+group, and the open-loop load lab (the stream sweep's kernel path, a
+serve point's tails).
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -1134,3 +1135,45 @@ def test_sharded_train_step_on_one_card_equals_the_donated_step(cuda):
     assert _rel_tree(got["params"], want["params"]) <= 1e-6
     for k in ("m", "v"):
         assert _rel_tree(got["opt"][k], want["opt"][k]) <= 1e-6
+
+
+def test_stream_load_sweep_kernel_path_equals_twin_on_the_card(cuda):
+    """`launch.stream --load-sweep --path kernel` classifies every flushed
+    bucket through the nm_spmm kernel; latency is modelled, so its record
+    equals the twin path's and the CPU's key for key."""
+    from repro_torch.launch import stream
+
+    argv = ["--load-sweep", "--patients", "16", "--buckets", "8,32",
+            "--segments-at-capacity", "128"]
+    before = tk.launches
+    kernel = stream.main(argv + ["--path", "kernel"])
+    assert tk.launches > before
+    twin = stream.main(argv + ["--path", "twin"])
+    cpu = stream.main(argv + ["--path", "kernel"], device="cpu")
+    assert kernel == twin == cpu
+    assert kernel["overload"]["verdict"] == "graceful_degradation"
+
+
+def test_run_serve_point_on_the_card(cuda):
+    """One open-loop point over the reduced qwen3-8b's engine on the card:
+    every request completes, with non-null tails measured from intended
+    arrival, and intended >= submit for each request's TTFT."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.obs import loadlab
+    from repro_torch.serve.engine import Engine
+
+    cfg = configs.reduced("qwen3_8b")
+    model = api.build_model(cfg, tp=1, max_seq=16)
+    params = model.init(0, device=cuda)
+    gen = torch.Generator().manual_seed(7)
+    prompts = list(torch.randint(0, cfg.vocab, (8, 6), generator=gen))
+    pt = loadlab.run_serve_point(
+        lambda: Engine(model, params, batch_size=4, device=cuda), prompts,
+        rate_rps=50.0, max_new=4, seed=(0, 1))
+    assert pt["latency"]["count"] == pt["ttft"]["count"] == 8
+    assert None not in (pt["p50_s"], pt["p99_s"], pt["p999_s"])
+    assert pt["achieved_rps"] > 0
+    guard = loadlab.co_guard(pt["_raw"]["ttft_intended"],
+                             pt["_raw"]["ttft_submit"], saturated=False)
+    assert guard["intended_ge_dequeue"]

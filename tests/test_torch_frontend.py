@@ -2,7 +2,7 @@
 (tests/test_frontend.py's six tests, ported), its first load-lab piece,
 and the entry points that reach it: `launch.serve --listen/--connect`
 (with the paged cache and chunked prefill) and `launch.stream` (default,
-`--listen`, `--connect`) on the CPU.
+`--listen`, `--connect`, `--load-sweep`) on the CPU.
 
 The LM replies of the port's frontend are held equal to the reference
 frontend's on the same numpy weights (reduced qwen3-8b in float32) and
@@ -14,6 +14,7 @@ contract: every segment acked, enqueued == packed after a drain.
 """
 
 import asyncio
+import json
 import os
 import queue
 import signal
@@ -464,7 +465,7 @@ def test_launch_serve_listen_and_connect_over_loopback():
     args = tlaunch.main.__globals__["argparse"].Namespace(
         arch="qwen3-8b", reduced=True, batch=2, prompt_len=6, max_new=4,
         seed=0, page_size=4, pages_per_device=None, chunk_tokens=4)
-    _, make_engine = tlaunch._build_lm_engine(args, device="cpu")
+    _, make_engine, _ = tlaunch._build_lm_engine(args, device="cpu")
     eng = make_engine()
     assert eng.model.max_seq == 12 and eng.paging.n_pages == 2 * 3 + 1
     for r in rec["results"]:
@@ -509,12 +510,61 @@ def test_launch_stream_default_listen_and_connect():
         rec["stats"]["sched_packed_total"] == 48
 
 
-@pytest.mark.parametrize("flag", sorted(tstream._NOT_PORTED))
-def test_launch_stream_refuses_flags_not_ported(flag, capsys):
-    argv = [flag] if flag in tstream._SWITCHES else [flag, "2"]
-    with pytest.raises(SystemExit):
-        tstream.main(argv, device="cpu")
-    assert "ROADMAP.md queue 1 item 9" in capsys.readouterr().err
+STREAM_SWEEP = ["--load-sweep", "--patients", "16", "--buckets", "8,32",
+                "--segments-at-capacity", "128"]
+
+
+def test_launch_stream_load_sweep_on_the_cpu():
+    """`--load-sweep` (virtual time): the reference's verdicts at the
+    reference's fractions, a horizon of `--segments-at-capacity`
+    segments at 1.0x, and one record on every path (`--path kernel`
+    through nm_spmm's plain version here)."""
+    rec = tstream.main(STREAM_SWEEP + ["--path", "kernel"], device="cpu")
+    assert [p["load_fraction"] for p in rec["points"]] ==         [0.25, 0.5, 0.75, 1.0, 1.5, 2.0]
+    at_cap = next(p for p in rec["points"] if p["load_fraction"] == 1.0)
+    assert abs(at_cap["n_segments"] - 128) <= 0.2 * 128
+    assert rec["urgent_patients"] == 2  # --urgent-fraction 0.125 of 16
+    assert rec["coordinated_omission_guard"]["strictly_greater_at_overload"]
+    assert rec["overload"] == {"verdict": "graceful_degradation",
+                               "urgent_survived": True,
+                               "never_dropped": True}
+    twin = tstream.main(STREAM_SWEEP + ["--path", "twin"], device="cpu")
+    assert json.dumps(rec, sort_keys=True) == json.dumps(twin, sort_keys=True)
+    longer = tstream.main(STREAM_SWEEP[:-1] + ["256"], device="cpu")
+    assert sum(p["n_segments"] for p in longer["points"]) > \
+        1.5 * sum(p["n_segments"] for p in rec["points"])
+
+
+def test_launch_stream_load_sweep_over_a_data_mesh():
+    """`--devices 2`: the sweep on both spawned gloo ranks, rank 0's
+    record; its modelled fleet is two chip twins (each bucket's service
+    halves, the capacity doubles), so it equals the one-process sweep
+    over a runner that models two chips."""
+    two = tstream.main(STREAM_SWEEP + ["--devices", "2"], device="cpu")
+
+    class TwoChips(FleetRunner):
+        n_devices = 2
+
+    program = compiler.compile_model(vadetect.init(
+        torch.Generator().manual_seed(0), device="cpu"))
+    want = tloadlab.sweep_stream(
+        n_patients=16, buckets=(8, 32),
+        load_fractions=(0.25, 0.5, 0.75, 1.0, 1.5, 2.0),
+        segments_at_capacity=128, seed=0,
+        runner=TwoChips(program, device="cpu"))
+    assert json.dumps(two, sort_keys=True) == json.dumps(want, sort_keys=True)
+    one = tstream.main(STREAM_SWEEP, device="cpu")
+    assert two["capacity_segments_per_s"] == \
+        2 * one["capacity_segments_per_s"]
+
+
+def test_launch_stream_json_prints_the_sweep_record(capsys):
+    rec = tstream.main(STREAM_SWEEP + ["--json", "--load-fractions",
+                                       "0.5,2", "--arrival-process",
+                                       "trace"], device="cpu")
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == json.loads(json.dumps(rec, default=float))
+    assert [p["load_fraction"] for p in printed["points"]] == [0.5, 2.0]
 
 
 def test_launch_stream_listen_devices_reaches_the_spawn(monkeypatch):

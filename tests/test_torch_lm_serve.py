@@ -1,7 +1,7 @@
 """PyTorch port vs JAX package on LM serving: `quantize_for_serving`,
 `generate`, the slot `Engine` (tests/test_serve.py's engine tests,
-ported), sampling, seating, and the entry points `launch.serve` and
-`examples.serve_lm` on the CPU.
+ported), sampling, seating, and the entry points `launch.serve` (its
+open-loop sweeps too) and `examples.serve_lm` on the CPU.
 
 Greedy tokens from float32 configs are held identical to the
 reference's; packed trees to identical codes and scales within 1 ulp
@@ -11,6 +11,9 @@ reference's; packed trees to identical codes and scales within 1 ulp
 `generate` == `Engine` with the row index as uid, greedy at temperature
 <= 0) and the top-k mask to the reference's exactly.
 """
+
+import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -392,14 +395,173 @@ def test_launch_serve_reduced_on_the_cpu(capsys):
     assert q8["tokens"] == want.tolist()
 
 
-@pytest.mark.parametrize("flag", sorted(tlaunch._NOT_PORTED))
-def test_launch_serve_refuses_flags_not_ported(flag, capsys):
-    argv = ["--arch", "qwen3-8b", "--reduced", flag]
-    if flag not in tlaunch._SWITCHES:
-        argv.append("1")
+# ---------------------------------------------------------------------------
+# the open-loop sweeps of launch.serve (obs.loadlab): wall time, so the
+# CPU tests hold structure and accounting, never the knee or the verdict
+# ---------------------------------------------------------------------------
+
+SWEEP_ARGV = ["--arch", "qwen3-8b", "--reduced", "--batch", "2",
+              "--prompt-len", "6", "--max-new", "3", "--load-requests", "6",
+              "--load-fractions", "0.5,4"]
+
+
+class _TickEngine:
+    """A stand-in slot engine for the reference's sweep functions, which
+    read only `submit`, `tick`, `_queue`, `run`, `batch` and a request's
+    `output` / `done`: each tick seats queued requests up to the pool and
+    gives every seated one a token."""
+
+    chunk_tokens = None
+
+    def __init__(self, batch: int = 2, tick_s: float = 0.002):
+        self.batch, self.tick_s = batch, tick_s
+        self._queue, self._seated = [], []
+
+    def submit(self, req) -> None:
+        self._queue.append(req)
+
+    def tick(self) -> int:
+        while self._queue and len(self._seated) < self.batch:
+            self._seated.append(self._queue.pop(0))
+        for r in self._seated:
+            r.output.append(0)
+            r.done = len(r.output) >= r.max_new
+        n_seated = len(self._seated)
+        if n_seated:
+            time.sleep(self.tick_s)
+        self._seated = [r for r in self._seated if not r.done]
+        return n_seated
+
+    def run(self, max_ticks: int = 10_000) -> None:
+        for _ in range(max_ticks):
+            if self.tick() == 0 and not self._queue:
+                return
+
+
+def _ref_prompts(n_req: int) -> list:
+    return [jnp.zeros((6,), jnp.int32) for _ in range(n_req)]
+
+
+def _key_tree(x, dynamic=()):
+    """The nested keys of a record (list lengths kept; the dicts named in
+    `dynamic`, whose keys are counters a run may or may not bump, as a
+    marker)."""
+    if isinstance(x, dict):
+        return {k: "dynamic" if k in dynamic else _key_tree(v, dynamic)
+                for k, v in x.items()}
+    if isinstance(x, list):
+        return [_key_tree(v, dynamic) for v in x]
+    return None
+
+
+def _check_serve_sweep(rec: dict, n_points: int, n_req: int) -> None:
+    assert len(rec["points"]) == n_points
+    for p in rec["points"]:
+        assert p["n_requests"] == n_req and p["latency"]["count"] == n_req
+        assert None not in (p["p50_s"], p["p99_s"], p["p999_s"])
+        assert p["ttft"]["p50_s"] <= p["latency"]["p50_s"]
+    g = rec["coordinated_omission_guard"]
+    assert g["intended_ge_dequeue"] and g["samples"] == n_req
+    assert rec["slo"]["declared"]["name"] == "serve.ttft.p99"
+    assert len(rec["slo"]["points"]) == n_points
+    assert rec["overload"]["verdict"] in ("graceful_degradation",
+                                          "queue_collapse")
+
+
+def test_launch_serve_load_sweep_on_the_cpu():
+    """`--load-sweep` on the dense reduced qwen3-8b: the reference's
+    record, key for key (the reference's `sweep_serve` on a stand-in
+    engine), every request accounted for, the CO guard held."""
+    from repro.obs import loadlab as jloadlab
+
+    rec = tlaunch.main(SWEEP_ARGV + ["--load-sweep"], device="cpu")
+    _check_serve_sweep(rec, 2, 6)
+    want = jloadlab.sweep_serve(
+        _TickEngine, _ref_prompts, capacity_rps=200.0,
+        load_fractions=(0.5, 4.0), n_requests=6, max_new=3, seed=0)
+    assert _key_tree(rec) == _key_tree(want)
+
+
+def test_launch_serve_load_sweep_reaches_the_paged_chunked_engine(
+        monkeypatch):
+    """`--page-size`, `--pages-per-device` and `--chunk-tokens` reach
+    every engine the sweep builds (the capacity drain's and each
+    point's), as in the reference."""
+    built = []
+    real = tlaunch.E.Engine
+
+    def engine(*args, **kw):
+        built.append((kw["paging"], kw["chunk_tokens"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tlaunch.E, "Engine", engine)
+    rec = tlaunch.main(SWEEP_ARGV + ["--load-sweep", "--page-size", "4",
+                                     "--pages-per-device", "9",
+                                     "--chunk-tokens", "4"], device="cpu")
+    _check_serve_sweep(rec, 2, 6)
+    assert len(built) == 3
+    assert {(pg.page_size, pg.n_pages, c) for pg, c in built} == {(4, 9, 4)}
+
+
+def test_launch_serve_frontend_sweep_on_the_cpu():
+    """`--frontend-sweep` over a loopback socket: exact accounting, typed
+    rejections, URGENT segments always enqueued, no segment dropped, the
+    transport twin; the reference's record key for key (its
+    `sweep_frontend` over its own frontend on a stand-in engine; the
+    frontend's counters and the rejection reasons vary with the run)."""
+    from repro.obs import loadlab as jloadlab
+    from repro.serve import frontend as jfe
+
+    rec = tlaunch.main(SWEEP_ARGV + ["--frontend-sweep", "--patients", "4"],
+                       device="cpu")
+    assert len(rec["points"]) == 2
+    for p in rec["points"]:
+        assert p["submitted"] == p["completed"] + p["rejected"] == 6
+        assert sum(p["rejected_by_reason"].values()) == p["rejected"]
+        assert p["segments"]["urgent_not_enqueued"] == 0
+        assert p["segments"]["dropped"] == 0
+        assert p["segments"]["sent"] == 12
+    assert rec["overload"]["accounting_exact"]
+    assert rec["overload"]["urgent_survived"]
+    assert rec["overload"]["typed_rejections_only"]
+    assert rec["coordinated_omission_guard"]["intended_ge_dequeue"]
+    assert set(rec["transport_overhead"]["p99_s"]) == {"socket", "inproc"}
+
+    def make_frontend(fcfg):
+        fe = jfe.Frontend(engine=_TickEngine(), n_patients=4, cfg=fcfg)
+        fe.warm(6)
+        return fe
+
+    want = jloadlab.sweep_frontend(
+        make_frontend, _ref_prompts, admission_rate_rps=200.0,
+        load_fractions=(0.5, 4.0), n_requests=6, max_new=3, n_patients=4)
+    dynamic = ("frontend_stats", "rejected_by_reason")
+    assert _key_tree(rec, dynamic) == _key_tree(want, dynamic)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--arch", "va-cnn", "--load-sweep"], "repro_torch.launch.stream"),
+    (SWEEP_ARGV + ["--load-sweep", "--mesh", "2"], "item 9b"),
+    (SWEEP_ARGV + ["--frontend-sweep", "--mesh", "2x1"], "item 9b"),
+])
+def test_launch_serve_refuses_what_the_sweeps_do_not_drive(argv, message,
+                                                            capsys):
+    """The reference's refusal of `--load-sweep` for va-cnn, and the
+    sweeps over a mesh, which are not ported."""
     with pytest.raises(SystemExit):
         tlaunch.main(argv, device="cpu")
-    assert "ROADMAP.md queue 1 item" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
+
+
+def test_launch_serve_json_prints_the_sweep_record(capsys):
+    rec = tlaunch.main(SWEEP_ARGV + ["--load-sweep", "--json",
+                                     "--load-fractions", "1",
+                                     "--arrival-process", "trace"],
+                       device="cpu")
+    out = capsys.readouterr().out
+    printed = json.loads(out[out.index("\n{") + 1:])
+    assert printed == json.loads(json.dumps(rec, default=float))
+    assert [p["load_fraction"] for p in printed["points"]] == [1.0]
 
 
 def test_launch_serve_va_on_the_cpu():

@@ -305,7 +305,7 @@ def test_launch_serve_listen_mesh_2x2():
         arch="qwen3-8b", reduced=True, batch=4, prompt_len=6, max_new=4,
         seed=0, page_size=4, pages_per_device=None, chunk_tokens=4,
         mesh=None)
-    _, make_engine = tlaunch._build_lm_engine(args, device="cpu")
+    _, make_engine, _ = tlaunch._build_lm_engine(args, device="cpu")
     eng = make_engine()
     for r in rec["results"]:
         rng = np.random.default_rng(np.random.SeedSequence([0, 100 + r["uid"]]))

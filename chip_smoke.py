@@ -13,8 +13,10 @@ full CONFIG through the unified multi-pod step that places params over
 data and model, the multi-pod step card against CPU, the data-sharded
 fleet runner), sharded serving (launch.serve --mesh 1) and the frontends
 over a mesh (launch.serve --listen --mesh 1, the rank-coordinated stream
-frontend on a data mesh) and the open-loop load lab (launch.stream and
-launch.serve --load-sweep, benchmarks.load_sweep) on one CUDA card.
+frontend on a data mesh), the open-loop load lab (launch.stream and
+launch.serve --load-sweep, also over --mesh 1, benchmarks.load_sweep),
+the cell auditor over the serve cells at qwen3-8b's full width and the
+decode benchmark's twin (benchmarks.decode_throughput) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -59,7 +61,8 @@ toolkit. Phases, each printing JSON lines:
    vote split from its spans, the others for the spread of the
    wall; and the throughput benchmark,
    repro_torch.benchmarks.stream_throughput.run(smoke=True), with its
-   checks, then its telemetry overhead measurement OVERHEAD_REPEATS more
+   checks (its cell audit of the classify and vote cells included), then
+   its telemetry overhead measurement OVERHEAD_REPEATS more
    times, recorded only (the paired ratio and its interval, the A/A
    control, the floors' ratio, and how many runs of each arm a floor
    stands on);
@@ -189,11 +192,34 @@ toolkit. Phases, each printing JSON lines:
    point; the capacity, knee, verdict and wall recorded, not gated (wall
    clock of one run), and the card's busy share over one more capacity
    drain under the profiler;
+   lm_load_sweep_mesh — launch.serve --load-sweep --mesh 1 with
+   lm_load_sweep's flags on a world-1 NCCL group (the sharded engine
+   built once; rank 0's ticks sent as records before it runs them):
+   every request completes, the CO guard holds, and the records it sent,
+   replayed as a follower replays them on an unsharded Engine over
+   lm_load_sweep's params, give every request the same tokens and
+   admissions; the tokens against lm_load_sweep's own wall-clock run
+   recorded (a request admitted in another prefill width there may
+   tie-break apart in bf16);
    load_sweep — the load-lab benchmark's smoke,
    repro_torch.benchmarks.load_sweep.run(smoke=True), with the
    reference's acceptance assertions (the serve knee included), its
    record rendered by obs.report.render_report into build/ and every
    <svg> parsed;
+   decode_throughput — the decode benchmark's twin,
+   repro_torch.benchmarks.decode_throughput.run(smoke=True) on mesh 1
+   (world-1 NCCL: the reduced qwen3-8b and recurrentgemma-2b, the
+   admission and paged sections), with the reference's assertions and
+   its cell audit (every serve cell, 0 violations);
+   cell_audit — in lm_paged, both engines' serve cells at qwen3-8b's full
+   width (8 bits) audited from their recorded first calls
+   (repro_torch.analysis: no host read or transfer, no float64, the
+   seat's donation honoured; 0 violations), quant_matmul launched inside
+   the audited decode step; in lm_sharded, a ShardedEngine on the
+   mesh-1 placement decoding AUDIT_NEW tokens of each prompt (lm_serve's
+   8-bit tokens), its cells audited: only the one-device verdict on its
+   declared-sharded outputs (the reference's auditor reports the same on
+   one device), quant_matmul inside its audited decode step;
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -263,7 +289,9 @@ CONV_REPEATS = 4  # each VA layer's convolution backward, for determinism
 # throughput benchmark's smaller drain bucket (8)
 FLEET_KERNEL_BUCKETS = (8, 32, 128, 512)
 FLEET_REPS = 4  # fleet runs a path after the counted one: spread, then spans
-OVERHEAD_REPEATS = 3  # telemetry overhead measurements after the checked one
+# telemetry overhead measurements after the checked one, recorded only
+# (two show how far the ratio moves within a call)
+OVERHEAD_REPEATS = 2
 # the counts of a fleet run, equal on the kernel and the twin path
 FLEET_COUNTS = ("segments_total", "batches_total", "padded_total",
                 "diagnoses_total", "va_diagnoses_total", "urgent_packed_total",
@@ -414,6 +442,12 @@ DIST_WARM_STEPS, DIST_STEPS = 3, 3
 STEP_RTOL_DIST = 1e-5
 DIST_FLIP_SHARE = 0.02
 LM_SHARDED_MESH = "1"  # launch.serve --mesh on the one card: NCCL, world 1
+# the cell audit of lm_sharded's mesh-1 ShardedEngine: tokens it decodes a
+# request (the first of lm_serve's 8-bit tokens)
+AUDIT_NEW = 4
+# what the auditor reports of a cell declaring sharded outputs on a mesh
+# whose every axis has size 1 (the reference's auditor too, on 1 device)
+REPLICATED = "declared sharded_outputs but every output is fully replicated"
 SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
@@ -1545,15 +1579,40 @@ def lm_frontend_mesh(torch, dev, smi, unsharded: dict) -> dict:
     return out
 
 
+def audit_cells(torch, probe, smi, label: str) -> dict:
+    """The cell audit (repro_torch.analysis.audit_section) of the cells
+    `probe` registered, each cell's recorded first call (ops, hand-written
+    kernels launched, flops and bytes: obs.torchprobe.cost_gauges) beside
+    it; emitted as a cell_audit line and returned."""
+    from repro_torch.analysis import audit_section
+    from repro_torch.obs import registry, torchprobe
+
+    cells = probe.cells()
+    sec = audit_section(cells)
+    reg = registry.Registry()
+    calls = {}
+    for name, cell in cells.items():
+        rec = cell.info.call_record
+        if rec is None:
+            continue
+        calls[name] = {"ops": rec.ops, "kernel_launches": rec.kernel_launches,
+                       **torchprobe.cost_gauges(reg, name, cell)}
+    emit({"phase": "cell_audit", "engine": label, "card": smi, **sec,
+          "calls": calls})
+    return {**sec, "calls": calls}
+
+
 def paged_pair(torch, dev, model, params, prompts, *, batch, page, chunk,
-               max_new, n_pages=None, launches=None):
+               max_new, n_pages=None, launches=None, audit=False):
     """The same requests through a dense and a paged Engine (both with
     chunked prefill; `n_pages` pages, by default the dense pool's worth,
     batch·span + 1), ticked in turns. Per engine: its tokens, every
     decode call's logits (on the device) and occupied slots, the wall of
     each decode call through a synchronize, `cache_bytes_in_use` after
     every tick, and (with `launches`, a function reading quant_matmul's
-    counter) the launches of its own ticks."""
+    counter) the launches of its own ticks. With `audit`, each engine is
+    built under telemetry of its own (its probe: run["probe"]), so its
+    cells record their first calls for the cell audit."""
     from repro_torch import obs
     from repro_torch.serve import engine
     from repro_torch.serve.paging import PagingConfig, validate_page_size
@@ -1563,9 +1622,14 @@ def paged_pair(torch, dev, model, params, prompts, *, batch, page, chunk,
     for label, paging in (("dense", None),
                           ("paged", PagingConfig(page, n_pages
                                                  or batch * span + 1))):
+        if audit:
+            obs.configure(enabled=True)
         eng = engine.Engine(model, params, batch_size=batch, paging=paging,
                             chunk_tokens=chunk, device=dev)
-        run = {"eng": eng, "logits": [], "occupied": [], "walls_ms": [],
+        if audit:
+            obs.reset()
+        run = {"eng": eng, "probe": eng._probe, "logits": [], "occupied": [],
+               "walls_ms": [],
                "bytes": [], "launches": 0, "decode_calls": 0,
                "reqs": [engine.Request(uid=i, prompt=p, max_new=max_new)
                         for i, p in enumerate(prompts)]}
@@ -1641,7 +1705,8 @@ def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
     t0 = time.perf_counter()
     runs = paged_pair(torch, dev, model, params, prompts, batch=PAGED_BATCH,
                       page=PAGED_PAGE, chunk=PAGED_CHUNK,
-                      max_new=PAGED_MAX_NEW, launches=lambda: QM.launches)
+                      max_new=PAGED_MAX_NEW, launches=lambda: QM.launches,
+                      audit=True)
     run_s = time.perf_counter() - t0
     ppf = packed_per_forward(cfg)
     chunk_steps = sum(s for s in PAGED_PROMPTS if s > PAGED_CHUNK)
@@ -1692,6 +1757,25 @@ def lm_paged(torch, dev, smi, launches_now, reset_launches) -> dict:
     check(below, "lm_paged: paged cache bytes not below dense")
     check(all(len(t) == PAGED_MAX_NEW for t in tokens["paged"]),
           "lm_paged: a request came back short")
+    # the cell audit of both engines' serve cells at the full width: every
+    # cell called, nothing waiting for the host, no float64, the seat's
+    # donation honoured; quant_matmul launched inside the audited decode
+    # step
+    t0 = time.perf_counter()
+    for label, run in runs.items():
+        sec = audit_cells(torch, run["probe"], smi, f"lm_paged {label}")
+        decode = sec["calls"].get("serve.decode_step", {})
+        out[label]["cell_audit"] = {
+            "n_cells": sec["n_cells"],
+            "violations_total": sec["violations_total"],
+            "decode_step_quant_matmul_launches":
+                decode.get("kernel_launches", {}).get(QM.NAME, 0),
+            "decode_step_flops": decode.get("flops")}
+        check(sec["violations_total"] == 0,
+              f"lm_paged {label}: cell audit {sec['cells']}")
+        check(out[label]["cell_audit"]["decode_step_quant_matmul_launches"] > 0,
+              f"lm_paged {label}: no quant_matmul in the audited decode step")
+    out["cell_audit_s"] = time.perf_counter() - t0
     # the decode step replayed: last-fed tokens and positions, in place
     for label, run in runs.items():
         eng = run["eng"]
@@ -2240,10 +2324,11 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
     synchronize) and, from a fresh prefill, the device time and kernels
     of LM_PROFILE_STEPS steps under the profiler; the sharded prefill's
     logits against the unsharded prefill on the same params."""
-    from repro_torch import configs
+    from repro_torch import configs, obs
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.launch import _spawn
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import engine
     from repro_torch.serve import sharded as SH
 
     t_phase = time.perf_counter()
@@ -2285,7 +2370,25 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
 
         prof = lm_profile(torch, lambda: decode(LM_PROFILE_STEPS),
                           LM_PROFILE_STEPS)
-        del placed, model, params, cache, logits
+        del cache, logits
+        # the cell audit of the sharded engine on this mesh and these
+        # placed params: the prompts' first AUDIT_NEW tokens
+        t0 = time.perf_counter()
+        obs.configure(enabled=True)
+        eng = SH.ShardedEngine(model, params, batch_size=prompts.shape[0],
+                               mesh=plan.mesh, device=dev)
+        obs.reset()
+        host_prompts = prompts.cpu()
+        reqs = [engine.Request(uid=i, prompt=host_prompts[i],
+                               max_new=AUDIT_NEW)
+                for i in range(prompts.shape[0])]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        audit = audit_cells(torch, eng._probe, smi, "lm_sharded mesh 1")
+        audit_tokens = [r.output for r in reqs]
+        audit_s = time.perf_counter() - t0
+        del placed, model, params, eng
     expected = dict.fromkeys(launched, 0)
     expected[QM.NAME] = packed_per_forward(full) * (1 + max_new)
     wall = statistics.median(rec["decode_wall_ms"])
@@ -2314,9 +2417,31 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
            "prefill_rel_err_vs_unsharded": rel,
            "tokens_equal_lm_serve_8bit": rec["tokens"] == tokens_8bit,
            "peak_device_bytes": peak, "card_bytes": card_bytes}
+    decode_audit = audit["calls"].get("serve.decode_step", {})
+    out["cell_audit"] = {
+        "n_cells": audit["n_cells"],
+        "violations_total": audit["violations_total"],
+        "violations": sorted({v for c in audit["cells"].values()
+                              for v in c["violations"]}),
+        "decode_step_quant_matmul_launches":
+            decode_audit.get("kernel_launches", {}).get(QM.NAME, 0),
+        "tokens_equal_lm_serve_8bit": audit_tokens == [
+            t[:AUDIT_NEW] for t in tokens_8bit],
+        "seconds": audit_s}
     free_card(torch, dev)
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
+    # on one device every cell declaring sharded outputs has them
+    # replicated: the reference's auditor reports the same there, and
+    # nothing else may be reported
+    check(all(c["violations"] == [REPLICATED]
+              for c in audit["cells"].values())
+          and audit["violations_total"] == audit["n_cells"] > 0,
+          f"lm_sharded: cell audit {audit['cells']}")
+    check(out["cell_audit"]["decode_step_quant_matmul_launches"] > 0,
+          "lm_sharded: no quant_matmul in the audited decode step")
+    check(out["cell_audit"]["tokens_equal_lm_serve_8bit"],
+          "lm_sharded: the audited engine's tokens differ from lm_serve's")
     check(backend == "nccl", f"lm_sharded: backend {backend}")
     check(launched == expected,
           f"lm_sharded: launches {launched}, expected {expected}")
@@ -2591,7 +2716,7 @@ def lm_load_sweep(torch, dev, smi) -> dict:
     t_phase = time.perf_counter()
     free_card(torch, dev)
     built = []
-    build = launch_serve._build_lm_engine
+    build, seen = capture_requests(launch_serve._build_lm_engine)
 
     def keep(*args, **kwargs):
         built.append(build(*args, **kwargs))
@@ -2601,6 +2726,7 @@ def lm_load_sweep(torch, dev, smi) -> dict:
     with mock.patch.object(launch_serve, "_build_lm_engine", keep):
         rec = quiet(launch_serve.main, list(LM_SWEEP_ARGV))
     wall = time.perf_counter() - t0
+    tokens = request_tokens(seen)
     cfg, make_engine, make_prompts = built[0]
     batch = 4  # launch.serve's default --batch
     drain = {}
@@ -2638,13 +2764,182 @@ def lm_load_sweep(torch, dev, smi) -> dict:
            "top_kernels": prof["top_kernels"][:3],
            "seconds": time.perf_counter() - t_phase}
     emit(out)
-    built.clear()
     free_card(torch, dev)
     check(g["intended_ge_dequeue"], f"lm_load_sweep: CO guard {g}")
     check(all(None not in (p["p50_s"], p["p99_s"], p["p999_s"],
                            p["ttft"]["p99_s"]) for p in rec["points"])
           and len(rec["points"]) == 3,
           f"lm_load_sweep: points {out['points']}")
+    out["tokens"], out["make_engine"] = tokens, make_engine
+    return out
+
+
+def capture_requests(build):
+    """`build` (launch.serve._build_lm_engine) whose engines keep every
+    request handed to them, and the list they keep them in."""
+    seen = []
+
+    def wrapped(args, device=None):
+        cfg, make_engine, make_prompts = build(args, device)
+
+        def make():
+            return keep_requests(make_engine(), seen)
+
+        return cfg, make, make_prompts
+
+    return wrapped, seen
+
+
+def keep_requests(eng, seen: list):
+    """`eng`, its `submit` keeping each request in `seen` (the last list
+    given for it), and each admitted request's admission width."""
+    eng._seen = seen
+    if not getattr(eng, "_captured", False):
+        submit, admit = eng.submit, eng._admit_group
+
+        def keep(req):
+            submit(req)
+            eng._seen.append(req)
+
+        def group(s_len, pairs):
+            for _, req in pairs:
+                req.group = len(pairs)
+            admit(s_len, pairs)
+
+        eng.submit, eng._admit_group, eng._captured = keep, group, True
+    return eng
+
+
+def request_tokens(seen) -> dict:
+    """(uid, prompt) -> tokens of every request handed to an engine, and
+    whether each finished: the sweep's points reuse uids and prompts."""
+    return {(r.uid, tuple(int(v) for v in r.prompt)):
+            ([int(v) for v in r.output], r.done) for r in seen}
+
+
+class Tape:
+    """Rank 0's records as a follower receives them, from a list in this
+    process, then a stop."""
+
+    def __init__(self, records: list):
+        self.records = list(records) + [{"stop": True}]
+
+    def recv(self) -> dict:
+        return self.records.pop(0)
+
+
+def lm_load_sweep_mesh(torch, dev, smi, unsharded: dict) -> dict:
+    """launch.serve --load-sweep --mesh 1 with lm_load_sweep's flags on a
+    world-1 NCCL group: the sharded engine built once, rank 0's ticks sent
+    as records before it runs them (serve.frontend.RecordedEngine, no
+    follower at world 1). Every request completes and the CO guard holds.
+    The records it sent, replayed by serve.frontend.follow_sweep (what a
+    follower runs) on an unsharded Engine over lm_load_sweep's params (the
+    same seed), give every request its tokens, in order. Against
+    lm_load_sweep's own run (`unsharded`: (uid, prompt) -> tokens, its
+    `make_engine`) the tokens are recorded, not gated: a wall-clock sweep
+    admits a request in a prefill of another width in another run, and
+    bf16 prefills of two widths may tie-break random weights' logits
+    apart (each request's admission width is recorded beside)."""
+    import pickle
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import frontend
+
+    t_phase = time.perf_counter()
+    free_card(torch, dev)
+    build, seen = capture_requests(launch_serve._build_lm_engine)
+    sent = []
+    send = frontend.RankRecords.send
+
+    def tape(records, record):
+        sent.append(pickle.loads(pickle.dumps(record)))
+        send(records, record)
+
+    argv = list(LM_SWEEP_ARGV) + ["--mesh", LM_SHARDED_MESH]
+    with mock.patch.object(launch_serve, "_build_lm_engine", build), \
+            mock.patch.object(frontend.RankRecords, "send", tape):
+        rec = quiet(launch_serve.main, argv)
+    sweep_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    replayed = []
+    frontend.follow_sweep(keep_requests(unsharded["make_engine"](), replayed),
+                          Tape(sent), None)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    tokens = request_tokens(seen)
+    g = rec["coordinated_omission_guard"]
+    sweep = unsharded["tokens"]
+    differ = [k for k in tokens if sweep.get(k) != tokens[k]]
+    out = {"phase": "lm_load_sweep_mesh", "card": smi, "argv": argv,
+           "capacity_rps": rec["capacity_rps"],
+           "points": [{k: p[k] for k in ("load_fraction", "offered_load",
+                                         "achieved_rps", "p50_s", "p99_s",
+                                         "p999_s")}
+                      for p in rec["points"]],
+           "knee": rec["knee"], "overload": rec["overload"], "guard": g,
+           "requests": len(seen), "records": len(sent),
+           "all_done": all(r.done for r in seen),
+           "replay_requests": len(replayed),
+           "replay_tokens_equal": [r.output for r in replayed]
+           == [r.output for r in seen],
+           "replay_groups_equal": [getattr(r, "group", None) for r in replayed]
+           == [getattr(r, "group", None) for r in seen],
+           "sweep_tokens_equal": len(tokens) - len(differ),
+           "sweep_tokens_differ": [
+               {"uid": k[0], "mesh": tokens[k][0],
+                "sweep": sweep.get(k, [None])[0]} for k in differ],
+           "admission_widths": [[r.uid, getattr(r, "group", None)]
+                                for r in seen],
+           "sweep_s": sweep_s, "replay_s": replay_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    unsharded.pop("make_engine")
+    free_card(torch, dev)
+    check(out["all_done"] and all(
+        p["latency"]["count"] == p["n_requests"] for p in rec["points"]),
+        f"lm_load_sweep_mesh: a request did not complete: {out['points']}")
+    check(g["intended_ge_dequeue"], f"lm_load_sweep_mesh: CO guard {g}")
+    check(out["replay_requests"] == out["requests"] > 0
+          and out["replay_tokens_equal"] and out["replay_groups_equal"],
+          "lm_load_sweep_mesh: the unsharded replay of its records gave "
+          "other tokens or admissions")
+    return out
+
+
+def decode_throughput_phase(torch, dev, smi) -> dict:
+    """The decode_throughput twin's smoke on the card (mesh "1" over a
+    world-1 NCCL group: the reduced qwen3-8b and recurrentgemma-2b) with
+    the reference's assertions (`check`), its cell audit included."""
+    from repro_torch import obs
+    from repro_torch.benchmarks import decode_throughput
+
+    t0 = time.perf_counter()
+    try:
+        rec = decode_throughput.run(smoke=True, device="cuda")
+    finally:
+        obs.reset()
+    wall = time.perf_counter() - t0
+    ca = rec["cell_audit"]
+    out = {"phase": "decode_throughput", "card": smi, "wall_s": wall,
+           "cells": [{k: c[k] for k in (
+               "arch", "mesh", "devices", "device", "wall_tokens_per_s",
+               "modeled_tokens_per_s", "param_bytes_per_device",
+               "cache_bytes_per_device")} for c in rec["cells"]],
+           "admission": [{k: c[k] for k in ("mesh", "pool",
+                                            "admission_rowsteps")}
+                         for c in rec["admission"]],
+           "paged": {k: rec["paged"][k] for k in (
+               "n_pages", "dense_peak_concurrent", "paged_peak_concurrent",
+               "concurrency_gain", "bytes_in_use",
+               "recompiles_after_warmup")},
+           "peak_device_memory_bytes":
+               rec["telemetry"]["peak_device_memory_bytes"],
+           "cell_audit": {"n_cells": ca["n_cells"],
+                          "violations_total": ca["violations_total"],
+                          "cells": sorted(ca["cells"])}}
+    emit(out)
+    decode_throughput.check(rec)
     return out
 
 
@@ -3336,6 +3631,7 @@ def main() -> int:
           "realtime_1000_patients": rec["realtime_1000_patients"],
           "overhead": rec["telemetry"]["overhead"],
           "recompiles": rec["telemetry"]["recompiles"],
+          "cell_audit": rec["cell_audit"],
           "peak_device_memory_bytes": rec["telemetry"]["peak_device_memory_bytes"]})
     # the overhead measurement again, OVERHEAD_REPEATS times in this
     # process, recorded only (the < 3% check is stream_throughput's own, on
@@ -3640,10 +3936,16 @@ def main() -> int:
     # -- the open-loop load lab ---------------------------------------------
     stream_sweep = stream_load_sweep(torch, dev, smi)
     clock("stream_load_sweep")
-    lm_load_sweep(torch, dev, smi)
+    unsharded_sweep = lm_load_sweep(torch, dev, smi)
     clock("lm_load_sweep")
+    lm_load_sweep_mesh(torch, dev, smi, unsharded_sweep)
+    clock("lm_load_sweep_mesh")
     load_sweep_phase(torch, dev, smi)
     clock("load_sweep")
+
+    # -- the decode benchmark's twin and its cell audit -----------------------
+    decode_throughput_phase(torch, dev, smi)
+    clock("decode_throughput")
 
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work
@@ -3927,6 +4229,9 @@ def main() -> int:
             "whisper-tiny 8b": lm["whisper"]["int8"]["quant_matmul_launches"]},
         "launches_benchmark": bench_launches[QM.NAME],
         "launches_paged": {k: paged[k]["launches"] for k in ("dense", "paged")},
+        "launches_audited_decode_step": {
+            k: paged[k]["cell_audit"]["decode_step_quant_matmul_launches"]
+            for k in ("dense", "paged")},
         "launches_sharded": sharded["launches"][QM.NAME],
         "max_abs_err": max(quant_err, lm["max_abs_err"]),
         **{key: lm_layer[key] for key in ("ms", "plain_ms", "bound_ms")},
@@ -3939,8 +4244,10 @@ def main() -> int:
               "weight, float32 (library_bf16_ms: bfloat16); launches over "
               "launch.serve's 8-bit qwen3-8b run (4-bit: launches_4bit; the "
               "other families' full CONFIGs: launches_families; the dense "
-              "and paged chunked Engines of lm_paged: launches_paged; "
-              "launch.serve --mesh 1's sharded run: launches_sharded)",
+              "and paged chunked Engines of lm_paged: launches_paged, and "
+              "in the first, recorded call of each one's audited decode "
+              "step: launches_audited_decode_step; launch.serve --mesh 1's "
+              "sharded run: launches_sharded)",
         "at_benchmark_shape": {
             key: cmul_totals[QM.NAME][key] for key in
             ("ms", "plain_ms", "bound_ms", "library_ms", "ms_in_run",

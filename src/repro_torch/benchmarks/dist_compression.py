@@ -29,7 +29,9 @@ Checked here (`check`), as the reference states it:
   * both int8 schemes hand fewer bytes to their collectives than f32;
   * every scheme's loss curve decreases, the compressed finals within
     tolerance of the f32 baseline;
-  * the step-latency histogram of the convergence runs is recorded.
+  * the step-latency histogram of the convergence runs is recorded;
+  * the cell audit (`cell_audit`: each `dist.reduce.{scheme}.n{n}` and
+    `train.dp_step.{mode}` cell's first call) has zero violations.
 
 The record is printed and written as JSON only where `--out` says: never
 to the repository's BENCH_dist.json, which holds the JAX package's runs.
@@ -51,6 +53,7 @@ import torch
 
 from repro_torch import _device, configs, obs, optim
 from repro_torch._tree import leaves, tree_map
+from repro_torch.analysis import audit_section
 from repro_torch.data import lm
 from repro_torch.dist import compression as C
 from repro_torch.launch import _spawn
@@ -143,7 +146,8 @@ def sweep(grads, pod_counts, device: _device.DeviceLike = None) -> list:
         group = mesh.get_group("pod")
         eg = modeled_egress(grads, n)
         for scheme in SCHEMES:
-            fn = _reduction(scheme, grads, group, n)
+            fn = obs.get().probe.track(f"dist.reduce.{scheme}.n{n}",
+                                       _reduction(scheme, grads, group, n))
             C.reset_wire()
             fn()
             handed = sum(C.wire_bytes.values())
@@ -266,6 +270,15 @@ def check(rec: dict) -> None:
     for mode in ("f32", "gather", "two_stage"):
         _require(f"train.dp_step.{mode}" in t["recompiles"],
                  (mode, t["recompiles"]))
+    # the cell audit: every reduction and dp-step cell recorded clean —
+    # called, no host reads or transfers, no f64, donations honoured,
+    # collectives within any declared budget
+    ca = rec["cell_audit"]
+    _require(ca["n_cells"] > 0, ca)
+    _require(ca["violations_total"] == 0, ca)
+    _require(any(k.startswith("dist.reduce.") for k in ca["cells"]), ca)
+    for mode in ("f32", "gather", "two_stage"):
+        _require(f"train.dp_step.{mode}" in ca["cells"], list(ca["cells"]))
 
 
 def run(arch: str = "qwen3_8b", *, steps: int = 60,
@@ -297,6 +310,9 @@ def run(arch: str = "qwen3_8b", *, steps: int = 60,
         "sweep": sweep(grads, pod_counts, dev),
         "convergence": convergence(arch, steps, dev),
         "telemetry": obs.telemetry_section(),
+        # every reduction and dp-step cell the run registered, audited
+        # from its recorded first call (repro_torch.analysis)
+        "cell_audit": audit_section(),
     }
     if _spawn.rank() != 0:
         return None

@@ -29,9 +29,11 @@ reduced sweep, and checks both criteria, the telemetry schema, and the
 host can resolve it).
 
 The record carries a `telemetry` section in the shared
-`obs.telemetry_section` schema plus an `overhead` sub-record. It is
-printed, and written only where `--out` says: never to the repository's
-BENCH_stream.json, which holds the JAX package's runs.
+`obs.telemetry_section` schema plus an `overhead` sub-record, and a
+`cell_audit` section (`repro_torch.analysis.audit_section`) over the
+classify and vote cells, gated at zero violations as the reference's. It
+is printed, and written only where `--out` says: never to the
+repository's BENCH_stream.json, which holds the JAX package's runs.
 
     python -m repro_torch.benchmarks.stream_throughput [--smoke] [--out PATH]
 
@@ -51,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import _device, obs
+from repro_torch.analysis import audit_section
 from repro_torch.core import compiler, vadetect
 from repro_torch.launch import _spawn
 from repro_torch.launch.mesh import make_data_mesh
@@ -278,6 +281,14 @@ def check(rec: dict) -> None:
     overhead = t["overhead"]
     if overhead["resolvable"]:
         _require(overhead["overhead_ratio"] < 1.03, overhead)
+    # cell audit gates: the classify and vote cells were all exercised
+    # (their first calls recorded) and recorded zero violations
+    ca = rec["cell_audit"]
+    _require(ca["n_cells"] > 0, ca)
+    _require(ca["violations_total"] == 0, ca)
+    _require(any(k.startswith("stream.classify") for k in ca["cells"]),
+             list(ca["cells"]))
+    _require("stream.vote" in ca["cells"], list(ca["cells"]))
 
 
 def device_counts(smoke: bool) -> list[int]:
@@ -409,6 +420,10 @@ def run(
     )
     telemetry = obs.telemetry_section()
     telemetry["overhead"] = overhead
+    # the cell audit over the probe registry (stream.classify.* from the
+    # sweep's runners, stream.vote): each cell's recorded first call
+    # checked for host transfers, float64, donations and collectives
+    cell_audit = audit_section()
     rec = {
         "benchmark": "stream_throughput",
         "device": {
@@ -422,6 +437,7 @@ def run(
         "scaling_largest_bucket": scaling,
         "realtime_1000_patients": realtime,
         "telemetry": telemetry,
+        "cell_audit": cell_audit,
     }
     check(rec)
     if not overhead["resolvable"]:

@@ -66,7 +66,9 @@ def reset_wire() -> None:
     wire_calls.clear()
 
 
-def _count(op: str, t: torch.Tensor) -> None:
+def count_call(op: str, t: torch.Tensor) -> None:
+    """Count one collective over a pod group handing `t` to it (a caller
+    outside this module calls it before its own collective)."""
     wire_bytes[op] = wire_bytes.get(op, 0) + t.numel() * t.element_size()
     wire_calls[op] = wire_calls.get(op, 0) + 1
 
@@ -76,7 +78,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     flat = x.reshape(-1).contiguous()
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
-    _count("all_gather", flat)
+    count_call("all_gather", flat)
     dist.all_gather_into_tensor(out, flat, group=group)
     return out.reshape((n,) + tuple(x.shape))
 
@@ -86,7 +88,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     from rank j."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    _count("all_to_all", x)
+    count_call("all_to_all", x)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -348,7 +350,7 @@ def uncompressed_psum_mean_(grads: Any, group, *,
             for g in parts:
                 _guard_(g)
         buf = _cat(parts) if len(parts) > 1 else parts[0]
-        _count("all_reduce", buf)
+        count_call("all_reduce", buf)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         buf.div_(n)
         if len(parts) > 1:

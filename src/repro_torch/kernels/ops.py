@@ -4,6 +4,13 @@ The matmuls flatten batch dimensions; every wrapper checks its geometry,
 defaults the scale, and dispatches by the tensor's device: a CPU tensor takes the kernel's plain PyTorch version, a
 CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other.
+
+A launch is invisible to PyTorch's dispatcher (the kernels are called
+through `ctypes`), so each wrapper reports its own: the flops of the work
+the kernel does and the bytes it must move (each input read once, the
+output written once), into any call record open on the thread
+(`obs.torchprobe.add_kernel_cost`, read by `cost_gauges` and the cell
+auditor).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from repro_torch.kernels import nm_spmm as _nm_spmm
 from repro_torch.kernels import quant_matmul as _quant_matmul
 from repro_torch.kernels import sparse_conv1d as _sparse_conv1d
 from repro_torch.kernels._common import flatten_batch
+from repro_torch.obs.torchprobe import add_kernel_cost
 
 
 def _scale(scale: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
@@ -58,6 +66,9 @@ def nm_spmm(
             select.contiguous(), sc.contiguous(),
             group_size=group_size, keep=keep,
         )
+        m = x2.shape[0]
+        add_kernel_cost(_nm_spmm.NAME, 2 * m * kk * n,
+                        m * k * 4 + kk * n * 2 + n * 4 + m * n * 4)
     else:
         raise ValueError(f"nm_spmm has no kernel for device {x.device}")
     return y.reshape(*lead, n)
@@ -75,6 +86,9 @@ def _packed_matmul(x, packed, scale, bits, plain, cuda, name) -> torch.Tensor:
     elif x.device.type == "cuda":
         y = cuda(x2.to(torch.float32).contiguous(), packed.contiguous(),
                  sc.contiguous(), bits=bits)
+        m, k = x2.shape
+        add_kernel_cost(name, 2 * m * k * n,
+                        m * k * 4 + packed.numel() + n * 4 + m * n * 4)
     else:
         raise ValueError(f"{name} has no kernel for device {x.device}")
     return y.reshape(*lead, n)
@@ -93,7 +107,7 @@ def bitserial_matmul(
     """
     return _packed_matmul(
         x, packed, scale, bits, _bitserial.bitserial_matmul_plain,
-        _bitserial.bitserial_matmul_cuda, "bitserial_matmul",
+        _bitserial.bitserial_matmul_cuda, _bitserial.NAME,
     )
 
 
@@ -110,7 +124,7 @@ def quant_matmul(
     """
     return _packed_matmul(
         x, packed, scale, bits, _quant_matmul.quant_matmul_plain,
-        _quant_matmul.quant_matmul_cuda, "quant_matmul",
+        _quant_matmul.quant_matmul_cuda, _quant_matmul.NAME,
     )
 
 
@@ -141,8 +155,16 @@ def sparse_conv1d(
     if x.device.type == "cpu":
         return _sparse_conv1d.sparse_conv1d_plain(x, values, select, sc, **kw)
     if x.device.type == "cuda":
-        return _sparse_conv1d.sparse_conv1d_cuda(
+        y = _sparse_conv1d.sparse_conv1d_cuda(
             x.to(torch.float32).contiguous(), values.contiguous(),
             select.contiguous(), sc.contiguous(), **kw,
         )
+        # the weights inside the ksize * C window: the kernel skips the
+        # groups of the compiler's padding past it
+        b, t_out = y.shape[0], y.shape[1]
+        live = min(kk, -(-(ksize * x.shape[-1]) // group_size) * keep)
+        add_kernel_cost(_sparse_conv1d.NAME, 2 * b * t_out * live * n,
+                        x.numel() * 4 + kk * n * 2 + n * 4
+                        + b * t_out * n * 4)
+        return y
     raise ValueError(f"sparse_conv1d has no kernel for device {x.device}")

@@ -64,14 +64,18 @@ through the frontend over a loopback socket with admission control at
 curve, URGENT segment survival, the verdict and the socket-vs-inproc
 tail. Both honour `--page-size`, `--pages-per-device` and
 `--chunk-tokens`, return the sweep record and print it with `--json`
-(render it with `python -m repro_torch.obs.loadlab RECORD.json`). Over
-`--mesh` they are refused: rank 0's submit/tick loop would need the
-other ranks to replay it (ROADMAP.md queue 1 item 9b).
+(render it with `python -m repro_torch.obs.loadlab RECORD.json`). With
+`--mesh` they drive the sharded engine, built once on every rank (each
+keeps its blocks), on ranks spawned as for generate: rank 0 runs the
+sweep and sends each tick's submits and tick, and each frontend it
+builds, to the other ranks before acting on them
+(`serve.frontend.RecordedEngine`), which replay them
+(`serve.frontend.follow_sweep`); rank 0's record comes back.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --load-sweep --load-requests 8 --max-new 4 --load-fractions 0.5,1,4
     python -m repro_torch.launch.serve --arch qwen3-8b --reduced \
-        --frontend-sweep --json
+        --frontend-sweep --json [--mesh 2x2]
 
 `main(argv, device="cpu")` runs the same paths on the CPU; with no
 `device` it needs a card.
@@ -502,7 +506,7 @@ def _fractions(args) -> tuple:
     return tuple(float(f) for f in args.load_fractions.split(","))
 
 
-def serve_load_sweep(args, device: _device.DeviceLike = None) -> dict:
+def _load_sweep(args, make_engine, make_prompts) -> dict:
     """Open-loop offered-load sweep over the slot engine (wall time):
     measure the closed-loop capacity, then drive Poisson/trace-driven
     arrival schedules at fractions of it and report tail latency from
@@ -510,7 +514,6 @@ def serve_load_sweep(args, device: _device.DeviceLike = None) -> dict:
     the overload verdict (see `obs.loadlab`). Returns the sweep record."""
     from repro_torch.obs import loadlab
 
-    _, make_engine, make_prompts = _build_lm_engine(args, device)
     cap = loadlab.run_serve_point(
         make_engine,
         make_prompts(max(2 * args.batch, 8)),
@@ -532,6 +535,7 @@ def serve_load_sweep(args, device: _device.DeviceLike = None) -> dict:
         f"[serve] open-loop sweep: capacity ~{cap:.0f} req/s, "
         f"{args.arrival_process} arrivals, "
         f"{args.load_requests} requests/point"
+        + (f", mesh {args.mesh}" if args.mesh else "")
     )
     for p in out["points"]:
         print(
@@ -559,19 +563,14 @@ def serve_load_sweep(args, device: _device.DeviceLike = None) -> dict:
     return out
 
 
-def serve_frontend_sweep(args, device: _device.DeviceLike = None) -> dict:
+def _frontend_sweep(args, make_engine, make_prompts, make_frontend) -> dict:
     """Loopback-socket offered-load sweep through the frontend: measure
     engine capacity closed-loop (or take --admission-rate), then offer
     --load-fractions of it over a real socket with active admission
     control — shed-rate curve, URGENT segment survival, and the overload
     verdict (see `loadlab.sweep_frontend`). Returns the sweep record."""
-    from repro_torch.core import compiler, vadetect
     from repro_torch.obs import loadlab
-    from repro_torch.serve.frontend import Frontend
-    from repro_torch.stream.runner import FleetRunner
 
-    dev = _device.resolve(device)
-    _, make_engine, make_prompts = _build_lm_engine(args, dev)
     rate = args.admission_rate
     if rate is None:
         rate = loadlab.run_serve_point(
@@ -583,18 +582,6 @@ def serve_frontend_sweep(args, device: _device.DeviceLike = None) -> dict:
         )["achieved_rps"]
         print(f"[serve] closed-loop capacity ~{rate:.0f} req/s -> "
               f"admission rate")
-    runner = FleetRunner(
-        compiler.compile_model(vadetect.init(
-            torch.Generator().manual_seed(args.seed), device=dev)),
-        device=dev,
-    )
-
-    def make_frontend(fcfg):
-        fe = Frontend(engine=make_engine(), n_patients=args.patients,
-                      runner=runner, cfg=fcfg)
-        fe.warm(args.prompt_len)
-        return fe
-
     out = loadlab.sweep_frontend(
         make_frontend,
         make_prompts,
@@ -627,6 +614,79 @@ def serve_frontend_sweep(args, device: _device.DeviceLike = None) -> dict:
     if args.json:
         print(json.dumps(out, indent=1, default=float))
     return out
+
+
+def _sweep_rank(args, device: _device.DeviceLike = None) -> Optional[dict]:
+    """`--load-sweep` or `--frontend-sweep` on this rank (every rank of
+    the mesh calls it with `--mesh`): the engine (and, for the frontend
+    sweep, the stream side's runner) built on every rank; rank 0 runs the
+    sweep, its engine's ticks and its frontends sent to the other ranks as
+    records (`RecordedEngine`), which replay them (`follow_sweep`) and
+    return None."""
+    from repro_torch.serve.frontend import (
+        Frontend,
+        RankRecords,
+        RecordedEngine,
+        follow_sweep,
+    )
+
+    dev = _device.resolve(device)
+    _, make_engine, make_prompts = _build_lm_engine(args, dev)
+    runner = None
+    if args.frontend_sweep:
+        from repro_torch.core import compiler, vadetect
+        from repro_torch.stream.runner import FleetRunner
+
+        runner = FleetRunner(
+            compiler.compile_model(vadetect.init(
+                torch.Generator().manual_seed(args.seed), device=dev)),
+            device=dev,
+        )
+    records = None
+    if args.mesh:
+        n_data, n_model = parse_mesh_spec(args.mesh)
+        if _spawn.world_size() != n_data * n_model:
+            raise SystemExit(
+                f"--{'frontend' if args.frontend_sweep else 'load'}-sweep "
+                f"--mesh {args.mesh} runs on exactly {n_data * n_model} "
+                f"ranks, not {_spawn.world_size()}")
+        records = RankRecords(_spawn.TIMEOUT_S)
+    lead = _spawn.rank() == 0
+
+    def make_frontend(fcfg):
+        if records is not None and lead:
+            records.send({"frontend": fcfg})
+        fe = Frontend(engine=make_engine(), n_patients=args.patients,
+                      runner=runner, cfg=fcfg,
+                      records=records if lead else None)
+        fe.warm(args.prompt_len)
+        return fe
+
+    if not lead:
+        follow_sweep(make_engine(), records, make_frontend)
+        return None
+    drive = make_engine
+    if records is not None:
+        drive = lambda: RecordedEngine(make_engine(), records)  # noqa: E731
+    try:
+        if args.frontend_sweep:
+            return _frontend_sweep(args, drive, make_prompts, make_frontend)
+        return _load_sweep(args, drive, make_prompts)
+    finally:
+        if records is not None:
+            records.send({"stop": True})
+
+
+def serve_sweep(args, device: _device.DeviceLike = None) -> dict:
+    """`--load-sweep` (and `--frontend-sweep`): on this process, or with
+    `--mesh` on ranks spawned for the mesh (or the group that is here);
+    returns rank 0's sweep record."""
+    if not args.mesh:
+        return _sweep_rank(args, device)
+    n_data, n_model = parse_mesh_spec(args.mesh)
+    dev = "cpu" if _device.resolve(device).type == "cpu" else device
+    return _spawn.run(_sweep_rank, n_data * n_model, device=dev,
+                      args=(args, dev))
 
 
 def serve_va(args, device: _device.DeviceLike = None) -> dict:
@@ -724,10 +784,9 @@ def main(
                     help="chunked prefill: split prompts longer than "
                          "this into chunks interleaved with decode ticks")
     ap.add_argument("--mesh", default=None, metavar="D|DxM",
-                    help="sharded generate (or, with --listen, the "
-                         "sharded engine behind the socket) on a data x "
-                         "model mesh, one process a device (e.g. 4, or "
-                         "2x2)")
+                    help="sharded generate (or, with --listen or a sweep, "
+                         "the sharded engine) on a data x model mesh, one "
+                         "process a device (e.g. 4, or 2x2)")
     args = ap.parse_args(argv)
     if args.pages_per_device and not args.page_size:
         ap.error("--pages-per-device requires --page-size")
@@ -744,19 +803,13 @@ def main(
     if args.load_sweep and args.arch == "va-cnn":
         ap.error("--load-sweep drives the LM slot engine; for the fleet "
                  "sweep use repro_torch.launch.stream --load-sweep")
-    if args.mesh and (args.load_sweep or args.frontend_sweep):
-        ap.error("the load sweeps over a --mesh are not ported: rank 0's "
-                 "submit/tick loop needs the other ranks to replay it "
-                 "(ROADMAP.md queue 1 item 9b)")
     if args.mesh and args.connect:
         ap.error("--connect is the socket client: the server takes --mesh "
                  "(--listen --mesh)")
     if args.mesh and args.arch == "va-cnn":
         ap.error("--mesh shards the LM; va-cnn serves on one device")
-    if args.load_sweep:
-        out = serve_load_sweep(args, device)
-    elif args.frontend_sweep:
-        out = serve_frontend_sweep(args, device)
+    if args.load_sweep or args.frontend_sweep:
+        out = serve_sweep(args, device)
     elif args.listen:
         out = serve_listen(args, device)
     elif args.mesh:

@@ -126,7 +126,7 @@ def train_lm(args, device: _device.DeviceLike = None) -> dict:
     del params
     step_fn = obs.get().probe.track("train.step", trainer.make_train_step(
         model.loss, opt, clip_norm=1.0, n_micro=args.grad_accum, donate=True,
-    ))
+    ), donate=(0,))
     stream = lm.TokenStream(
         batch=args.batch, seq_len=args.seq, vocab=cfg.vocab, seed=args.seed,
         device=dev,
@@ -207,7 +207,7 @@ def train_lm_multipod(args, device: _device.DeviceLike = None):
     state = trainer.init_state(params, opt, device=dev)
     del params
     state["err"] = err
-    step_fn = obs.get().probe.track("train.step", step)
+    step_fn = step  # the trainer's tracked "train.multipod.step" cell
     stream = lm.TokenStream(
         batch=args.batch, seq_len=args.seq, vocab=cfg.vocab, seed=args.seed,
         device=dev,
@@ -271,7 +271,7 @@ def train_va(args, device: _device.DeviceLike = None) -> dict:
     step_fn = obs.get().probe.track("train.step", trainer.make_train_step(
         lambda p, b: vadetect.loss_fn(p, b, cfg), opt, clip_norm=1.0,
         donate=True,
-    ))
+    ), donate=(0,))
     stream = iegm.IEGMStream(batch=args.batch, seed=args.seed, device=dev)
     state, history = fault.run_training(
         step_fn, state, stream.batch_at,

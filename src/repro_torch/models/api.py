@@ -25,8 +25,11 @@ encoder-decoder model, as in the reference):
 
 `device=None` means the CUDA card, as everywhere in the port. The
 decode step updates the cache in place (`models.transformer`,
-`models.whisper`). The dry-run's `input_specs` is not ported (ROADMAP.md
-queue 1 item 9b).
+`models.whisper`).
+
+`input_specs(cfg, cell)` gives the dry-run's abstract inputs of one (arch
+x shape) cell: "meta" tensors, which hold a shape and a dtype and no
+storage, in place of the reference's `ShapeDtypeStruct`s.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import _device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 
@@ -127,3 +130,48 @@ def build_model(cfg: ArchConfig, *, tp: int = 1, max_seq: int = 4096) -> Model:
         page_layouts=lambda page: T.paged_layouts(cfg, page, max_seq),
         attn_capacities=lambda: T.attn_capacities(cfg, max_seq),
     )
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs for the dry-run
+# ---------------------------------------------------------------------------
+
+_META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=_META)
+
+
+def input_specs(
+    cfg: ArchConfig, cell: ShapeCell, *, tp: int = 1
+) -> dict[str, Any]:
+    """"meta"-tensor stand-ins for one (arch x shape) cell, the
+    reference's structure, shapes and dtypes (token ids int32, as the
+    reference's); nothing is allocated.
+
+    train  -> {"batch": {...}}                         for model.loss
+    prefill-> {"tokens": ..., ("frames": ...)}         for model.prefill
+    decode -> {"cache": ..., "token": ..., "pos": ...} for model.decode_step
+    """
+    b, s = cell.global_batch, cell.seq_len
+    model = build_model(cfg, tp=tp, max_seq=s)
+    dt = T.compute_dtype(cfg)
+    if cell.kind == "train":
+        batch: dict[str, Any] = {
+            "tokens": _spec((b, s), torch.int32),
+            "targets": _spec((b, s), torch.int32),
+        }
+        if cfg.is_enc_dec:
+            batch["frames"] = _spec((b, cfg.enc_seq, cfg.d_model), dt)
+        return {"batch": batch}
+    if cell.kind == "prefill":
+        out: dict[str, Any] = {"tokens": _spec((b, s), torch.int32)}
+        if cfg.is_enc_dec:
+            out["frames"] = _spec((b, cfg.enc_seq, cfg.d_model), dt)
+        return out
+    return {
+        "cache": model.init_cache(b, device=_META),
+        "token": _spec((b,), torch.int32),
+        "pos": _spec((b,), torch.int32),
+    }

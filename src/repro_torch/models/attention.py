@@ -36,6 +36,7 @@ import contextlib
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +82,18 @@ def _pos_mask(
     return m
 
 
+def _inv_sqrt(hd: int, dtype: torch.dtype) -> float:
+    """1 / sqrt(hd) as 0-dim tensor ops of `dtype` compute it (hd, its
+    root and the reciprocal, each rounded to `dtype`; the roots correctly
+    rounded), as a Python float: no tensor made from host data inside a
+    cell."""
+    from repro_torch.models.layers import dtype_constant
+
+    root = dtype_constant(np.sqrt(np.float32(dtype_constant(hd, dtype))),
+                          dtype)
+    return dtype_constant(np.float32(1.0) / np.float32(root), dtype)
+
+
 def _scores(qb, kb, cap):
     """(N,B,bq,G,R,hd) x (N,B,bk,G,hd) -> (N,B,G,R,bq,bk), scaled+capped,
     in SCORE_DTYPE."""
@@ -88,7 +101,7 @@ def _scores(qb, kb, cap):
     s = torch.einsum(
         "nbqgrd,nbkgd->nbgrqk", qb.to(SCORE_DTYPE), kb.to(SCORE_DTYPE)
     )
-    s = s * (1.0 / torch.sqrt(torch.tensor(hd, dtype=SCORE_DTYPE)))
+    s = s * _inv_sqrt(hd, SCORE_DTYPE)
     if cap:
         s = cap * torch.tanh(s / cap)
     return s

@@ -345,12 +345,34 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
+def dtype_constant(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` as torch rounds a Python float into a
+    tensor of it (through float32, then to nearest, ties to even), as a
+    Python float, which that dtype holds exactly: an op of a tensor of
+    `dtype` with it computes what the op with a 0-dim tensor of `dtype`
+    holding `value` computes, and makes no tensor from host data inside a
+    cell (a copy from the host on the card)."""
+    if dtype == torch.float64:
+        return float(value)
+    f = np.float32(value)
+    if dtype == torch.float16:
+        return float(np.float16(f))
+    if dtype == torch.bfloat16:
+        bits = np.array(f, np.float32).view(np.uint32)
+        bits = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16))
+                                            & np.uint32(1)))
+        return float((bits & np.uint32(0xFFFF0000)).view(np.float32))
+    if dtype == torch.float32:
+        return float(f)
+    raise ValueError(f"no float constant of dtype {dtype}")
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.gelu`'s default, the tanh approximation. Both constants
     are rounded to x's dtype first, as XLA rounds a weakly typed constant
     (torch would multiply by the Python float at float32)."""
-    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
-    k = torch.tensor(0.044715, dtype=x.dtype)
+    c = dtype_constant(np.sqrt(2 / np.pi), x.dtype)
+    k = dtype_constant(0.044715, x.dtype)
     cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x ** 3))))
     return x * cdf
 
@@ -422,8 +444,8 @@ def embed_apply(
     else:
         h = w[tokens].to(dtype)
     if scale:
-        d = torch.tensor(float(w.shape[1]), dtype=torch.float32)
-        h = h * torch.sqrt(d).to(device=h.device, dtype=dtype)
+        # sqrt(d) in float32 (correctly rounded), then in the compute dtype
+        h = h * dtype_constant(np.sqrt(np.float32(w.shape[1])), dtype)
     return h
 
 

@@ -150,8 +150,10 @@ def moe_apply(
                           dtype=dtype).to(torch.float32)
 
     # Switch-style load-balance aux: E * sum_e (token_frac_e * prob_mass_e)
-    frac = torch.nn.functional.one_hot(eidx, e).to(torch.float32).mean(
-        dim=(1, 2))  # (B, E)
+    # one-hot by comparison: `F.one_hot` reads max(eidx) on the host to
+    # check it against E, a wait for the card inside the step
+    onehot = eidx[..., None] == torch.arange(e, device=eidx.device)
+    frac = onehot.to(torch.float32).mean(dim=(1, 2))  # (B, E)
     pmass = probs.mean(dim=1)  # (B, E)
     aux = e * torch.mean(torch.sum(frac * pmass, dim=-1))
     y = constrain(y, "dp", None, None, shape=(None, s, d))

@@ -18,14 +18,32 @@ distinct input signature — a tracked cell counts here directly:
     `torch.cuda.memory_allocated` (`max_memory_allocated` for the
     peak), summed over the visible cards; 0 on a host without one.
 
-The reference's `cost_gauges` reads an XLA executable's cost analysis;
-there is no such executable here, so it is not ported.
+  * **Cell metadata for the auditor** (`repro_torch.analysis`) — `track`
+    takes the reference's `budget`, `donate` and `sharded_outputs` (and,
+    with the last, the `mesh` and `out_specs` the outputs are placed
+    under: the reference's `out_shardings`). Eager PyTorch has no program
+    to re-lower, so a tracked cell records its first real call as it runs
+    (`CallRecord`: the counterpart of the reference's `call_avals`): the
+    ops that read a tensor's value on the host, copy between host and
+    device or lift host data into a tensor, the float64 tensors, the
+    collectives handed to `torch.distributed`, the donated arguments'
+    storages before and after, the outputs' shapes, the hand-written
+    kernels launched, and the call's flops and bytes. Later calls are the
+    plain delegate: the record is made once a cell, never per call.
+  * **Cost gauges** — `cost_gauges` folds a recorded call's flops
+    (`torch.utils.flop_counter`, plus what each hand-written kernel's
+    wrapper adds for its own launch: the dispatcher does not see a kernel
+    launched through `ctypes`) and bytes into `<name>.flops` /
+    `<name>.bytes_accessed`, the reference's gauges over XLA's cost
+    analysis.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -46,23 +64,240 @@ def _signature(x) -> tuple:
     return (type(x).__name__,)
 
 
+# ---------------------------------------------------------------------------
+# the first call's record
+# ---------------------------------------------------------------------------
+
+# ops whose result the host reads (`.item()`, `int()`, `float()`, `bool()`
+# of a tensor, `torch.equal`): on the card each waits for the stream
+HOST_READ_OPS = frozenset({
+    "aten._local_scalar_dense", "aten.item", "aten.is_nonzero",
+    "aten.equal",
+})
+# ops whose output shape depends on the data: the host must read a count
+# from the card to size the result
+DATA_DEPENDENT_OPS = frozenset({
+    "aten.nonzero", "aten.nonzero_numpy", "aten.argwhere",
+    "aten.masked_select", "aten._unique", "aten._unique2",
+    "aten.unique_dim", "aten.unique_consecutive",
+    "aten.unique_dim_consecutive",
+})
+# indexing ops that take a boolean mask through `nonzero`
+_MASK_INDEX_OPS = frozenset({
+    "aten.index", "aten.index_put", "aten.index_put_",
+    "aten._index_put_impl_",
+})
+# ops that copy host data into a tensor (`torch.tensor`, `torch.as_tensor`
+# of a list or an array): a copy from the host on the card
+LIFT_OPS = frozenset({"aten.lift_fresh", "aten.lift_fresh_copy"})
+# collective kinds as the reference's HLO names them; the compressed
+# reductions count theirs by function name
+_WIRE_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+               "all_to_all": "all-to-all"}
+
+
+@dataclasses.dataclass(eq=False)
+class CallRecord:
+    """What one call of a cell did, as `repro_torch.analysis` reads it.
+
+    `host_reads`, `transfers` and `f64` list the offending ops by name
+    (with the devices of a copy); `collectives` is the delta of the
+    counted collectives over the call, by the reference's kind names;
+    `donated` maps each donated argument's index to its storages before
+    and after the call and whether the outputs hold them; `outputs` is
+    the tree of the output tensors' local shapes (`torch.Size` leaves,
+    dicts, and lists for tuples and lists);
+    `kernel_launches` the hand-written kernels launched, by name; `flops`
+    and `bytes_accessed` the call's cost (`cost_gauges`)."""
+
+    ops: int = 0
+    host_reads: list = dataclasses.field(default_factory=list)
+    transfers: list = dataclasses.field(default_factory=list)
+    f64: list = dataclasses.field(default_factory=list)
+    collectives: dict = dataclasses.field(default_factory=dict)
+    donated: dict = dataclasses.field(default_factory=dict)
+    outputs: list = dataclasses.field(default_factory=list)
+    kernel_launches: dict = dataclasses.field(default_factory=dict)
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+
+
+def _tensors(tree) -> list:
+    """The tensors of a (nested tuple / list / dict) tree, in leaf order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _shape_tree(tree):
+    """The tree of `tree`'s tensor shapes (`torch.Size` leaves; dicts stay
+    dicts, tuples and lists become lists; other leaves None)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.shape
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return [_shape_tree(v) for v in tree]
+    return None
+
+
+def _storages(tree) -> list:
+    return sorted({t.untyped_storage().data_ptr() for t in _tensors(tree)})
+
+
+class _Costs(threading.local):
+    def __init__(self):
+        self.active: list = []
+
+
+_COSTS = _Costs()
+
+
+def add_kernel_cost(name: str, flops: float, nbytes: float) -> None:
+    """A hand-written kernel's wrapper reports its launch: its name, its
+    flops and the bytes it reads and writes, into every record open on
+    this thread (none: nothing to do)."""
+    for rec in _COSTS.active:
+        rec.kernel_launches[name] = rec.kernel_launches.get(name, 0) + 1
+        rec.flops += flops
+        rec.bytes_accessed += nbytes
+
+
+def _recorder(rec: CallRecord):
+    """A dispatch mode that fills `rec` from every op the call runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = str(func.overloadpacket)
+            rec.ops += 1
+            ins = _tensors((args, kwargs))
+            outs = _tensors(out)
+            if name in HOST_READ_OPS:
+                rec.host_reads.append(f"{name} (a host read of a value)")
+            elif name in DATA_DEPENDENT_OPS:
+                rec.host_reads.append(f"{name} (an output shape read "
+                                      f"from the data)")
+            elif name in _MASK_INDEX_OPS and any(
+                    t.dtype == torch.bool for t in _tensors(args[1:2])):
+                rec.host_reads.append(f"{name} with a boolean mask (an "
+                                      f"output shape read from the data)")
+            if name in LIFT_OPS:
+                rec.transfers.append(f"{name} (host data made a tensor)")
+            # a 0-dim CPU operand is a scalar argument, not a transfer
+            devs = {t.device.type for t in ins
+                    if not (t.device.type == "cpu" and t.dim() == 0)}
+            devs |= {t.device.type for t in outs}
+            if len(devs) > 1:
+                src = sorted({str(t.device) for t in ins})
+                dst = sorted({str(t.device) for t in outs})
+                rec.transfers.append(f"{name} ({','.join(src)} -> "
+                                     f"{','.join(dst) or 'host'})")
+            if any(t.dtype in (torch.float64, torch.complex128)
+                   for t in ins + outs):
+                rec.f64.append(name)
+            if not getattr(func, "is_view", False):
+                seen = {(t.untyped_storage().data_ptr(), t.storage_offset(),
+                         t.numel()): t for t in ins + outs}
+                rec.bytes_accessed += sum(t.numel() * t.element_size()
+                                          for t in seen.values())
+            return out
+
+    return Recorder()
+
+
+def _comm_counts() -> dict:
+    from repro_torch.dist import compression, sharding
+
+    out = dict(sharding.comm_calls)
+    for k, v in compression.wire_calls.items():
+        kind = _WIRE_KINDS.get(k, k)
+        out[kind] = out.get(kind, 0) + v
+    return out
+
+
+def record_call(info: "CellInfo", *args, **kwargs):
+    """Call `info.fn(*args, **kwargs)` once under the recorder, keep the
+    record on `info.call_record` and return the call's result."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rec = CallRecord()
+    donated = {i: _storages(args[i]) for i in info.donate if i < len(args)}
+    comm0 = _comm_counts()
+    _COSTS.active.append(rec)
+    try:
+        with FlopCounterMode(display=False) as flops, _recorder(rec):
+            out = info.fn(*args, **kwargs)
+    finally:
+        _COSTS.active.pop()  # `rec`: calls nest, records too
+    comm1 = _comm_counts()
+    rec.collectives = {k: v - comm0.get(k, 0) for k, v in comm1.items()
+                       if v != comm0.get(k, 0)}
+    rec.flops += float(flops.get_total_flops())
+    held = set(_storages(out))
+    for i, before in donated.items():
+        after = _storages(args[i])
+        rec.donated[i] = {"before": before, "after": after,
+                          "in_outputs": bool(before)
+                          and set(before) <= held}
+    rec.outputs = _shape_tree(out)
+    info.call_record = rec
+    return out
+
+
+@dataclasses.dataclass
+class CellInfo:
+    """Audit metadata for one tracked cell (the reference's `CellInfo`).
+
+    `budget` is the cell's declared collective budget: kind name -> most
+    calls in one call of the cell (`None`: undeclared, the inventory is
+    recorded but not gated). `donate` names the arguments the cell writes
+    its results into (the reference's `donate_argnums`). With
+    `sharded_outputs`, at least one output must be a rank-local block of
+    a larger global tensor: `out_specs` on `mesh` say which (the
+    reference's `out_shardings`): the outputs' placement specs, as
+    `dist.sharding` writes them, in a tree that follows the outputs' (a
+    list for a tuple of outputs, dicts by key; an output it does not
+    reach is replicated). `call_record` is the first real call's
+    `CallRecord`."""
+
+    name: str
+    fn: Callable
+    budget: Optional[dict] = None
+    donate: tuple = ()
+    sharded_outputs: bool = False
+    mesh: Any = None
+    out_specs: Any = None
+    call_record: Optional[CallRecord] = None
+
+
 class TrackedCell:
     """Transparent wrapper an enabled probe returns from `track`: records
-    each call's signature, then delegates to `fn`."""
+    each call's signature and, on the first call, the call itself
+    (`record_call`), then delegates to `fn`."""
 
-    def __init__(self, name: str, fn: Callable):
-        self.name = name
-        self.fn = fn
+    def __init__(self, info: CellInfo):
+        self.info = info
+        self.fn = info.fn
         self.signatures: set = set()
 
     def __call__(self, *args, **kwargs):
         self.signatures.add(
             (_signature(args), _signature(kwargs) if kwargs else ()))
+        if self.info.call_record is None:
+            return record_call(self.info, *args, **kwargs)
         return self.fn(*args, **kwargs)
 
 
 class TorchProbe:
-    """Named registry of cells for signature (recompile) accounting.
+    """Named registry of cells for signature (recompile) accounting and
+    the cell auditor.
 
     A disabled probe drops registrations; an enabled one keeps them for
     the lifetime of the run."""
@@ -71,18 +306,24 @@ class TorchProbe:
         self.enabled = enabled
         self._cells: dict[str, TrackedCell] = {}
 
-    def track(self, name: str, fn):
+    def track(self, name: str, fn, *, budget: Optional[dict] = None,
+              donate: tuple = (), sharded_outputs: bool = False,
+              mesh: Any = None, out_specs: Any = None):
         """Register `fn` under `name` (later registrations under the same
         name win). Returns a call-through `TrackedCell` when enabled
         (disabled probes return `fn` unchanged) so call sites can wrap in
-        place."""
+        place. The keywords feed the cell auditor (`CellInfo`)."""
         if not self.enabled:
             return fn
-        cell = self._cells[name] = TrackedCell(name, fn)
+        cell = self._cells[name] = TrackedCell(CellInfo(
+            name=name, fn=fn, budget=budget, donate=tuple(donate),
+            sharded_outputs=sharded_outputs, mesh=mesh,
+            out_specs=out_specs))
         return cell
 
     def cells(self) -> dict:
-        """name -> `TrackedCell` for every tracked cell."""
+        """name -> `TrackedCell` for every tracked cell (its `info` is
+        what `repro_torch.analysis` audits)."""
         return dict(sorted(self._cells.items()))
 
     def cache_sizes(self) -> dict:
@@ -112,7 +353,7 @@ class _NullProbe:
     __slots__ = ()
     enabled = False
 
-    def track(self, name, fn):
+    def track(self, name, fn, **meta):
         return fn
 
     def cells(self):
@@ -175,3 +416,18 @@ def observe_memory(registry) -> int:
     gauge.set(device_memory_bytes(peak=True))  # raises the peak
     gauge.set(n)
     return n
+
+
+def cost_gauges(registry, name: str, cell) -> dict:
+    """Fold a tracked cell's recorded cost (its first call's flops and
+    bytes, `CallRecord`) into gauges (`<name>.flops`,
+    `<name>.bytes_accessed`); returns the cost dict, the reference's keys
+    ("flops", "bytes accessed"), empty for a cell never called."""
+    rec = getattr(getattr(cell, "info", cell), "call_record", None)
+    if rec is None:
+        return {}
+    flops, nbytes = f"{name}.flops", f"{name}.bytes_accessed"
+    registry.gauge(flops).set(float(rec.flops))
+    registry.gauge(nbytes).set(float(rec.bytes_accessed))
+    return {"flops": float(rec.flops),
+            "bytes accessed": float(rec.bytes_accessed)}

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch._tree import leaves, map_with_path, tree_map
@@ -42,9 +43,13 @@ class Optimizer:
 
 
 def _as_schedule(lr) -> Schedule:
+    """A constant `lr` as the float32 value a 0-d float32 tensor of it
+    holds, kept as a Python float: every use multiplies by it as by that
+    tensor, and the step makes no tensor from host data."""
     if callable(lr):
         return lr
-    return lambda step: torch.tensor(lr, dtype=torch.float32)
+    lr32 = float(np.float32(lr))
+    return lambda step: lr32
 
 
 def sgd(lr, *, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:

@@ -302,16 +302,14 @@ class Engine:
             ])
             self._npages = [0] * batch_size
             self._hpos = [0] * batch_size
-        probe = obs.get().probe
+        # the probe of the telemetry the engine is built under: its cells
+        # register there, the decode step now, the admission and chunk
+        # cells at first use (as the reference's: a run that never chunks
+        # registers no chunk cell)
+        self._probe = obs.get().probe
         self._decode = self._compile_decode()
-        self._prefill = probe.track("serve.prefill", self._cell(model.prefill))
-        self._seat = probe.track(
-            "serve.seat",
-            functools.partial(seating.scatter_pages, layouts=self._layouts)
-            if self._pg is not None else seating.scatter_slots,
-        )
-        self._chunk = probe.track("serve.chunk",
-                                  self._cell(_chunk_prefill_fn(model)))
+        self._adm_cells: dict = {}
+        self._chunk_cells: dict = {}
         self._queue: list[Request] = []
         self._slots: list[Optional[Request]] = [None] * batch_size
         self._chunks: list[_ChunkState] = []
@@ -378,6 +376,38 @@ class Engine:
         """`fn` (a model entry point) as this engine runs it."""
         return fn
 
+    def _decode_meta(self) -> dict:
+        """The cell auditor's declarations for the decode step (a sharded
+        engine declares its collective budget and sharded outputs)."""
+        return {}
+
+    def _seat_fn(self):
+        if self._pg is not None:
+            return functools.partial(seating.scatter_pages,
+                                     layouts=self._layouts)
+        return seating.scatter_slots
+
+    def _admission_cell(self, rows: int):
+        """(prefill, seat) cells for an admission batch of `rows` rows.
+        One of each serves every width here (`serve.prefill`,
+        `serve.seat`, the seat donating the pool); a sharded engine
+        registers one a width."""
+        if None not in self._adm_cells:
+            self._adm_cells[None] = (
+                self._probe.track("serve.prefill",
+                                  self._cell(self.model.prefill)),
+                self._probe.track("serve.seat", self._seat_fn(),
+                                  donate=(0,)),
+            )
+        return self._adm_cells[None]
+
+    def _chunk_cell(self):
+        """The chunked-prefill cell (`serve.chunk`)."""
+        if None not in self._chunk_cells:
+            self._chunk_cells[None] = self._probe.track(
+                "serve.chunk", self._cell(_chunk_prefill_fn(self.model)))
+        return self._chunk_cells[None]
+
     def _paging_shards(self) -> int:
         """Page-pool shards: the mesh data-axis size for a sharded engine
         (a slot's pages live on the slot's shard), 1 here."""
@@ -414,15 +444,17 @@ class Engine:
         return torch.as_tensor(self._tbl[rows]).to(self.device)
 
     def _compile_decode(self):
-        probe = obs.get().probe
+        probe = self._probe
         if self._pg is None:
             return probe.track("serve.decode_step",
-                               self._cell(self.model.decode_step))
+                               self._cell(self.model.decode_step),
+                               **self._decode_meta())
         model, page = self.model, self._page
         cell = probe.track(
             "serve.decode_step",
             self._cell(lambda p, c, t, pos, tbl: model.decode_step_paged(
                 p, c, t, pos, tbl, page)),
+            **self._decode_meta(),
         )
 
         def step(params, cache, tok, pos):
@@ -617,12 +649,21 @@ class Engine:
             )
         return True
 
-    def _seat_rows(self, rows: Any, src: list, dst: list) -> None:
+    def _index(self, idx: list) -> torch.Tensor:
+        """Seat indices on the engine's device, made before the seat cell
+        runs (inside it they would be a copy from the host)."""
+        return torch.tensor(idx, dtype=torch.long, device=self.device)
+
+    def _seat_rows(self, rows: Any, src: list, dst: list, width: int) -> None:
+        """Seat rows `src` of `rows` (an admission cache of `width` rows)
+        into pool slots `dst`."""
+        seat = self._admission_cell(width)[1]
         if self._pg is not None:
-            self.cache = self._seat(self.cache, rows, src, dst,
-                                    self._tbl_device(dst))
+            self.cache = seat(self.cache, rows, self._index(src),
+                              self._index(dst), self._tbl_device(dst))
         else:
-            self.cache = self._seat(self.cache, rows, src, dst)
+            self.cache = seat(self.cache, rows, self._index(src),
+                              self._index(dst))
 
     def _admit_group_inner(self, tel, s_len: int, pairs: list,
                            tagged: dict) -> None:
@@ -635,8 +676,9 @@ class Engine:
         ).to(self.device)
         with tel.span("serve/prefill", cat="serve", s_len=s_len, rows=rows,
                       **tagged):
-            logits, cache_rows = self._prefill(self.params,
-                                               self._place_batch(prompts))
+            prefill = self._admission_cell(rows)[0]
+            logits, cache_rows = prefill(self.params,
+                                         self._place_batch(prompts))
             tel.block(logits)
         self.admission_rowsteps += rows * s_len
         self.admission_prefills += 1
@@ -655,7 +697,7 @@ class Engine:
             self._seat_slot_state(req, slot, s_len, first)
         if src:
             with tel.span("serve/seat", cat="serve", n=len(src), **tagged):
-                self._seat_rows(cache_rows, src, dst)
+                self._seat_rows(cache_rows, src, dst, rows)
                 tel.block(leaves(self.cache))
 
     def _seat_slot_state(self, req: Request, slot: int, s_len: int,
@@ -754,8 +796,8 @@ class Engine:
             **({"request_ids": [f"serve:{st.req.uid}"]}
                if tel.enabled else {}),
         ):
-            st.logits, st.cache = self._chunk(self.params, st.cache, toks,
-                                              poss, hi - lo)
+            st.logits, st.cache = self._chunk_cell()(
+                self.params, st.cache, toks, poss, hi - lo)
             tel.block(st.logits)
         rows = self._admission_rows(1)
         self.admission_rowsteps += rows * (hi - lo)
@@ -785,7 +827,7 @@ class Engine:
             **({"request_ids": [f"serve:{req.uid}"]}
                if tel.enabled else {}),
         ):
-            self._seat_rows(st.cache, [0], [slot])
+            self._seat_rows(st.cache, [0], [slot], self._admission_rows(1))
             tel.block(leaves(self.cache))
         return True
 

@@ -72,6 +72,15 @@ a bucket's signals from (patients, seqs) through its own seeded
 record every `HEARTBEAT_S`, so a follower's blocking receive never
 meets the group's timeout.
 
+The load lab's sweeps over a mesh (`launch.serve --load-sweep /
+--frontend-sweep --mesh`) use the same records without a socket: rank 0
+drives its engine through a `RecordedEngine`, which sends each tick's
+record (the requests submitted since the last one, then the tick) before
+the engine runs it, and announces each frontend it builds
+(`{"frontend": cfg}`) before warming it; the other ranks run
+`follow_sweep`, which replays the ticks and, at an announcement, builds
+and warms the same frontend and `follow`s it to its stop.
+
 Backpressure and admission — every ingress decision is explicit, never
 a silent drop:
 
@@ -245,6 +254,58 @@ class RankRecords:
         box = [None]
         self._dist.broadcast_object_list(box, src=0, group=self.group)
         return box[0]
+
+
+class RecordedEngine:
+    """Rank 0's engine in a sweep over a mesh: `submit` runs at once (a
+    refusal raises here, and nothing is recorded) and is recorded; each
+    `tick` sends the submits since the last one and the tick to the other
+    ranks (`follow_sweep`) before the engine runs it. Everything else is
+    the engine's."""
+
+    def __init__(self, engine, records):
+        self._engine = engine
+        self._records = records
+        self._submits: list = []
+
+    def submit(self, req) -> None:
+        self._engine.submit(req)
+        self._submits.append((req.uid, torch.as_tensor(req.prompt).tolist(),
+                              req.max_new, req.eos))
+
+    def tick(self) -> int:
+        self._records.send({"submit": self._submits, "tick": True})
+        self._submits = []
+        return self._engine.tick()
+
+    def run(self, max_ticks: int = 10_000) -> None:
+        for _ in range(max_ticks):
+            if self.tick() == 0 and not self._engine._queue:
+                break
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def follow_sweep(engine, records, make_frontend: Callable) -> None:
+    """A rank other than 0 of a sweep over a mesh: replay rank 0's records
+    until its stop — each record's submits and tick on `engine`, and at a
+    `{"frontend": cfg}` record, the frontend `make_frontend(cfg)` builds
+    and warms, followed (`Frontend.follow`) until that frontend's stop."""
+    from repro_torch.serve.engine import Request
+
+    while True:
+        rec = records.recv()
+        if rec.get("stop"):
+            return
+        if "frontend" in rec:
+            make_frontend(rec["frontend"]).follow(records)
+            continue
+        for uid, prompt, max_new, eos in rec.get("submit", ()):
+            engine.submit(Request(uid=uid, prompt=torch.tensor(
+                prompt, dtype=torch.long), max_new=max_new, eos=eos))
+        if rec.get("tick"):
+            engine.tick()
 
 
 class Frontend:

@@ -71,6 +71,7 @@ from repro_torch.models.api import Model
 from repro_torch.serve import seating
 from repro_torch.serve.engine import (
     Engine,
+    _chunk_prefill_fn,
     _reject_enc_dec,
     fold_in,
     request_key,
@@ -404,19 +405,70 @@ class ShardedEngine(Engine):
             node[parts[-1]] = x
         return out
 
-    def _seat_rows(self, rows: Any, src, dst) -> None:
+    def _seat_rows(self, rows: Any, src, dst, width: int) -> None:
+        # every rank runs the seat cell, as every device runs the
+        # reference's; a rank none of whose slots are seated writes nothing
+        seat = self._admission_cell(width)[1]
         lo, hi = self.plan.rows
         keep, src_l, dst_l = seating.rank_seats(src, dst, lo, hi)
-        if not keep:
-            return
+        src_l, dst_l = self._index(src_l), self._index(dst_l)
         if self._pg is not None:
             phys = self._place_tbl(self._tbl_device([dst[j] for j in keep]))
-            self.cache = self._seat(self.cache, rows, src_l, dst_l, phys)
+            self.cache = seat(self.cache, rows, src_l, dst_l, phys)
         else:
-            self.cache = self._seat(self.cache, rows, src_l, dst_l)
+            self.cache = seat(self.cache, rows, src_l, dst_l)
 
     def _cell(self, fn):
         return _in_context(self.model, self.plan, fn)
+
+    # -- the cell auditor's declarations (the reference's shardings) --------
+
+    def _logits_spec(self) -> tuple:
+        """(rows, vocab) logits: rows over the data axes."""
+        return (shd.data_axes(self.model.cfg, self.mesh), None)
+
+    def _meta(self, out_specs) -> dict:
+        return dict(budget=_decode_comm_budget(self.model),
+                    sharded_outputs=True, mesh=self.mesh,
+                    out_specs=out_specs)
+
+    def _decode_meta(self) -> dict:
+        return self._meta([self._logits_spec(), self.plan.cache])
+
+    def _rows_out_specs(self, rows: int) -> list:
+        """(logits, cache) specs of a `rows`-row admission cell: rows over
+        the data axes, heads over `model`."""
+        cache = self.model.init_cache(rows, device=torch.device("meta"))
+        return [self._logits_spec(),
+                shd.cache_specs(cache, self.model.cfg, self.mesh,
+                                strict=self._strict)]
+
+    def _admission_cell(self, rows: int):
+        """`serve.prefill.w{rows}` and `serve.seat.w{rows}` (donating the
+        pool), one pair a width, as the reference registers them."""
+        cell = self._adm_cells.get(rows)
+        if cell is None:
+            cell = self._adm_cells[rows] = (
+                self._probe.track(f"serve.prefill.w{rows}",
+                                  self._cell(self.model.prefill),
+                                  **self._meta(self._rows_out_specs(rows))),
+                self._probe.track(f"serve.seat.w{rows}", self._seat_fn(),
+                                  donate=(0,), sharded_outputs=True,
+                                  mesh=self.mesh, out_specs=self.plan.cache),
+            )
+        return cell
+
+    def _chunk_cell(self):
+        """`serve.chunk.c{chunk_tokens}`. Each rank's one-row cache
+        (`_chunk_cache`) is its block of the reference's chunk cache of
+        `_admission_rows(1)` rows, one a data rank, every row the same."""
+        c = self.chunk_tokens
+        cell = self._chunk_cells.get(c)
+        if cell is None:
+            cell = self._chunk_cells[c] = self._probe.track(
+                f"serve.chunk.c{c}", self._cell(_chunk_prefill_fn(self.model)),
+                **self._meta(self._rows_out_specs(self._admission_rows(1))))
+        return cell
 
     def _paging_shards(self) -> int:
         return max(self.plan.n_data, 1)

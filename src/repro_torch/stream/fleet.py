@@ -203,9 +203,9 @@ def simulate(
         ))
         vote_update(
             vstate,
-            np.zeros((b,), np.int32),
-            np.zeros((b,), np.int32),
-            np.zeros((b,), bool),
+            torch.zeros((b,), dtype=torch.int32, device=runner.device),
+            torch.zeros((b,), dtype=torch.int32, device=runner.device),
+            torch.zeros((b,), dtype=torch.bool, device=runner.device),
         )
     tel = obs.get()
     flush_hist = tel.registry.histogram("stream.flush_wall_s")
@@ -274,11 +274,12 @@ def simulate(
         t_classify = time.perf_counter()
         preds = runner.classify(sigs)
         t_vote = time.perf_counter()
+        # the batch's host arrays go to the card before the vote cell
         vstate, emit, diag, urgent = vote_update(
             vstate,
-            batch.patients,
+            torch.as_tensor(batch.patients, device=runner.device),
             preds,
-            batch.valid,
+            torch.as_tensor(batch.valid, device=runner.device),
         )
         t_voted = time.perf_counter()
         # one copy to the host per batch: emit, diagnosis, urgent

@@ -1129,3 +1129,67 @@ def inpod(inputs: dict, tmp: str) -> dict | None:
     _kill_resume_inpod(inputs, tmp, out)
     _entry_inpod(out)
     return out if _spawn.rank() == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# the serve sweeps over a mesh (launch.serve --load-sweep / --frontend-sweep)
+# ---------------------------------------------------------------------------
+
+SWEEP_FLAGS = (("--load-sweep",), ("--frontend-sweep", "--patients", "4"))
+
+
+def capture_requests(build):
+    """`build` (`launch.serve._build_lm_engine`) whose engines keep every
+    request handed to them, and the list they keep them in."""
+    seen: list = []
+
+    def wrapped(args, device=None):
+        cfg, make_engine, make_prompts = build(args, device)
+
+        def make():
+            eng = make_engine()
+            if not getattr(eng, "_captured", False):
+                submit = eng.submit
+
+                def keep(req):
+                    submit(req)
+                    seen.append(req)
+
+                eng.submit = keep
+                eng._captured = True
+            return eng
+
+        return cfg, make, make_prompts
+
+    return wrapped, seen
+
+
+def request_tokens(seen: list) -> dict:
+    """(uid, prompt) -> tokens of every finished request (a sweep's points
+    reuse uids and prompts: each pair must always give the same)."""
+    out: dict = {}
+    for r in seen:
+        assert r.done, r.uid
+        key = (r.uid, tuple(int(v) for v in r.prompt))
+        toks = [int(v) for v in r.output]
+        assert out.setdefault(key, toks) == toks, key
+    return out
+
+
+def serve_sweeps(argv: list, meshes: list) -> dict | None:
+    """Both sweeps of `launch.serve` over each mesh in `meshes`, on every
+    rank: rank 0 returns each run's record and its requests' tokens."""
+    from unittest import mock
+
+    from repro_torch.launch import serve as tlaunch
+
+    out: dict = {}
+    for spec in meshes:
+        for flags in SWEEP_FLAGS:
+            wrapped, seen = capture_requests(tlaunch._build_lm_engine)
+            with mock.patch.object(tlaunch, "_build_lm_engine", wrapped):
+                rec = tlaunch.main(list(argv) + list(flags)
+                                   + ["--mesh", spec], device="cpu")
+            out[(spec, flags[0])] = {"record": rec,
+                                     "tokens": request_tokens(seen)}
+    return out if _spawn.rank() == 0 else None

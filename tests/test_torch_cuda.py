@@ -5,8 +5,9 @@ checkpoint of a card state restored bit for bit, the training loop's
 wait for the card inside its step span, LM serving, and the paged cache,
 chunked prefill and serving frontend (paged decode equal to dense bit for
 bit), a packed layer's tensor-parallel halves in a world-1 NCCL
-group, and the open-loop load lab (the stream sweep's kernel path, a
-serve point's tails).
+group, the open-loop load lab (the stream sweep's kernel path, a
+serve point's tails), and the cell auditor on the card (a copy between
+host and card flagged; quant_matmul's flops counted in a cell's cost).
 
 Needs a CUDA card, so every test here is marked `cuda` and skips on a
 host without one. The file imports no jax (the card's machine has none);
@@ -1177,3 +1178,51 @@ def test_run_serve_point_on_the_card(cuda):
     guard = loadlab.co_guard(pt["_raw"]["ttft_intended"],
                              pt["_raw"]["ttft_submit"], saturated=False)
     assert guard["intended_ge_dequeue"]
+
+
+def _audited(fn, *args):
+    from repro_torch.obs import torchprobe
+
+    info = torchprobe.CellInfo(name="t.cell", fn=fn)
+    torchprobe.record_call(info, *args)
+    return info
+
+
+def test_cell_audit_flags_copies_between_host_and_card(cuda):
+    """A cell's `x.cpu()` (the card to the host) and its
+    `torch.as_tensor(numpy)` on the card (the host to the card) are
+    flagged; the same arithmetic on the card alone is clean."""
+    import numpy as np
+
+    from repro_torch.analysis import cellaudit
+
+    x = torch.ones(4, device=cuda)
+
+    def violations(fn):
+        return cellaudit.audit_cell(_audited(fn, x)).violations
+
+    assert violations(lambda x: x * 2) == []
+    v = violations(lambda x: x.cpu() + 1)
+    assert any("cuda:0 -> cpu" in s for s in v), v
+    v = violations(lambda x: x + torch.as_tensor(
+        np.ones(4, np.float32), device=x.device))
+    assert any("cpu -> cuda:0" in s or "lift_fresh" in s for s in v), v
+
+
+def test_cost_gauges_count_quant_matmul_on_the_card(cuda):
+    """One 8-bit packed projection: the kernel's wrapper reports its own
+    launch (the dispatcher cannot see it), so the cell's flops are
+    quant_matmul's 2·M·K·N."""
+    from repro_torch.models import layers
+    from repro_torch.obs import registry, torchprobe
+
+    m, k, n = 4, 256, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lin = layers.compile_linear_quant(
+        {"w": torch.randn((k, n), generator=gen, device=cuda)}, 8)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    info = _audited(lambda x: layers.linear_apply(lin, x), x)
+    assert info.call_record.kernel_launches == {tqm.NAME: 1}
+    got = torchprobe.cost_gauges(registry.Registry(), "proj", info)
+    assert got["flops"] == 2 * m * k * n
+    assert got["bytes accessed"] >= m * k * 4 + lin["packed"].numel()

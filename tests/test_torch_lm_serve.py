@@ -541,13 +541,16 @@ def test_launch_serve_frontend_sweep_on_the_cpu():
 
 @pytest.mark.parametrize("argv,message", [
     (["--arch", "va-cnn", "--load-sweep"], "repro_torch.launch.stream"),
-    (SWEEP_ARGV + ["--load-sweep", "--mesh", "2"], "item 9b"),
-    (SWEEP_ARGV + ["--frontend-sweep", "--mesh", "2x1"], "item 9b"),
+    (["--arch", "va-cnn", "--frontend-sweep"], "repro_torch.launch.stream"),
+    (SWEEP_ARGV + ["--connect", "127.0.0.1:1", "--mesh", "2x1"],
+     "--connect is the socket client"),
 ])
 def test_launch_serve_refuses_what_the_sweeps_do_not_drive(argv, message,
                                                             capsys):
-    """The reference's refusal of `--load-sweep` for va-cnn, and the
-    sweeps over a mesh, which are not ported."""
+    """The reference's refusals of the sweeps for va-cnn (the fleet has
+    its own, `launch.stream --load-sweep`), and `--connect` over a mesh
+    (the socket client drives a server; the sweeps over a mesh run:
+    tests/test_torch_mesh_sweep.py)."""
     with pytest.raises(SystemExit):
         tlaunch.main(argv, device="cpu")
     assert message in capsys.readouterr().err

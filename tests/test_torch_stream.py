@@ -40,6 +40,7 @@ from repro.stream import scheduler as jsched
 from repro.stream import sources as jsources
 from repro.stream import vote as JV
 from repro_torch import convert, obs
+from repro_torch.analysis import audit_section
 from repro_torch.benchmarks import stream_throughput
 from repro_torch.core import compiler as tc
 from repro_torch.data import iegm as tiegm
@@ -618,12 +619,14 @@ def test_stream_throughput_pieces_run_on_the_cpu():
                                       "modeled_speedup": 1.0},
            "realtime_1000_patients": {"dropped_total": 0,
                                       "realtime_factor": 1.5},
-           "telemetry": {**obs.telemetry_section(), "overhead": over}}
+           "telemetry": {**obs.telemetry_section(), "overhead": over},
+           "cell_audit": audit_section()}
     with pytest.raises(AssertionError):  # nothing was classified
         stream_throughput.check(rec)
     stream_fleet.run(device="cpu", patients=2)  # under enabled telemetry
     rec["telemetry"] = {**obs.telemetry_section(),
                         "overhead": {**over, "resolvable": False}}
+    rec["cell_audit"] = audit_section()  # the classify and vote cells
     stream_throughput.check(rec)
     # the < 3% check holds wherever the A/A control resolves the ratio
     for ratio, ok in ((1.029, True), (1.031, False)):

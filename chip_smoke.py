@@ -448,6 +448,24 @@ AUDIT_NEW = 4
 # what the auditor reports of a cell declaring sharded outputs on a mesh
 # whose every axis has size 1 (the reference's auditor too, on 1 device)
 REPLICATED = "declared sharded_outputs but every output is fully replicated"
+# the dry-run phase: its records land here (fake tensors on the card's
+# device, a fake process group in each subprocess)
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 120
+# the dry-run phase's cells, one CLI process each, all at once: (the
+# module, its arguments); the first counts lm_sharded's audited decode
+# cell on a 1x1 mesh ({batch} / {seq} filled in from lm_sharded's record),
+# the others qwen3-8b's decode_32k on the production meshes, baseline and
+# w8. Each brings up its own fake group of its mesh's size.
+_Q = ["--arch", "qwen3-8b", "--shape", "decode_32k", "--out", str(DRYRUN_OUT)]
+DRYRUN_JOBS = (
+    ("dryrun", _Q + ["--serve-quant-bits", "8", "--batch", "{batch}",
+                     "--seq", "{seq}", "--mesh-shape", "1x1"]),
+    ("dryrun", _Q + ["--mesh", "single"]),
+    ("hillclimb", _Q + ["--mesh", "single", "--variant", "w8"]),
+    ("dryrun", _Q + ["--mesh", "multi"]),
+    ("hillclimb", _Q + ["--mesh", "multi", "--variant", "w8"]),
+)
 SERVER_START_S = 600  # a server's build and warm-up, to its address line
 SERVER_STOP_S = 120  # SIGINT to exit
 # H100 SXM data sheet: HBM rate, float32 outside the tensor cores, and TF32
@@ -2388,6 +2406,7 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
         audit = audit_cells(torch, eng._probe, smi, "lm_sharded mesh 1")
         audit_tokens = [r.output for r in reqs]
         audit_s = time.perf_counter() - t0
+        max_seq = model.max_seq
         del placed, model, params, eng
     expected = dict.fromkeys(launched, 0)
     expected[QM.NAME] = packed_per_forward(full) * (1 + max_new)
@@ -2425,6 +2444,9 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
                               for v in c["violations"]}),
         "decode_step_quant_matmul_launches":
             decode_audit.get("kernel_launches", {}).get(QM.NAME, 0),
+        "decode_step_flops": decode_audit.get("flops"),
+        "decode_step_batch": prompts.shape[0],
+        "decode_step_max_seq": max_seq,
         "tokens_equal_lm_serve_8bit": audit_tokens == [
             t[:AUDIT_NEW] for t in tokens_8bit],
         "seconds": audit_s}
@@ -2459,6 +2481,116 @@ def lm_sharded(torch, dev, smi, launches_now, reset_launches,
               for comm in rec["decode_comm"] for k, v in comm.items()),
           f"lm_sharded: a decode step past the budget: {rec['decode_comm']}")
     check(peak < card_bytes, f"lm_sharded: peak {peak} B")
+    return out
+
+
+def dryrun_phase(torch, dev, smi, sharded: dict) -> dict:
+    """The dry-run (`repro_torch.launch.dryrun`) on fake CUDA tensors and
+    fake ranks, one DRYRUN_JOBS command line a cell, all at once, held
+    against what lm_sharded measured on the card in this run (it builds
+    no model on the card). lm_sharded's audited decode cell counted again on a 1x1
+    mesh at its batch and cache length, 8-bit packed: its flops and
+    quant_matmul count equal the audit's recorded first call, its
+    argument bytes the placed param and cache bytes plus its inputs, and
+    its modelled roofline bound is at most the profiled device time of
+    one step (the share bound / measured printed). qwen3-8b's decode_32k
+    on the single- and multi-pod meshes, baseline and `hillclimb
+    --variant w8`: the memory term falls. Then `benchmarks.run`'s fourth
+    section over the records, one row a baseline record."""
+    import os
+
+    from repro_torch.benchmarks import roofline_summary
+    from repro_torch.launch import roofline
+
+    t_phase = time.perf_counter()
+    audit = sharded["cell_audit"]
+    fill = {"{batch}": str(audit["decode_step_batch"]),
+            "{seq}": str(audit["decode_step_max_seq"])}
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{module}",
+         *[fill.get(a, a) for a in argv]],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for module, argv in DRYRUN_JOBS]
+    try:
+        outs = [proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+                for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()  # none outlives the phase (an ended one: a no-op)
+    for proc, out in zip(procs, outs):
+        check(proc.returncode == 0, f"dryrun: exit {proc.returncode}: "
+              f"{out[-3000:]}")
+
+    def records(mesh: str) -> list:
+        """The mesh's records, the baseline (no packed weights) first."""
+        return sorted(roofline.load_records(str(DRYRUN_OUT), mesh,
+                                            include_variants=True),
+                      key=lambda r: r["serve_quant_bits"] or 0)
+
+    (cell,) = records("mesh_1x1")
+    single, single_w8 = records("singlepod_16x16")
+    multi, multi_w8 = records("multipod_2x16x16")
+    measured_ms = sharded["decode_device_ms"]
+    bound_ms = cell["roofline"]["bound_s"] * 1e3
+    inputs = cell["memory"]["argument_bytes_by_kind"]["inputs"]
+    placed = sharded["param_bytes_placed"] + sharded["cache_bytes_placed"]
+    launches = cell["cost"]["kernel_launches"].get("quant_matmul", 0)
+    with mock.patch.object(roofline_summary, "DRYRUN_DIR", str(DRYRUN_OUT)):
+        rows = roofline_summary.run()
+
+    def terms(rec: dict) -> dict:
+        keep = ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "bound_s", "useful_flops_ratio", "roofline_fraction")
+        return {"arch": rec["arch"], "shape": rec["shape"],
+                "mesh": rec["mesh_name"], "count_s": rec["compile_s"],
+                "memory": rec["memory"], "flops": rec["cost"][
+                    "per_device_flops"],
+                "bytes": rec["cost"]["per_device_bytes_accessed"],
+                "kernel_launches": rec["cost"]["kernel_launches"],
+                "collectives": rec["collectives"],
+                **{k: rec["roofline"][k] for k in keep}}
+
+    out = {"phase": "dryrun", "card": smi, "device": cell["device"],
+           "modelled_at": "H100 SXM data sheet: 989e12 FLOP/s bf16, "
+                          "3.35e12 B/s HBM, 450e9 B/s NVLink",
+           "lm_sharded_cell": {
+               **terms(cell),
+               "audit_flops": audit["decode_step_flops"],
+               "audit_quant_matmul": audit[
+                   "decode_step_quant_matmul_launches"],
+               "placed_bytes": placed, "input_bytes": inputs,
+               "measured_decode_device_ms": measured_ms,
+               "bound_ms": bound_ms,
+               "share_bound_over_measured": bound_ms / measured_ms},
+           "decode_32k": [terms(r) for r in (single, single_w8, multi,
+                                             multi_w8)],
+           "benchmarks_run_roofline_rows": rows,
+           "count_seconds": [r["compile_s"] for r in (
+               cell, single, single_w8, multi, multi_w8)]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(cell["device"] == "cuda", f"dryrun ran on {cell['device']}")
+    check(cell["cost"]["per_device_flops"] == audit["decode_step_flops"],
+          f"dryrun: flops {cell['cost']['per_device_flops']} against the "
+          f"audit's {audit['decode_step_flops']}")
+    check(launches == audit["decode_step_quant_matmul_launches"] > 0,
+          f"dryrun: {launches} quant_matmul against the audit's "
+          f"{audit['decode_step_quant_matmul_launches']}")
+    check(cell["memory"]["argument_bytes"] == placed + inputs,
+          f"dryrun: argument bytes {cell['memory']['argument_bytes']} "
+          f"against {placed} placed + {inputs} inputs")
+    check(bound_ms <= measured_ms,
+          f"dryrun: modelled bound {bound_ms} ms over the measured "
+          f"{measured_ms} ms")
+    for base, w8 in ((single, single_w8), (multi, multi_w8)):
+        check(w8["roofline"]["t_memory_s"] < base["roofline"]["t_memory_s"],
+              f"dryrun: w8's memory term {w8['roofline']['t_memory_s']} "
+              f"not below {base['roofline']['t_memory_s']} on "
+              f"{base['mesh_name']}")
+    check(len(rows) == 3 and all(r[0].startswith("roofline.") for r in rows),
+          f"dryrun: benchmarks.run's roofline rows {rows}")
     return out
 
 
@@ -3648,7 +3780,7 @@ def main() -> int:
     clock("fleet")
 
     # -- the paper's entry points -------------------------------------------
-    # the orchestrator (table1, kernels, ablation) as a user runs it, its
+    # the orchestrator (table1, kernels, ablation, roofline) as a user runs it, its
     # stdout captured: its table1 rows hold the port's own table1 strings.
     # Its ablation section runs RUN_ABLATION_STEPS a point: the ablation
     # phase below trains every point at the full STEPS
@@ -3661,7 +3793,12 @@ def main() -> int:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), mock.patch.object(
             ablation, "run",
-            functools.partial(ablation.run, steps=RUN_ABLATION_STEPS)):
+            functools.partial(ablation.run, steps=RUN_ABLATION_STEPS)), \
+            mock.patch.object(bench_run.roofline_summary, "DRYRUN_DIR",
+                              str(DRYRUN_OUT)):
+        # no dry-run records yet (the dryrun phase makes them): the
+        # fourth section's one row is roofline.missing
+        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
         bench_run.main(device="cuda")
     torch.cuda.synchronize()
     run_seconds = time.perf_counter() - t0
@@ -3681,7 +3818,8 @@ def main() -> int:
           + [f"kernels.{n}" for n in ("nm_spmm", "quant_matmul_8b",
                                       "quant_matmul_4b", "quant_matmul_2b",
                                       "quant_matmul_1b", "sparse_conv1d")]
-          + [f"ablation.{name}" for name, _ in ablation.POINTS],
+          + [f"ablation.{name}" for name, _ in ablation.POINTS]
+          + ["roofline.missing"],
           f"run.py rows: {[r[0] for r in csv_rows]}")
     # table1: the chip model's rows, each derived string equal to the
     # port's own on the host (the model takes no device)
@@ -3926,6 +4064,10 @@ def main() -> int:
     sharded = lm_sharded(torch, dev, smi, launches_now, reset_launches,
                          lm["runs"][8]["tokens"])
     clock("lm_sharded")
+
+    # -- the dry-run on fake tensors and fake ranks ---------------------------
+    dryrun_phase(torch, dev, smi, sharded)
+    clock("dryrun")
 
     # -- the frontends over a mesh ------------------------------------------
     lm_frontend_mesh(torch, dev, smi, front)

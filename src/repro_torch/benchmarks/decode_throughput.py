@@ -366,10 +366,12 @@ def scaling_rows(cells: list) -> list:
 
 
 def run_rank(smoke: bool, *, batch: int = 32, prompt_len: int = 8,
-             max_new: int = 24,
+             max_new: int = 24, trace_out: Optional[str] = None,
              device: _device.DeviceLike = None) -> Optional[dict]:
     """The benchmark on this rank of the process group (every rank calls
-    it): rank 0 returns the record, the others None."""
+    it): rank 0 returns the record, the others None; with `trace_out`
+    rank 0 writes its telemetry trace to `trace_out.jsonl` +
+    `trace_out.json`."""
     dev = _device.resolve(device)
     # before any engine is built, so its cells register with the probe
     obs.configure(enabled=True)
@@ -407,6 +409,9 @@ def run_rank(smoke: bool, *, batch: int = 32, prompt_len: int = 8,
     # serve.decode_step / prefill / seat / chunk cells and the sharded
     # engine's per-width ones, from their recorded first calls
     cell_audit = audit_section()
+    if trace_out:
+        jsonl, chrome = obs.get().finish(trace_out)
+        print(f"[obs] trace written: {jsonl} + {chrome}")
     return {
         "benchmark": "decode_throughput",
         "n_host_devices": world,
@@ -422,7 +427,8 @@ def run_rank(smoke: bool, *, batch: int = 32, prompt_len: int = 8,
 
 
 def run(smoke: bool = False, device: _device.DeviceLike = None, *,
-        batch: int = 32, prompt_len: int = 8, max_new: int = 24) -> dict:
+        batch: int = 32, prompt_len: int = 8, max_new: int = 24,
+        trace_out: Optional[str] = None) -> dict:
     """The benchmark on `CPU_RANKS` spawned gloo ranks on the CPU, or on
     the cards' ranks (one card: world 1 over NCCL, in this process);
     returns rank 0's record. `check` holds it to the acceptance
@@ -431,7 +437,8 @@ def run(smoke: bool = False, device: _device.DeviceLike = None, *,
     world = CPU_RANKS if dev.type == "cpu" else torch.cuda.device_count()
     return _spawn.run(run_rank, world, device=dev.type, args=(smoke,),
                       kwargs=dict(batch=batch, prompt_len=prompt_len,
-                                  max_new=max_new, device=dev.type))
+                                  max_new=max_new, trace_out=trace_out,
+                                  device=dev.type))
 
 
 def _require(ok: bool, what) -> None:
@@ -553,9 +560,13 @@ def main(argv=None, device: _device.DeviceLike = None) -> dict:
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--out", default=None,
                     help="write the JSON record here (default: nowhere)")
+    ap.add_argument("--trace-out", default=None, metavar="PREFIX",
+                    help="write rank 0's telemetry trace to PREFIX.jsonl "
+                         "(event log) + PREFIX.json (Chrome/Perfetto)")
     args = ap.parse_args(argv)
     rec = run(smoke=args.smoke, device=device, batch=args.batch,
-              prompt_len=args.prompt_len, max_new=args.max_new)
+              prompt_len=args.prompt_len, max_new=args.max_new,
+              trace_out=args.trace_out)
     summary(rec)
     if args.out:
         with open(args.out, "w") as f:

@@ -4,14 +4,15 @@ section per paper table/figure:
   table1   — Table 1 (chip power/GOPS/latency/density vs prior works)
   kernels  — SPE/CMUL kernel correctness + bandwidth math
   ablation — compression recipe accuracy (sparsity x bit-width)
+  roofline — dry-run roofline summary (when records exist; modelled)
 
     python -m repro_torch.benchmarks.run
 
 Prints ``name,us_per_call,derived`` CSV; exits 1 if a section failed.
-The reference's fourth section, the roofline summary, reads the XLA
-dry-run's artifacts, which the port does not make yet, so it is left
-out. `main(device=None)` runs the kernels and the ablation on the CUDA
-card (raises without one); `device="cpu"` runs them on the CPU.
+`main(device=None)` runs the kernels and the ablation on the CUDA card
+(raises without one); `device="cpu"` runs them on the CPU. The roofline
+section reads the records under `roofline_summary.DRYRUN_DIR`, made by
+`python -m repro_torch.launch.dryrun`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import sys
 import traceback
 
 from repro_torch import _device
-from repro_torch.benchmarks import ablation, kernels, table1
+from repro_torch.benchmarks import ablation, kernels, roofline_summary, table1
 
 
 def main(device: _device.DeviceLike = None) -> None:
@@ -29,6 +30,7 @@ def main(device: _device.DeviceLike = None) -> None:
         (table1, table1.run),
         (kernels, lambda: kernels.run(dev)),
         (ablation, lambda: ablation.run(device=dev)),
+        (roofline_summary, roofline_summary.run),
     )
     print("name,us_per_call,derived")
     failed = []

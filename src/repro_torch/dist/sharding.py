@@ -47,7 +47,8 @@ rank's coordinate in each, and the parameters' spec tree. Inside it:
     which `models.moe` reads;
   * `all_reduce` / `all_gather` / `reduce_scatter` run a collective over
     a group and count it by kind in `comm_calls` (the budgets of a
-    decode step and of a train step read them);
+    decode step and of a train step read them), and its operand's bytes
+    in `comm_bytes` (the dry-run's collective term reads them);
   * `constrain(x, *logical, shape=)` keeps the reference's layout hints:
     on a rank-local tensor it checks that each dim is the block the
     logical axis implies of the global `shape` (a logical axis whose
@@ -509,14 +510,20 @@ def placed_bytes(tree: Any) -> int:
 # ---------------------------------------------------------------------------
 
 comm_calls: dict[str, int] = {}  # collectives handed over, by kind
+# the bytes handed to them, by kind: each call's operand (a rank's block
+# for an all-gather, the whole tensor for a reduce-scatter), the
+# reference's `launch.hlo_analysis` convention
+comm_bytes: dict[str, int] = {}
 
 
 def reset_comm() -> None:
     comm_calls.clear()
+    comm_bytes.clear()
 
 
-def _count(kind: str) -> None:
+def _count(kind: str, x: torch.Tensor) -> None:
     comm_calls[kind] = comm_calls.get(kind, 0) + 1
+    comm_bytes[kind] = comm_bytes.get(kind, 0) + x.numel() * x.element_size()
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -524,7 +531,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     tensor where `x` is not contiguous; else `x` itself, reduced in
     place)."""
     x = x.contiguous()
-    _count("all-reduce")
+    _count("all-reduce", x)
     dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -535,7 +542,7 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
-    _count("all-gather")
+    _count("all-gather", x)
     dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
     return torch.cat(out.view(n, *x.shape).unbind(0), dim=dim)
 
@@ -546,7 +553,7 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     out = torch.empty((x.numel() // n,), dtype=x.dtype, device=x.device)
-    _count("reduce-scatter")
+    _count("reduce-scatter", x)
     dist.reduce_scatter_tensor(out, x, group=group)
     return out
 
@@ -655,7 +662,7 @@ def all_gather_many(xs: list, dims: list, group) -> list:
         off += b.numel() + pad
     buf = torch.cat(parts)
     out = torch.empty((n * off,), dtype=torch.uint8, device=buf.device)
-    _count("all-gather")
+    _count("all-gather", buf)
     dist.all_gather_into_tensor(out, buf, group=group)
     out = out.view(n, off)
     got = []

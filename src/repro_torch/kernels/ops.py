@@ -5,6 +5,13 @@ defaults the scale, and dispatches by the tensor's device: a CPU tensor takes th
 CUDA tensor launches the hand-written kernel or raises. There is no
 fallback from one to the other.
 
+A fake tensor (`torch._subclasses.fake_tensor`, the dry-run's, on either
+device) takes the card's route up to the launch: the same operand
+preparation, the output the kernel would write allocated as the CUDA
+function allocates it, and the launch's cost reported; nothing is
+launched, no kernel library is built or loaded, and the plain version
+never runs. So a dry-run counts the card's kernels on any host.
+
 A launch is invisible to PyTorch's dispatcher (the kernels are called
 through `ctypes`), so each wrapper reports its own: the flops of the work
 the kernel does and the bytes it must move (each input read once, the
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import bitserial as _bitserial
 from repro_torch.kernels import nm_spmm as _nm_spmm
@@ -25,6 +33,24 @@ from repro_torch.kernels import quant_matmul as _quant_matmul
 from repro_torch.kernels import sparse_conv1d as _sparse_conv1d
 from repro_torch.kernels._common import flatten_batch
 from repro_torch.obs.torchprobe import add_kernel_cost
+
+
+def _route(x: torch.Tensor, name: str) -> str:
+    """"fake" for a fake tensor, else "plain" (CPU) or "cuda"; raises on
+    another device."""
+    if isinstance(x, FakeTensor):
+        return "fake"
+    if x.device.type == "cpu":
+        return "plain"
+    if x.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"{name} has no kernel for device {x.device}")
+
+
+def _out(shape: tuple, x: torch.Tensor) -> torch.Tensor:
+    """The float32 output a kernel's CUDA function allocates, for a fake
+    `x`: the launch's result without the launch."""
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
 
 
 def _scale(scale: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
@@ -56,21 +82,19 @@ def nm_spmm(
             f"K={k}, Kk={kk} inconsistent with {keep}:{group_size} sparsity"
         )
     sc = _scale(scale, n, x.device)
-    if x.device.type == "cpu":
+    route = _route(x, "nm_spmm")
+    if route == "plain":
         y = _nm_spmm.nm_spmm_plain(
             x2, values, select, sc, group_size=group_size, keep=keep
         )
-    elif x.device.type == "cuda":
-        y = _nm_spmm.nm_spmm_cuda(
-            x2.to(torch.float32).contiguous(), values.contiguous(),
-            select.contiguous(), sc.contiguous(),
-            group_size=group_size, keep=keep,
-        )
+    else:
+        args = (x2.to(torch.float32).contiguous(), values.contiguous(),
+                select.contiguous(), sc.contiguous())
         m = x2.shape[0]
+        y = (_nm_spmm.nm_spmm_cuda(*args, group_size=group_size, keep=keep)
+             if route == "cuda" else _out((m, n), x))
         add_kernel_cost(_nm_spmm.NAME, 2 * m * kk * n,
                         m * k * 4 + kk * n * 2 + n * 4 + m * n * 4)
-    else:
-        raise ValueError(f"nm_spmm has no kernel for device {x.device}")
     return y.reshape(*lead, n)
 
 
@@ -81,16 +105,20 @@ def _packed_matmul(x, packed, scale, bits, plain, cuda, name) -> torch.Tensor:
     x2, lead = flatten_batch(x)
     _quant_matmul.check_k(x2.shape[1], kp, bits)
     sc = _scale(scale, n, x.device)
-    if x.device.type == "cpu":
+    route = _route(x, name)
+    if route == "plain":
         y = plain(x2, packed, sc, bits=bits)
-    elif x.device.type == "cuda":
-        y = cuda(x2.to(torch.float32).contiguous(), packed.contiguous(),
-                 sc.contiguous(), bits=bits)
+    else:
+        args = (x2.to(torch.float32).contiguous(), packed.contiguous(),
+                sc.contiguous())
         m, k = x2.shape
+        if route == "cuda":
+            y = cuda(*args, bits=bits)
+        else:
+            _quant_matmul.check_grid(m, k, n)  # as the CUDA function does
+            y = _out((m, n), x)
         add_kernel_cost(name, 2 * m * k * n,
                         m * k * 4 + packed.numel() + n * 4 + m * n * 4)
-    else:
-        raise ValueError(f"{name} has no kernel for device {x.device}")
     return y.reshape(*lead, n)
 
 
@@ -152,19 +180,17 @@ def sparse_conv1d(
     )
     sc = _scale(scale, n, x.device)
     kw = dict(ksize=ksize, stride=stride, group_size=group_size, keep=keep)
-    if x.device.type == "cpu":
+    route = _route(x, "sparse_conv1d")
+    if route == "plain":
         return _sparse_conv1d.sparse_conv1d_plain(x, values, select, sc, **kw)
-    if x.device.type == "cuda":
-        y = _sparse_conv1d.sparse_conv1d_cuda(
-            x.to(torch.float32).contiguous(), values.contiguous(),
-            select.contiguous(), sc.contiguous(), **kw,
-        )
-        # the weights inside the ksize * C window: the kernel skips the
-        # groups of the compiler's padding past it
-        b, t_out = y.shape[0], y.shape[1]
-        live = min(kk, -(-(ksize * x.shape[-1]) // group_size) * keep)
-        add_kernel_cost(_sparse_conv1d.NAME, 2 * b * t_out * live * n,
-                        x.numel() * 4 + kk * n * 2 + n * 4
-                        + b * t_out * n * 4)
-        return y
-    raise ValueError(f"sparse_conv1d has no kernel for device {x.device}")
+    args = (x.to(torch.float32).contiguous(), values.contiguous(),
+            select.contiguous(), sc.contiguous())
+    b, t_out = x.shape[0], (x.shape[1] - 1) // stride + 1
+    y = (_sparse_conv1d.sparse_conv1d_cuda(*args, **kw) if route == "cuda"
+         else _out((b, t_out, n), x))
+    # the weights inside the ksize * C window: the kernel skips the
+    # groups of the compiler's padding past it
+    live = min(kk, -(-(ksize * x.shape[-1]) // group_size) * keep)
+    add_kernel_cost(_sparse_conv1d.NAME, 2 * b * t_out * live * n,
+                    x.numel() * 4 + kk * n * 2 + n * 4 + b * t_out * n * 4)
+    return y

@@ -90,6 +90,12 @@ _MASK_INDEX_OPS = frozenset({
 # ops that copy host data into a tensor (`torch.tensor`, `torch.as_tensor`
 # of a list or an array): a copy from the host on the card
 LIFT_OPS = frozenset({"aten.lift_fresh", "aten.lift_fresh_copy"})
+# ops that only allocate: they read and write nothing, so move no bytes (a
+# kernel's output is counted once, by its wrapper's `add_kernel_cost`)
+ALLOC_OPS = frozenset({
+    "aten.empty", "aten.empty_strided", "aten.empty_like", "aten.new_empty",
+    "aten.new_empty_strided",
+})
 # collective kinds as the reference's HLO names them; the compressed
 # reductions count theirs by function name
 _WIRE_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
@@ -108,7 +114,10 @@ class CallRecord:
     the tree of the output tensors' local shapes (`torch.Size` leaves,
     dicts, and lists for tuples and lists);
     `kernel_launches` the hand-written kernels launched, by name; `flops`
-    and `bytes_accessed` the call's cost (`cost_gauges`)."""
+    and `bytes_accessed` the call's cost (`cost_gauges`), and
+    `flops_by_op` / `bytes_by_op` the same split by aten op or kernel
+    name; `collective_bytes` the bytes handed to the collectives, by kind
+    (each call's operand)."""
 
     ops: int = 0
     host_reads: list = dataclasses.field(default_factory=list)
@@ -120,6 +129,9 @@ class CallRecord:
     kernel_launches: dict = dataclasses.field(default_factory=dict)
     flops: float = 0.0
     bytes_accessed: float = 0.0
+    flops_by_op: dict = dataclasses.field(default_factory=dict)
+    bytes_by_op: dict = dataclasses.field(default_factory=dict)
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
 
 
 def _tensors(tree) -> list:
@@ -165,6 +177,8 @@ def add_kernel_cost(name: str, flops: float, nbytes: float) -> None:
         rec.kernel_launches[name] = rec.kernel_launches.get(name, 0) + 1
         rec.flops += flops
         rec.bytes_accessed += nbytes
+        rec.flops_by_op[name] = rec.flops_by_op.get(name, 0) + flops
+        rec.bytes_by_op[name] = rec.bytes_by_op.get(name, 0) + nbytes
 
 
 def _recorder(rec: CallRecord):
@@ -175,6 +189,10 @@ def _recorder(rec: CallRecord):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
+            if func.namespace == "prim":
+                # a query of a fake tensor's metadata (`prim.device`): a
+                # real tensor answers it without a dispatch
+                return out
             name = str(func.overloadpacket)
             rec.ops += 1
             ins = _tensors((args, kwargs))
@@ -202,24 +220,31 @@ def _recorder(rec: CallRecord):
             if any(t.dtype in (torch.float64, torch.complex128)
                    for t in ins + outs):
                 rec.f64.append(name)
-            if not getattr(func, "is_view", False):
-                seen = {(t.untyped_storage().data_ptr(), t.storage_offset(),
+            if not (getattr(func, "is_view", False) or name in ALLOC_OPS):
+                # keyed on the storage itself (its StorageImpl): a fake
+                # tensor's data_ptr is 0 for every storage
+                seen = {(t.untyped_storage()._cdata, t.storage_offset(),
                          t.numel()): t for t in ins + outs}
-                rec.bytes_accessed += sum(t.numel() * t.element_size()
-                                          for t in seen.values())
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in seen.values())
+                rec.bytes_accessed += nbytes
+                rec.bytes_by_op[name] = rec.bytes_by_op.get(name, 0) + nbytes
             return out
 
     return Recorder()
 
 
-def _comm_counts() -> dict:
+def comm_snapshot() -> tuple[dict, dict]:
+    """(calls, bytes) by kind name of every collective counted so far in
+    this process: `dist.sharding`'s and `dist.compression`'s."""
     from repro_torch.dist import compression, sharding
 
-    out = dict(sharding.comm_calls)
+    calls, nbytes = dict(sharding.comm_calls), dict(sharding.comm_bytes)
     for k, v in compression.wire_calls.items():
         kind = _WIRE_KINDS.get(k, k)
-        out[kind] = out.get(kind, 0) + v
-    return out
+        calls[kind] = calls.get(kind, 0) + v
+        nbytes[kind] = nbytes.get(kind, 0) + compression.wire_bytes.get(k, 0)
+    return calls, nbytes
 
 
 def record_call(info: "CellInfo", *args, **kwargs):
@@ -229,18 +254,23 @@ def record_call(info: "CellInfo", *args, **kwargs):
 
     rec = CallRecord()
     donated = {i: _storages(args[i]) for i in info.donate if i < len(args)}
-    comm0 = _comm_counts()
+    calls0, bytes0 = comm_snapshot()
     _COSTS.active.append(rec)
     try:
         with FlopCounterMode(display=False) as flops, _recorder(rec):
             out = info.fn(*args, **kwargs)
     finally:
         _COSTS.active.pop()  # `rec`: calls nest, records too
-    comm1 = _comm_counts()
-    rec.collectives = {k: v - comm0.get(k, 0) for k, v in comm1.items()
-                       if v != comm0.get(k, 0)}
+    calls1, bytes1 = comm_snapshot()
+    rec.collectives = {k: v - calls0.get(k, 0) for k, v in calls1.items()
+                       if v != calls0.get(k, 0)}
+    rec.collective_bytes = {k: bytes1.get(k, 0) - bytes0.get(k, 0)
+                            for k in rec.collectives}
     rec.flops += float(flops.get_total_flops())
-    held = set(_storages(out))
+    for op, n in flops.get_flop_counts().get("Global", {}).items():
+        key = str(getattr(op, "overloadpacket", op))
+        rec.flops_by_op[key] = rec.flops_by_op.get(key, 0) + float(n)
+    held = set(_storages(out)) if donated else set()
     for i, before in donated.items():
         after = _storages(args[i])
         rec.donated[i] = {"before": before, "after": after,

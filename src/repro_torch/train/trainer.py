@@ -116,10 +116,10 @@ def _own_storage(grads: Any) -> Any:
     seen = set()
 
     def one(g):
-        ptr = g.untyped_storage().data_ptr()
-        if ptr in seen:
+        storage = g.untyped_storage()._cdata  # a fake tensor's data_ptr is 0
+        if storage in seen:
             return g.clone()
-        seen.add(ptr)
+        seen.add(storage)
         return g.contiguous()
 
     return tree_map(one, grads)
@@ -205,18 +205,22 @@ def _split(spec, axis: str, mesh) -> bool:
         shd.axis_sizes(mesh).get(axis, 1) > 1
 
 
-def _rows(batch: Any, cfg, mesh) -> Any:
+def _rows(batch: Any, cfg, mesh, *, replicate_indivisible: bool = False
+          ) -> Any:
     """This rank's rows of the global batch: its coordinate over the
     mesh's axes that carry rows (`dist.sharding.data_axes`: ("pod",
     "data"), and "model" too for a pure-DP profile), outer first (B not
-    divisible raises)."""
+    divisible raises). With `replicate_indivisible` such a batch runs
+    whole on every rank instead, as `dist.sharding.batch_specs` leaves it
+    unsharded (the reference's GSPMD step then computes it replicated):
+    the dry-run's choice, to count the reference's cells."""
     axes = shd.data_axes(cfg, mesh)
     n = math.prod(shd.axis_sizes(mesh)[a] for a in axes)
     leading = leaves(batch)[0].shape[0]
-    if leading % n:
+    if leading % n and not replicate_indivisible:
         raise ValueError(
             f"batch {leading} not divisible by the {n} ranks of {axes}")
-    if n == 1:
+    if n == 1 or leading % n:
         return batch
     rows = leading // n
     lo = shd._coordinate(axes, mesh) * rows
@@ -307,6 +311,7 @@ def make_sharded_train_step(
     clip_norm: float = 1.0,
     n_micro: int = 1,
     donate: bool = True,
+    replicate_indivisible: bool = False,
 ):
     """One in-pod train step on a ("data", "model") `DeviceMesh` with the
     params and moments placed by `state_specs` (FSDP over `data`, TP over
@@ -322,7 +327,9 @@ def make_sharded_train_step(
     reduced over the shards (so clipping equals the replicated step's),
     and `Optimizer.update_` writes the update into the local blocks of
     params and moments (`donate=False` updates a copy, leaving the
-    caller's state valid). The metrics are the mean over `data`. Span: `train/grads`,
+    caller's state valid). The metrics are the mean over `data`. A batch
+    the `data` ranks do not divide raises, or with `replicate_indivisible`
+    (the dry-run's) runs whole on every rank. Span: `train/grads`,
     `train/update`.
     """
     s_specs = state_specs(state_shapes, cfg, mesh)
@@ -334,8 +341,10 @@ def make_sharded_train_step(
         tel = obs.get()
         with tel.span("train/grads", cat="train"):
             grads, metrics = _block_grads(
-                grad_fn, state["params"], _rows(batch, cfg, mesh), cfg, mesh,
-                p_specs, n_micro)
+                grad_fn, state["params"],
+                _rows(batch, cfg, mesh,
+                      replicate_indivisible=replicate_indivisible),
+                cfg, mesh, p_specs, n_micro)
             tel.block(leaves(grads)[:1])
         with tel.span("train/update", cat="train"):
             gnorm = _sharded_norm(grads, p_specs, mesh)
@@ -440,6 +449,7 @@ def make_multipod_train_step(
     compress: bool = True,
     clip_norm: float = 1.0,
     n_micro: int = 1,
+    replicate_indivisible: bool = False,
 ):
     """Compressed multi-pod training over a ("pod", "data", "model")
     mesh, one rank a device, for every PxDxM. Three stages a step, as the
@@ -459,7 +469,9 @@ def make_multipod_train_step(
          `Optimizer.update_`); the metrics averaged over pod and data.
 
     At D = M = 1 (1x1x1 on one card included) stage A's collectives are
-    bypassed: the step is plain data parallelism over the pods.
+    bypassed: the step is plain data parallelism over the pods. A batch
+    P·D does not divide raises, or with `replicate_indivisible` (the
+    dry-run's) runs whole on every rank.
     `state_shapes` is the global state tree (tensors or "meta" ones)
     including "err"; where nothing is split, a state built on the whole
     params serves as its own shapes.
@@ -499,7 +511,8 @@ def make_multipod_train_step(
 
     def step(state: dict, batch: Any) -> tuple[dict, dict]:
         tel = obs.get()
-        local = _rows(batch, cfg, mesh)
+        local = _rows(batch, cfg, mesh,
+                      replicate_indivisible=replicate_indivisible)
         with tel.span("train/grads", cat="train"):
             grads, metrics = _block_grads(grad_fn, state["params"], local,
                                           cfg, mesh, p_specs, n_micro)

@@ -62,6 +62,19 @@ draw (batches 0-2) and from the state 3 single-device steps leave
 (batches 3-5). Prints, for each start, each layout's grad norm at each
 step and the largest difference between the two layouts' params, m and
 v after the 3 steps, over each tree's max.
+
+    ... python tests/_dist_reference.py dryrun OUT.json
+
+`dryrun`: the reference dry-run's accounting as JSON: `count_params` and
+`model_flops` of every `CLI_IDS` arch and applicable shape (from
+`jax.eval_shape`), and `lower_cell` + `analyze` of the reduced qwen3-8b's
+decode, prefill and train cells (batch 8, sequence 64) on a 2x2
+("data", "model") mesh of the 4 forced host devices: the record's
+argument bytes, MODEL_FLOPS, device count and mesh, and each input
+leaf's bytes a device under the compiled step's input shardings (by
+path: "params/...", "opt/..." for the train state). `jax.devices()`
+runs before `repro.launch.dryrun` is imported, which sets a 512-device
+XLA_FLAGS for its own runs.
 """
 
 import os
@@ -383,6 +396,53 @@ def spread(name: str = "recurrentgemma_2b") -> None:
         print(json.dumps(rec))
 
 
+def dryrun(outp: str) -> None:
+    import json
+
+    jax.devices()  # 4 host devices, before dryrun's import sets 512
+    from repro import configs
+    from repro.configs.base import applicable_shapes
+    from repro.launch import dryrun as D
+
+    out: dict = {"params": {}, "model_flops": {}, "cells": {}}
+    for arch in configs.CLI_IDS:
+        cfg = configs.get(arch)
+        out["params"][arch] = list(D.count_params(cfg))
+        out["model_flops"][arch] = {c.name: D.model_flops(cfg, c)
+                                    for c in applicable_shapes(cfg)}
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         devices=jax.devices()[:4],
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    cfg = configs.reduced("qwen3-8b")
+    for shape in ("decode_32k", "prefill_32k", "train_4k"):
+        cell = dataclasses.replace(configs.SHAPES[shape], global_batch=8,
+                                   seq_len=64)
+        compiled, lowered = D.lower_cell(cfg, cell, mesh)
+        rec = D.analyze(compiled, cfg, cell, mesh)
+        leaf_bytes = {}
+        args = lowered.args_info[0]
+        names = ("params", "cache", "token", "pos") if shape == "decode_32k" \
+            else ("params", "tokens") if shape == "prefill_32k" \
+            else ("state", "batch")
+        for name, arg, sh in zip(names, args, compiled.input_shardings[0]):
+            flat = jax.tree_util.tree_flatten_with_path(arg)[0]
+            shards = jax.tree_util.tree_leaves(sh)
+            for (kp, leaf), one in zip(flat, shards):
+                key = "/".join([name] + [
+                    str(getattr(k, "key", getattr(k, "idx", k))) for k in kp])
+                local = one.shard_shape(leaf.shape)
+                leaf_bytes[key] = int(np.prod(local, dtype=np.int64)
+                                      * np.dtype(leaf.dtype).itemsize)
+        out["cells"][shape] = {
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "model_flops_total": rec["roofline"]["model_flops_total"],
+            "n_devices": rec["n_devices"], "mesh": rec["mesh"],
+            "leaf_bytes": leaf_bytes,
+        }
+    with open(outp, "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "compression":
         compression(sys.argv[2], sys.argv[3])
@@ -392,5 +452,7 @@ if __name__ == "__main__":
         inpod(sys.argv[2], sys.argv[3], sys.argv[4])
     elif sys.argv[1] == "spread":
         spread(*sys.argv[2:3])
+    elif sys.argv[1] == "dryrun":
+        dryrun(sys.argv[2])
     else:
         multipod(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])

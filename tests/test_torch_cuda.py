@@ -1226,3 +1226,64 @@ def test_cost_gauges_count_quant_matmul_on_the_card(cuda):
     got = torchprobe.cost_gauges(registry.Registry(), "proj", info)
     assert got["flops"] == 2 * m * k * n
     assert got["bytes accessed"] >= m * k * 4 + lin["packed"].numel()
+
+
+@pytest.mark.parametrize("which", ["nm_spmm", "quant_matmul",
+                                   "bitserial_matmul", "sparse_conv1d"])
+def test_kernel_wrappers_on_fake_cuda_tensors_never_touch_ctypes(
+        cuda, monkeypatch, which):
+    """A fake CUDA tensor (the dry-run's) takes the card's route without
+    the launch: the output on the card's device, float32, of the kernel's
+    shape; no kernel library built or loaded, no CUDA function, no plain
+    version, no launch counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def refuse(*a, **k):
+        raise AssertionError("touched on a fake tensor")
+
+    for mod in (tk, tqm, tbs, tsc):
+        for fn in dir(mod):
+            if fn.endswith(("_plain", "_cuda")) or fn == "_library":
+                monkeypatch.setattr(mod, fn, refuse)
+    before = [mod.launches for mod in (tk, tqm, tbs, tsc)]
+    with FakeTensorMode():
+        x = torch.zeros((2, 3, 64), device=cuda)
+        values = torch.zeros((32, 32), dtype=torch.int8, device=cuda)
+        select = torch.zeros((32, 32), dtype=torch.uint8, device=cuda)
+        packed = torch.zeros((64, 32), dtype=torch.uint8, device=cuda)
+        y = {
+            "nm_spmm": lambda: ops.nm_spmm(x, values, select, group_size=G,
+                                           keep=KEEP),
+            "quant_matmul": lambda: ops.quant_matmul(x, packed, bits=8),
+            "bitserial_matmul": lambda: ops.bitserial_matmul(x, packed,
+                                                             bits=8),
+            "sparse_conv1d": lambda: ops.sparse_conv1d(
+                torch.zeros((2, 10, 8), device=cuda), values, select,
+                ksize=3, group_size=G, keep=KEEP),
+        }[which]()
+    assert y.device.type == "cuda" and y.dtype == torch.float32
+    assert y.shape[-1] == 32
+    assert [mod.launches for mod in (tk, tqm, tbs, tsc)] == before
+
+
+def test_dryrun_counts_on_fake_cuda_equal_fake_cpu(cuda, tmp_path):
+    """The dry-run of the reduced qwen3-8b's 8-bit decode cell on a fake
+    2x2 gives the same flops, bytes, kernel launches, collectives and
+    argument bytes on fake CUDA tensors as on fake CPU ones."""
+    from repro_torch.launch import dryrun
+
+    def one(device):
+        return dryrun.run_cell(
+            "qwen3-8b", "decode_32k", False, str(tmp_path / device),
+            serve_quant_bits=8, reduced=True, batch=8, seq=64,
+            mesh_shape=(2, 2), device=device)
+
+    try:
+        recs = {d: one(d) for d in ("cpu", "cuda")}
+    finally:
+        dryrun.close_fake_world()
+    for key in ("cost", "collectives"):
+        assert recs["cuda"][key] == recs["cpu"][key], key
+    assert (recs["cuda"]["memory"]["argument_bytes"]
+            == recs["cpu"]["memory"]["argument_bytes"])
+    assert recs["cuda"]["cost"]["kernel_launches"] == {"quant_matmul": 14}

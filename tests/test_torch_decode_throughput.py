@@ -82,8 +82,14 @@ PAGED_KEYS = ("n_pages", "span", "dense_cache_bytes_total",
 
 
 @pytest.fixture(scope="module")
-def records():
-    """(the twin's smoke record, the reference's pieces), run at once."""
+def trace_prefix(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("decode_trace") / "decode")
+
+
+@pytest.fixture(scope="module")
+def records(trace_prefix):
+    """(the twin's smoke record, the reference's pieces), run at once;
+    the twin writes its trace to `trace_prefix` (`--trace-out`)."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "PYTHONPATH": str(REPO / "src"),
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
@@ -91,7 +97,7 @@ def records():
                            env=env, stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True)
     try:
-        rec = D.run(smoke=True, device="cpu")
+        rec = D.run(smoke=True, device="cpu", trace_out=trace_prefix)
         out, err = ref.communicate(timeout=REF_S)
     finally:
         ref.kill()
@@ -143,3 +149,17 @@ def test_check_fails_on_a_violation(records):
                                  "violations_total": 1}}
     with pytest.raises(AssertionError):
         D.check(bad)
+
+
+def test_trace_out_writes_both_files_that_join(records, trace_prefix):
+    """`--trace-out PREFIX`: rank 0 writes the JSONL event log and the
+    Chrome export, which validate as the stream twin's do, and every
+    request's lineage joins from the log."""
+    from repro_torch import obs
+
+    n = obs.validate_jsonl(trace_prefix + ".jsonl")
+    assert n > 0 and obs.validate_chrome(trace_prefix + ".json") >= n
+    with open(trace_prefix + ".jsonl") as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    joined = obs.assert_joined(events, min_hops=2)
+    assert joined

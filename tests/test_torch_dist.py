@@ -389,15 +389,74 @@ def test_bytes_handed_to_the_collectives(ranked, n):
     assert port[f"n{n}/uncompressed/wire"] == {"all_reduce": 4 * sum(sizes)}
 
 
-def test_dist_compression_benchmark_on_four_ranks(monkeypatch, capfd):
+@pytest.fixture(scope="module")
+def bench(tmp_path_factory):
+    """`benchmarks.dist_compression` through `main` on 4 gloo ranks with
+    `--trace-out`: (its record, its printed lines, the trace prefix)."""
+    tmp = tmp_path_factory.mktemp("dist_trace")
+    prefix, log = str(tmp / "dist"), tmp / "stdout.txt"
+    # the ranks print to the inherited file descriptor 1: capture it
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(log, "w") as f, pytest.MonkeyPatch.context() as mp:
+            os.dup2(f.fileno(), 1)
+            mp.setattr(_spawn, "TIMEOUT_S", TIMEOUT_S)
+            rec = tbench.main(["--devices", "4", "--smoke", "--trace-out",
+                               prefix], device="cpu")
+            sys.stdout.flush()
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+    return rec, log.read_text(), prefix
+
+
+def test_dist_compression_benchmark_on_four_ranks(bench):
     """`benchmarks.dist_compression` through `main` on 4 gloo ranks: its
     gates (two-stage ~4x at any n, gather 8/n, fewer bytes handed than
     f32, every loss curve falling) hold."""
-    monkeypatch.setattr(_spawn, "TIMEOUT_S", TIMEOUT_S)
-    rec = tbench.main(["--devices", "4", "--smoke"], device="cpu")
+    rec, printed, _ = bench
     assert rec["checked"]
     assert sorted({c["n_pods"] for c in rec["sweep"]}) == [2, 4]
     two = [c["modeled_ratio_vs_f32"] for c in rec["sweep"]
            if c["scheme"] == "two_stage"]
     assert all(3.5 < r < 4.3 for r in two)
-    assert "all gates passed" in capfd.readouterr().out
+    assert "all gates passed" in printed
+
+
+def test_dist_compression_trace_out_writes_both_files(bench):
+    """`--trace-out PREFIX`: rank 0 writes the JSONL event log and the
+    Chrome export, which validate as the stream twin's do, and every
+    dp-step span of the run is in them."""
+    import json as _json
+
+    from repro_torch import obs
+
+    _, printed, prefix = bench
+    assert "[obs] trace written" in printed
+    n = obs.validate_jsonl(prefix + ".jsonl")
+    assert n > 0 and obs.validate_chrome(prefix + ".json") >= n
+    with open(prefix + ".jsonl") as f:
+        events = [_json.loads(line) for line in f if line.strip()]
+    assert obs.lineage.join(events) == {}  # no request ids in a train run
+    names = {e.get("name") for e in events}
+    assert any(str(name).startswith("train/") for name in names), names
+
+
+@pytest.mark.parametrize("fault", ["two_signatures", "no_peak_memory_on_card"])
+def test_dist_compression_check_holds_the_references_gates(bench, fault):
+    """`check` fails a record whose `train.dp_step` cell saw two call
+    signatures (a retrace after the warm-up: the reference's
+    `recompiles == 1`), and one from a card whose peak device memory
+    reads 0; the run's own record passes."""
+    import copy
+
+    rec = copy.deepcopy(bench[0])
+    tbench.check(rec)
+    if fault == "two_signatures":
+        rec["telemetry"]["recompiles"]["train.dp_step.gather"] = 2
+    else:
+        rec["device"]["type"] = "cuda"
+        rec["telemetry"]["peak_device_memory_bytes"] = 0
+    with pytest.raises(AssertionError):
+        tbench.check(rec)

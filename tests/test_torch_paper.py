@@ -133,9 +133,15 @@ def test_train_va_checkpoints_and_resumes_on_the_cpu(tmp_path, monkeypatch,
     assert "chip model: 35.0 us" in printed
 
 
-def test_run_prints_the_three_sections(monkeypatch, capsys):
+def test_run_prints_the_three_sections(monkeypatch, capsys, tmp_path):
+    """The paper's three sections, then the roofline summary's row (no
+    dry-run records: `roofline.missing`)."""
+    from repro_torch.benchmarks import roofline_summary
+
     monkeypatch.setattr(ablation, "run",
                         functools.partial(ablation.run, steps=1))
+    monkeypatch.setattr(roofline_summary, "DRYRUN_DIR",
+                        str(tmp_path / "none"))
     run.main(device="cpu")
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -146,7 +152,8 @@ def test_run_prints_the_three_sections(monkeypatch, capsys):
         + ["kernels.nm_spmm"]
         + [f"kernels.quant_matmul_{b}b" for b in (8, 4, 2, 1)]
         + ["kernels.sparse_conv1d"]
-        + [f"ablation.{name}" for name, _ in ablation.POINTS])
+        + [f"ablation.{name}" for name, _ in ablation.POINTS]
+        + ["roofline.missing"])
 
 
 def test_run_exits_1_when_a_section_fails(monkeypatch, capsys):

@@ -15,8 +15,10 @@ fleet runner), sharded serving (launch.serve --mesh 1) and the frontends
 over a mesh (launch.serve --listen --mesh 1, the rank-coordinated stream
 frontend on a data mesh), the open-loop load lab (launch.stream and
 launch.serve --load-sweep, also over --mesh 1, benchmarks.load_sweep),
-the cell auditor over the serve cells at qwen3-8b's full width and the
-decode benchmark's twin (benchmarks.decode_throughput) on one CUDA card.
+the cell auditor over the serve cells at qwen3-8b's full width, the
+decode benchmark's twin (benchmarks.decode_throughput), and the AST lint
+(python -m repro_torch.analysis) with the bench-schema guard
+(benchmarks.check_schema) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -220,6 +222,12 @@ toolkit. Phases, each printing JSON lines:
    8-bit tokens), its cells audited: only the one-device verdict on its
    declared-sharded outputs (the reference's auditor reports the same on
    one device), quant_matmul inside its audited decode step;
+   analysis — the port's AST rule pack, `python -m repro_torch.analysis
+   --fail-on-findings --json build/...` as a subprocess from the root
+   (src/repro_torch and this script under the rules and the committed
+   baseline: 0 findings, 0 stale entries), then that report and the
+   records the load_sweep and decode_throughput phases built through the
+   bench-schema guard (repro_torch.benchmarks.check_schema: 0 errors);
 4. time — the floor of the timing method (a one-element add), then
    kernel, plain version, one library call and the bound at each VA layer
    and benchmark shape, the fused layer against im2col + nm_spmm, the
@@ -476,6 +484,9 @@ LM_SWEEP_ARGV = ("--arch", "recurrentgemma-2b", "--load-sweep", "--json",
                  "--load-requests", "8", "--max-new", "4",
                  "--load-fractions", "0.5,1,4")
 LOAD_REPORT = "build/chip_smoke_load_report.html"
+ANALYSIS_REPORT = "build/analysis_chip_smoke.report.json"
+ANALYSIS_BASELINE = "src/repro_torch/analysis/baseline.json"
+ANALYSIS_TIMEOUT_S = 120
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -3042,7 +3053,8 @@ def lm_load_sweep_mesh(torch, dev, smi, unsharded: dict) -> dict:
 def decode_throughput_phase(torch, dev, smi) -> dict:
     """The decode_throughput twin's smoke on the card (mesh "1" over a
     world-1 NCCL group: the reduced qwen3-8b and recurrentgemma-2b) with
-    the reference's assertions (`check`), its cell audit included."""
+    the reference's assertions (`check`), its cell audit included.
+    Returns the benchmark's record."""
     from repro_torch import obs
     from repro_torch.benchmarks import decode_throughput
 
@@ -3072,13 +3084,13 @@ def decode_throughput_phase(torch, dev, smi) -> dict:
                           "cells": sorted(ca["cells"])}}
     emit(out)
     decode_throughput.check(rec)
-    return out
+    return rec
 
 
 def load_sweep_phase(torch, dev, smi) -> dict:
     """The load-lab benchmark's smoke on the card with its own (the
     reference's) acceptance assertions, then its record rendered to HTML
-    and every <svg> parsed."""
+    and every <svg> parsed. Returns the benchmark's record."""
     import xml.etree.ElementTree as ET
 
     from repro_torch import obs
@@ -3117,6 +3129,49 @@ def load_sweep_phase(torch, dev, smi) -> dict:
     emit(out)
     check(len(svgs) >= 2, f"load_sweep: {len(svgs)} svg in the report")
     load_sweep.check(rec)
+    return rec
+
+
+def analysis_phase(records: dict) -> dict:
+    """`python -m repro_torch.analysis --fail-on-findings --json ...` from
+    the root (the port's rule pack over this checkout's src/repro_torch
+    and this script, with its committed baseline, all named explicitly),
+    then its report and `records` (name -> a benchmark record built by an
+    earlier phase) through the bench-schema guard. Any finding or stale
+    entry fails the CLI's exit code and the guard; a schema error fails
+    the guard."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.benchmarks import check_schema
+
+    t0 = time.perf_counter()
+    path = ROOT / ANALYSIS_REPORT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--fail-on-findings",
+         str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py"),
+         "--baseline", str(ROOT / ANALYSIS_BASELINE), "--json", str(path)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    check(proc.returncode == 0 and path.exists(),
+          f"analysis: exit {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr).strip()[-2000:]}")
+    report = json.loads(path.read_text())
+    errors = check_schema.check_record(ANALYSIS_REPORT, report,
+                                       obs.SCHEMA_VERSION)
+    for name, rec in records.items():
+        errors += check_schema.check_record(name, rec, obs.SCHEMA_VERSION)
+    out = {"phase": "analysis", "files_scanned": report["files_scanned"],
+           "rules": [r["id"] for r in report["rules"]],
+           "findings": len(report["findings"]),
+           "suppressed": len(report["suppressed"]),
+           "stale_baseline": len(report["stale_baseline"]),
+           "records_checked": 1 + len(records), "schema_errors": len(errors),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(not errors, f"analysis: bench-schema errors {errors}")
     return out
 
 
@@ -4082,12 +4137,16 @@ def main() -> int:
     clock("lm_load_sweep")
     lm_load_sweep_mesh(torch, dev, smi, unsharded_sweep)
     clock("lm_load_sweep_mesh")
-    load_sweep_phase(torch, dev, smi)
+    load_rec = load_sweep_phase(torch, dev, smi)
     clock("load_sweep")
 
     # -- the decode benchmark's twin and its cell audit -----------------------
-    decode_throughput_phase(torch, dev, smi)
+    decode_rec = decode_throughput_phase(torch, dev, smi)
     clock("decode_throughput")
+
+    # -- the AST rule pack and the bench-schema guard -------------------------
+    analysis_phase({"load_sweep": load_rec, "decode_throughput": decode_rec})
+    clock("analysis")
 
     # -- 4. times -------------------------------------------------------------
     # the floor of device_ms: one launch that does next to no work

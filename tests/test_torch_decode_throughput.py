@@ -143,6 +143,27 @@ def test_plans_admission_and_paged_equal_the_references(records):
         assert rec["paged"][k] == ref["paged"][k], k
 
 
+def test_the_record_passes_both_schema_guards(records, tmp_path):
+    """The port's bench-schema guard and the reference's script (loaded
+    by path; it imports nothing of jax for a benchmark record) pass the
+    twin's record: its telemetry, paged and cell_audit sections."""
+    import importlib.util
+
+    from repro_torch import obs
+    from repro_torch.benchmarks import check_schema
+
+    rec, _ = records
+    path = tmp_path / "BENCH_decode.json"
+    path.write_text(json.dumps(rec))
+    spec = importlib.util.spec_from_file_location(
+        "_reference_check_bench_schema",
+        REPO / "scripts" / "check_bench_schema.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert check_schema.check_record("rec", rec, obs.SCHEMA_VERSION) == []
+    assert ref.check_file(str(path), obs.SCHEMA_VERSION) == []
+
+
 def test_check_fails_on_a_violation(records):
     rec, _ = records
     bad = {**rec, "cell_audit": {**rec["cell_audit"],

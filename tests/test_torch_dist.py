@@ -443,6 +443,27 @@ def test_dist_compression_trace_out_writes_both_files(bench):
     assert any(str(name).startswith("train/") for name in names), names
 
 
+def test_dist_compression_record_passes_both_schema_guards(bench, tmp_path):
+    """The port's bench-schema guard and the reference's script (loaded
+    by path) pass the twin's record: its telemetry and cell_audit."""
+    import importlib.util
+    import json as _json
+
+    from repro_torch import obs
+    from repro_torch.benchmarks import check_schema
+
+    rec = bench[0]
+    path = tmp_path / "BENCH_dist.json"
+    path.write_text(_json.dumps(rec))
+    spec = importlib.util.spec_from_file_location(
+        "_reference_check_bench_schema",
+        REPO / "scripts" / "check_bench_schema.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert check_schema.check_record("rec", rec, obs.SCHEMA_VERSION) == []
+    assert ref.check_file(str(path), obs.SCHEMA_VERSION) == []
+
+
 @pytest.mark.parametrize("fault", ["two_signatures", "no_peak_memory_on_card"])
 def test_dist_compression_check_holds_the_references_gates(bench, fault):
     """`check` fails a record whose `train.dp_step` cell saw two call
